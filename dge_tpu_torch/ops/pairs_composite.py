@@ -1,0 +1,258 @@
+"""Pair-stream compositing: the CUDA kernel's wrapper, its build and load,
+its plain PyTorch version, and the stream assembly.
+
+JAX counterpart: ``dge_tpu/ops/pallas_composite.py`` (``_pairs_kernel``,
+``composite_pairs_pallas``, ``assemble_stream_data``). The kernel is
+``dge_tpu_torch/csrc/pairs_composite.cu``; its source note states what it
+computes, the block rule it shares with the TPU kernel, and its bound.
+
+- ``assemble_stream_data`` gathers the 10 per-Gaussian features into stream
+  order, ``[10, Pc]``. (The JAX version pads to 16 rows for the TPU's
+  sublane tiling; nothing on the GPU needs the 6 zero rows.)
+- ``composite_pairs_reference`` is the plain version: a loop over the
+  chunk-aligned stream blocks with ``torch.cumprod`` inside a block, over
+  groups of tiles to bound memory.
+- ``composite_pairs_stream`` is the kernel's wrapper: it launches the
+  kernel on CUDA tensors, or raises; on CPU tensors it takes the plain
+  version.
+- ``composite_pairs`` is the image-level function: assemble, composite
+  through the wrapper or the plain version, add ``bg·T``, untile.
+
+Both versions write ``[T, 5, P]`` (rows r, g, b, depth, final T) and visit
+each chunk-aligned block of a tile's range once. The TPU wrapper clamps its
+block index to the stream's last block, so a tile whose range reaches that
+block re-runs it; the port does not copy that (ROADMAP.md §3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Tuple
+
+import torch
+
+ALPHA_EPS = 1.0 / 255.0
+ALPHA_MAX = 0.99
+T_EPS = 1e-4
+FEAT = 10  # mx, my, conic a, b, c, opacity, r, g, b, depth
+
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc", "pairs_composite.cu")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "build")
+
+# kernel launches since the last reset (one per launch, counted where the
+# kernel is launched and nowhere else)
+launch_counts = {"pairs_composite": 0}
+_lib = None
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac
+                         ) -> torch.Tensor:
+    """Gather per-Gaussian features into pair-stream order → [FEAT, Pc]."""
+    feat = torch.stack(
+        [
+            mean2d[:, 0], mean2d[:, 1],
+            conic[:, 0], conic[:, 1], conic[:, 2],
+            opac,
+            rgb[:, 0], rgb[:, 1], rgb[:, 2],
+            depth,
+        ],
+        dim=0,
+    ).float()
+    return feat.index_select(1, pair_ids.long()).contiguous()
+
+
+def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
+                              tile_px: int, chunk: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device → [T, 5, P].
+
+    Follows the block rule literally: blocks at absolute stream offsets
+    ``k·chunk``; inside a block an inclusive ``torch.cumprod`` of ``1-eff``,
+    a pair applied iff ``T_block·cp >= 1e-4``, ``w = eff·T_block·cp/(1-eff)``;
+    the committed T after the block is ``T_block·cp`` at its last applied
+    pair."""
+    dev = data.device
+    num_tiles = starts.shape[0]
+    p = tile_px * tile_px
+    pc = data.shape[1]
+    out = torch.zeros(num_tiles, 5, p, dtype=torch.float32, device=dev)
+    out[:, 4] = 1.0
+    if pc == 0:
+        return out
+    starts = starts.long()
+    ends = starts + counts.long()
+    first = starts // chunk
+    nblk = torch.where(counts > 0, (ends - 1) // chunk - first + 1,
+                       torch.zeros_like(first))
+    live = torch.nonzero(counts > 0).flatten()
+    if live.numel() == 0:
+        return out
+    pid = torch.arange(p, device=dev)
+    slot = torch.arange(chunk, device=dev)
+    # tiles per group: keep each [G, chunk, P] temporary near 2^23 floats
+    group = max(1, (1 << 23) // (chunk * p))
+    for g0 in range(0, live.numel(), group):
+        tiles = live[g0:g0 + group]
+        px = ((tiles % tiles_x) * tile_px)[:, None] + pid[None, :] % tile_px
+        py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
+        px = px.float()[:, None, :]  # [G, 1, P]
+        py = py.float()[:, None, :]
+        s, e, fb = starts[tiles], ends[tiles], first[tiles]
+        trans = torch.ones(tiles.numel(), 1, p, device=dev)
+        acc = torch.zeros(tiles.numel(), 4, p, device=dev)
+        for k in range(int(nblk[tiles].max())):
+            idx = (fb + k)[:, None] * chunk + slot[None, :]  # [G, C]
+            in_range = (idx >= s[:, None]) & (idx < e[:, None])
+            f = data[:, idx.clamp(max=pc - 1)][..., None]  # [FEAT, G, C, 1]
+            dx = f[0] - px
+            dy = f[1] - py
+            power = -0.5 * (f[2] * dx * dx + f[4] * dy * dy) - f[3] * dx * dy
+            alpha = torch.clamp(f[5] * torch.exp(power), max=ALPHA_MAX)
+            keep = (power <= 0.0) & (alpha >= ALPHA_EPS) & in_range[..., None]
+            eff = torch.where(keep, alpha, torch.zeros_like(alpha))
+            one_minus = 1.0 - eff
+            cp = torch.cumprod(one_minus, dim=1)  # inclusive, [G, C, P]
+            applied = trans * cp >= T_EPS
+            w = torch.where(applied, eff * trans * (cp / one_minus),
+                            torch.zeros_like(cp))
+            for r in range(4):
+                acc[:, r] += (w * f[6 + r]).sum(dim=1)
+            trans = trans * torch.where(applied, cp, torch.ones_like(cp)).amin(
+                dim=1, keepdim=True)
+        out[tiles, 0:4] = acc
+        out[tiles, 4] = trans[:, 0]
+    return out
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def build_library() -> str:
+    """Compile csrc/pairs_composite.cu into build/ unless a library built
+    from the same source bytes is already there; returns its path."""
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(BUILD_DIR, f"libpairs_composite_{digest}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-o", tmp, _SRC]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, lib_path)  # atomic: concurrent builds agree
+    with open(lib_path + ".ptxas.txt", "w") as fh:
+        fh.write(res.stderr)
+    return lib_path
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build_library())
+        lib.pairs_composite.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.pairs_composite.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
+                           tile_px: int, chunk: int) -> torch.Tensor:
+    """The kernel's wrapper → [T, 5, P]. On CUDA tensors it launches the
+    kernel, or raises on anything the kernel does not take; it never falls
+    back. On CPU tensors, where no kernel runs, it takes the plain version."""
+    num_tiles = starts.shape[0]
+    for name, t, dtype in (("data", data, torch.float32),
+                           ("starts", starts, torch.int32),
+                           ("counts", counts, torch.int32)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"composite_pairs_stream: {name} must be a "
+                             f"contiguous {dtype} tensor, got {t.dtype}")
+    if data.dim() != 2 or data.shape[0] != FEAT:
+        raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
+    if counts.shape != (num_tiles,) or starts.dim() != 1:
+        raise ValueError("starts and counts must be [T] each")
+    devices = {data.device, starts.device, counts.device}
+    if devices == {torch.device("cpu")}:
+        return composite_pairs_reference(data, starts, counts, tiles_x=tiles_x,
+                                         tile_px=tile_px, chunk=chunk)
+    if len(devices) != 1 or data.device.type != "cuda":
+        raise ValueError("composite_pairs_stream: data, starts and counts "
+                         f"must share one CUDA device, got {devices}")
+    if not 1 <= tile_px <= 32:
+        raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
+                         "tile_px**2 <= 1024")
+    if not 1 <= chunk <= 1024:
+        raise ValueError(f"chunk {chunk} outside [1, 1024]")
+    if data.shape[1] >= 2 ** 31:
+        raise ValueError("stream too long for int32 offsets")
+    lib = _load()
+    out = torch.empty(num_tiles, 5, tile_px * tile_px, dtype=torch.float32,
+                      device=data.device)
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pairs_composite(
+            data.data_ptr(), data.shape[1], starts.data_ptr(),
+            counts.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_composite launch failed: cudaError {err}")
+    launch_counts["pairs_composite"] += 1
+    return out
+
+
+def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, tile_px: int,
+           height: int, width: int) -> torch.Tensor:
+    """[T, P, ...] tile-major pixels → [H, W, ...] image."""
+    trailing = tuple(x.shape[2:])
+    img = x.reshape((tiles_y, tiles_x, tile_px, tile_px) + trailing)
+    img = img.transpose(1, 2).reshape(
+        (tiles_y * tile_px, tiles_x * tile_px) + trailing)
+    return img[:height, :width]
+
+
+def composite_pairs(
+    pair_ids, starts, counts, mean2d, conic, rgb, depth, opac, *,
+    height: int, width: int, tiles_x: int, tiles_y: int, tile_px: int,
+    bg: torch.Tensor, chunk: int = 128, use_kernel: bool,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (color [H, W, 3], depth [H, W], final_T [H, W]) through the
+    kernel's wrapper (``use_kernel``) or the plain version."""
+    data = assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac)
+    starts = starts.to(torch.int32).contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    fn = composite_pairs_stream if use_kernel else composite_pairs_reference
+    out = fn(data, starts, counts, tiles_x=tiles_x, tile_px=tile_px,
+             chunk=chunk)
+    trans = out[:, 4, :]  # [T, P]
+    color = out[:, 0:3, :].transpose(1, 2) + trans[..., None] * bg[None, None, :]
+    geom = (tiles_x, tiles_y, tile_px, height, width)
+    return untile(color, *geom), untile(out[:, 3, :], *geom), untile(trans, *geom)

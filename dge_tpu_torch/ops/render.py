@@ -1,0 +1,274 @@
+"""High-level render API: preprocess -> pair binning -> pair-stream
+compositing, plus the spill-free evaluation renderer.
+
+JAX counterpart: ``dge_tpu/ops/render.py`` (``RenderOut``, ``render``,
+``grow_caps``, ``SpillFreeRenderer``); reference analog
+gaussian_renderer/__init__.py:45-150. Backends:
+
+- ``"cuda_stream"``: pair binning + the hand-written CUDA kernel
+  (ops/pairs_composite.py, the counterpart of JAX ``"pallas_stream"``),
+  through its wrapper, which takes the plain version for CPU tensors;
+- ``"torch"``: pair binning + the kernel's plain PyTorch version.
+
+``backend=None`` picks ``"cuda_stream"`` for a scene on a CUDA device and
+``"torch"`` for a scene on the CPU. The differentiable per-tile-list
+backends, ``render_weights`` and ``render_point_cloud`` belong to the
+training slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from dge_tpu_torch.ops import binning, pairs_composite, projection
+
+BACKENDS = ("cuda_stream", "torch")
+
+
+class RenderOut(NamedTuple):
+    color: torch.Tensor  # [H, W, 3]
+    depth: torch.Tensor  # [H, W]
+    alpha: torch.Tensor  # [H, W] 1 - final_T
+    radii: torch.Tensor  # [N]
+    visible: torch.Tensor  # [N] bool
+    spill: torch.Tensor  # scalar int32 binning overflow
+    # [4] int32 (slot, cap, tile, stream) overflow attribution
+    spill_parts: torch.Tensor = None
+
+
+def default_backend(device) -> str:
+    return "cuda_stream" if torch.device(device).type == "cuda" else "torch"
+
+
+def grow_caps(caps: dict, parts) -> dict:
+    """One spill-ladder rung: double ONLY the cap classes that overflowed.
+
+    ``caps`` keys: max_per_tile / max_tiles_per_gaussian / small_slots /
+    max_pairs / big_capacity. ``parts`` is RenderOut.spill_parts or None —
+    None doubles everything. A copy of the JAX ``grow_caps``, including its
+    ``big_capacity`` 0 -> 8192 jump (see ROADMAP.md §3). When every
+    attributed class is at its ceiling the caps come back unchanged: callers
+    treat that as an irreducible residual and stop."""
+    if parts is None:
+        wants = [True] * 4
+    else:
+        p = [int(x) for x in parts]
+        if len(p) == 3:  # legacy (gauss, tile, stream)
+            p = [p[0], p[0], p[1], p[2]]
+        wants = [x > 0 for x in p]
+    c = dict(caps)
+    slot, cap, tile, stream = wants
+    if slot:
+        c["max_tiles_per_gaussian"] = min(c["max_tiles_per_gaussian"] * 2, 256)
+    if cap:
+        c["small_slots"] = min(c["small_slots"] * 2, 32)
+        # 0 = the binning auto default (n/32 capped) — jump past it
+        c["big_capacity"] = (c["big_capacity"] * 2 if c["big_capacity"]
+                             else 8192)
+    if tile:
+        c["max_per_tile"] = c["max_per_tile"] * 2
+    if stream:
+        c["max_pairs"] = c["max_pairs"] * 2
+    return c
+
+
+def render(
+    scene,
+    cam,
+    bg: Optional[torch.Tensor] = None,
+    *,
+    tile_px: int = 32,
+    max_per_tile: int = 2048,
+    max_tiles_per_gaussian: int = 32,
+    max_pairs: int = 0,
+    big_capacity: int = 0,
+    small_slots: int = 4,
+    chunk: int = 64,
+    backend: Optional[str] = None,
+    tight_cull: bool = False,
+) -> RenderOut:
+    """Render ``scene`` from ``cam`` (a CameraArrays on the scene's device).
+
+    The compositor runs on stream blocks of ``max(chunk, 128)`` pairs, as
+    the JAX ``"pallas_stream"`` backend does. ``tight_cull`` drops (Gaussian,
+    tile) pairs no pixel of which can pass the alpha >= 1/255 skip — exact
+    for the image."""
+    backend = backend or default_backend(scene.device)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown render backend {backend!r}")
+    dev = scene.device
+    bg = (torch.zeros(3, device=dev) if bg is None
+          else torch.as_tensor(bg, dtype=torch.float32).to(dev))
+
+    with torch.no_grad():
+        prep = projection.preprocess(
+            scene.xyz,
+            scene.get_scaling,
+            scene.get_rotation,
+            scene.get_opacity,
+            scene.get_features,
+            scene.alive,
+            cam,
+            scene.active_sh_degree,
+            scene.max_sh_degree,
+        )
+        pb = binning.bin_gaussians_pairs(
+            prep.mean2d,
+            prep.depth,
+            prep.radius,
+            prep.visible,
+            height=cam.height,
+            width=cam.width,
+            tile_px=tile_px,
+            max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            max_pairs=max_pairs,
+            big_capacity=big_capacity,
+            small_slots=small_slots,
+            conic=prep.conic if tight_cull else None,
+            opacity=prep.opacity if tight_cull else None,
+        )
+        color, depth, final_t = pairs_composite.composite_pairs(
+            pb.pair_ids,
+            pb.starts,
+            pb.counts,
+            prep.mean2d,
+            prep.conic,
+            prep.rgb,
+            prep.depth,
+            prep.opacity,
+            height=cam.height,
+            width=cam.width,
+            tiles_x=pb.tiles_x,
+            tiles_y=pb.tiles_y,
+            tile_px=tile_px,
+            bg=bg,
+            chunk=max(chunk, 128),
+            use_kernel=backend == "cuda_stream",
+        )
+    return RenderOut(
+        color=color,
+        depth=depth,
+        alpha=1.0 - final_t,
+        radii=prep.radius,
+        visible=prep.visible,
+        spill=pb.spill,
+        spill_parts=pb.spill_parts,
+    )
+
+
+class SpillFreeRenderer:
+    """Adaptive-cap renderer for evaluation paths (render CLI, quality
+    eval): probe-and-grow the binning caps until ``spill == 0``.
+
+    The first rung enables exact tight tile culling; later rungs double
+    only the overflowing cap class (``grow_caps`` + ``spill_parts``). Every
+    rung syncs ``spill`` to the host. ``backend`` defaults to
+    ``"cuda_stream"`` for a scene on a CUDA device and ``"torch"`` for one
+    on the CPU; any other pairing raises.
+
+    Usage::
+
+        r = SpillFreeRenderer(scene, bg)
+        r.probe(cams[0])              # grow caps on a representative view
+        for cam in cams:
+            color, spill = r(cam)     # re-grows if this view still spills
+    """
+
+    def __init__(self, scene, bg=None, *, log=None, max_grow=8, backend=None,
+                 **render_kw):
+        want = default_backend(scene.device)
+        backend = backend or want
+        if backend != want:
+            raise ValueError(
+                f"SpillFreeRenderer: backend {backend!r} does not run on a "
+                f"scene on {scene.device} (expected {want!r})")
+        self._scene = scene
+        self._bg = bg
+        self._max_grow = max_grow
+        self._log = log if log is not None else (lambda msg: None)
+        n = int(scene.capacity)
+        caps = dict(
+            max_per_tile=4096,
+            max_tiles_per_gaussian=32,
+            small_slots=4,
+            # start at the bin_gaussians_pairs auto defaults so the ladder
+            # doubles from where the backend would have started
+            max_pairs=max(1 << 18, 1 << int(2 * n - 1).bit_length()),
+            big_capacity=1 << max(int(n // 32 - 1).bit_length(), 6),
+        )
+        for k in list(caps):
+            if k in render_kw:
+                v = render_kw.pop(k)
+                # render()'s 0/None sentinels mean "auto"; storing them here
+                # would make the doubling ladder multiply 0 forever
+                if v:
+                    caps[k] = v
+        self._caps = caps
+        self._kw = dict(render_kw, backend=backend)
+
+    @property
+    def caps(self):
+        return dict(self._caps)
+
+    @property
+    def tight_cull(self) -> bool:
+        return bool(self._kw.get("tight_cull"))
+
+    def render(self, cam) -> RenderOut:
+        """One render at the current caps (no ladder)."""
+        return render(self._scene, cam, self._bg, **self._kw, **self._caps)
+
+    def _fwd(self, cam):
+        o = self.render(cam)
+        return o.color, o.spill, o.spill_parts
+
+    def _grow(self, sp: int, parts=None):
+        """One ladder rung: "cull" (enabled culling), "grew" (caps doubled)
+        or "stuck" (attributed classes at their ceilings)."""
+        if not self._kw.get("tight_cull"):
+            self._kw["tight_cull"] = True
+            self._log(f"render spill {sp}: enabling tight_cull")
+            return "cull"
+        new = grow_caps(self._caps, parts)
+        if new == self._caps:
+            self._log(f"render spill {sp}: caps at ceilings — "
+                      "irreducible residual")
+            return "stuck"
+        self._caps = new
+        self._log(f"render spill {sp} (parts "
+                  f"{None if parts is None else [int(x) for x in parts]}"
+                  f"): growing caps to {self._caps}")
+        return "grew"
+
+    def probe(self, cam) -> int:
+        """Grow caps until ``cam`` renders with spill == 0 (or max_grow
+        rungs are exhausted — returns the residual spill, 0 on success)."""
+        grows = 0
+        while grows < self._max_grow:
+            _, sp, parts = self._fwd(cam)
+            if int(sp) == 0:
+                return 0
+            rung = self._grow(int(sp), parts)
+            if rung == "stuck":
+                return int(sp)
+            grows += 1 if rung == "grew" else 0
+        # ladder exhausted after a final grow: re-probe so the reported
+        # residual matches the caps actually in effect
+        _, sp, _ = self._fwd(cam)
+        return int(sp)
+
+    def __call__(self, cam, regrow: int = 4):
+        """Render one view spill-free, re-growing caps (``regrow`` rungs)
+        if this view is denser than the probe view. Returns (color, spill);
+        spill > 0 only if the ladder was exhausted."""
+        color, sp, parts = self._fwd(cam)
+        for _ in range(regrow):
+            if int(sp) == 0:
+                break
+            if self._grow(int(sp), parts) == "stuck":
+                break
+            color, sp, parts = self._fwd(cam)
+        return color, int(sp)
