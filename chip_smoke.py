@@ -1,24 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5]
 
-Builds the hand-written CUDA kernel from the checkout's sources and runs:
+Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
+process per source, started together) and runs:
 
-1. kernel vs plain: the pair-stream compositing kernel against its plain
-   PyTorch version on the block-boundary fixture and on a seeded random
-   scene (tolerances: colour 1e-4, depth 1e-3, final T 2e-4); phases 2 and
-   3 hold it against the plain version on their streams too;
-2. the main path: ``dge_tpu_torch.launch --render`` of the quality-gate
+1. kernels vs plain: the pair-stream compositing kernel (K1) and the two
+   backward kernels (pass 1 = K3, pass 2 = K4) against their plain PyTorch
+   versions on the block-boundary fixture and on a seeded random scene at
+   chunk 128 and 256 (tolerances: colour 1e-4, depth 1e-3, final T and
+   boundary T 2e-4; suffix and per-pair gradients 2e-3·max + 1e-7), and the
+   whole ``stream_composite`` backward against autograd through the plain
+   forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per field);
+   the later phases hold the kernels against the plain versions on their
+   streams too;
+2. the render path: ``dge_tpu_torch.launch --render`` of the quality-gate
    scene over the committed 16-view capture at 256^2, in-process, with the
-   kernel's launch counter set to 0 just before and read just after; spill
-   must be 0 after the cap ladder and the mean PSNR of the float renders
-   against the capture at least 41.5 dB;
-3. full width: the trained bench scene spill-free at 512^2 and at
+   launch counters set to 0 just before and read just after; spill must be
+   0 after the cap ladder and the mean PSNR of the float renders against
+   the capture at least 41.5 dB;
+3. full width, forward: the trained bench scene spill-free at 512^2 and at
    1920x1080, timed with CUDA events (whole render, its stages, kernel
-   alone, plain version).
+   alone, plain version);
+4. the training path: ``dge_tpu_torch.launch --fit`` on the same capture at
+   256^2 (SH degree 3, 1,200 steps, seed 0), counters set to 0 just before
+   and read just after, then the saved PLY rendered spill-free over the 16
+   views; every loss finite, at least one K1, K3 and K4 launch per step,
+   more than 8,000 Gaussians alive, train PSNR (last 100 steps) and
+   evaluation PSNR at least 30 dB;
+5. full width, training: on the bench scene at 512^2 with a seeded random
+   target and ``lambda_dssim=0``: K3 and K4 against their plain versions,
+   CUDA-event times of K1, K3 and K4 alone, of the stages of a train step,
+   of forward + backward of ``render`` and of a whole train step.
 
-It prints one JSON line per kernel, the card's name and power limit, and as
+``--phases`` runs a subset (for a quick check of a new kernel) and
+``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
+gate's own recipe); the result lines are printed only when all five ran. It prints one JSON line with every
+kernel, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
 device, or outside the repository, it fails. Imports nothing of JAX.
@@ -49,6 +68,13 @@ PSNR_MIN = 41.5
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 FLOPS_PER_PAIR_PIXEL = 25  # one exp + ~12 FMAs per (pair, pixel)
+# the backward kernels (csrc/pairs_backward.cu, source note): pass 1 is the
+# forward's walk plus g and the block sum; pass 2 adds dalpha and the chain
+FLOPS_PASS1 = 35
+FLOPS_PASS2 = 70
+GRAD_TOL = 2e-3  # x max|reference| + 1e-7, per field
+FIT_STEPS = 1200
+FIT_PSNR_MIN = 30.0
 
 
 def log(msg: str) -> None:
@@ -134,7 +160,8 @@ def stream_inputs(scene, cam, caps, tight_cull, tile_px, chunk):
                                                   tight_cull, tile_px)
     prep = preprocess()
     pb = binning(prep)
-    return dict(data=assembly(prep, pb), starts=pb.starts.contiguous(),
+    return dict(data=assembly(prep, pb), pair_ids=pb.pair_ids,
+                starts=pb.starts.contiguous(),
                 counts=pb.counts.contiguous(), tiles_x=pb.tiles_x,
                 tiles_y=pb.tiles_y, pairs=int(pb.counts.sum()),
                 chunk=max(chunk, 128), tile_px=tile_px)
@@ -149,6 +176,314 @@ def stage_ms(scene, cam, caps, tight_cull, tile_px) -> dict:
     return dict(preprocess_ms=cuda_ms(preprocess),
                 binning_ms=cuda_ms(lambda: binning(prep)),
                 assembly_ms=cuda_ms(lambda: assembly(prep, pb)))
+
+
+def backward_bounds(pairs: int, num_tiles: int, rows: int, tile_px: int):
+    """Least times of pass 1 and pass 2 on this card, as ``bound_ms``: every
+    input read once, every output written once, against the operations."""
+    p = tile_px * tile_px
+    out = []
+    for flops, nbytes in (
+            (FLOPS_PASS1, pairs * 40 + num_tiles * p * 20 + rows * p * 8),
+            (FLOPS_PASS2,
+             pairs * 40 + num_tiles * p * 24 + rows * p * 8 + pairs * 40)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = pairs * p * flops / F32_FLOPS
+        out.append((max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations"))
+    return out
+
+
+def rel_err(got, want, what: str) -> float:
+    """max|got - want| / max|want|; raises beyond GRAD_TOL·max + 1e-7."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    if not err <= GRAD_TOL * scale + 1e-7:
+        raise AssertionError(f"{what}: |err| {err} > {GRAD_TOL}*{scale}+1e-7")
+    return err / max(scale, 1e-30)
+
+
+def backward_args(inp, seed: int = 0):
+    """The backward kernels' inputs on one stream: a seeded random cotangent
+    [T, 5, P], the forward kernel's output and the compact row layout."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    dev = inp["data"].device
+    num_tiles = inp["starts"].shape[0]
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    cot = torch.randn(num_tiles, 5, inp["tile_px"] ** 2, generator=gen).to(dev)
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"])
+    fwd = PC.composite_pairs_stream(inp["data"], inp["starts"], inp["counts"],
+                                    **kw)
+    blk_off, row_tile, n_rows = PB.block_rows(
+        inp["starts"], inp["counts"], inp["chunk"], inp["data"].shape[1])
+    used = row_tile < num_tiles
+    return dict(inp, cot=cot, fwd=fwd, blk_off=blk_off, row_tile=row_tile,
+                n_rows=n_rows, used=used, rows=int(used.sum()), kw=kw)
+
+
+def backward_vs_plain(inp, what: str, seed: int = 0):
+    """Pass 1 and pass 2 kernels against their plain versions on one stream
+    (pass 2 of both kinds is fed the kernel's pass-1 output). Returns the
+    args and (max abs err of pass 1, of pass 2, and the same two relative to
+    the largest reference value of the field)."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    a = backward_args(inp, seed)
+    base = (a["data"], a["starts"], a["counts"], a["blk_off"])
+    before = dict(PC.launch_counts)
+    bt, suf = PB.pairs_pass1(*base, a["n_rows"], a["cot"], **a["kw"])
+    grads = PB.pairs_pass2(*base, a["row_tile"], a["cot"], a["fwd"], bt, suf,
+                           **a["kw"])
+    torch.cuda.synchronize()
+    if (PC.launch_counts["pairs_pass1"] != before["pairs_pass1"] + 1
+            or PC.launch_counts["pairs_pass2"] != before["pairs_pass2"] + 1):
+        raise AssertionError("backward launch counters did not advance")
+    bt_p, suf_p = PB.pass1_reference(*base, a["n_rows"], a["cot"], **a["kw"])
+    grads_p = PB.pass2_reference(*base, a["row_tile"], a["cot"], a["fwd"], bt,
+                                 suf, **a["kw"])
+    used = a["used"]
+    e_bt = float((bt[used] - bt_p[used]).abs().max()) if a["rows"] else 0.0
+    if e_bt > TOL["trans"]:
+        raise AssertionError(f"{what}: boundary T {e_bt} > {TOL['trans']}")
+    r_suf = rel_err(suf[used], suf_p[used], f"{what} pass 1 suffix")
+    r_g = [rel_err(grads[f], grads_p[f], f"{what} pass 2 row {f}")
+           for f in range(10)]
+    e1 = max(e_bt, float((suf[used] - suf_p[used]).abs().max())
+             if a["rows"] else 0.0)
+    e2 = float((grads - grads_p).abs().max())
+    log(f"  {what}: pass 1 boundary T max|err| {e_bt:.3e}, suffix rel "
+        f"{r_suf:.3e}; pass 2 per-pair grads rel {max(r_g):.3e} "
+        f"(rows {a['rows']}, pairs {inp['pairs']})")
+    a.update(boundary_t=bt, suffix=suf)
+    return a, (e1, e2, max(r_suf, e_bt), max(r_g))
+
+
+def backward_times(a, plain_reps: int = 2):
+    """CUDA-event times of pass 1, pass 2 and their plain versions."""
+    from dge_tpu_torch.ops import pairs_backward as PB
+
+    base = (a["data"], a["starts"], a["counts"], a["blk_off"])
+    p2 = (a["row_tile"], a["cot"], a["fwd"], a["boundary_t"], a["suffix"])
+    return dict(
+        pass1_ms=cuda_ms(lambda: PB.pairs_pass1(*base, a["n_rows"], a["cot"],
+                                                **a["kw"]), reps=20),
+        pass2_ms=cuda_ms(lambda: PB.pairs_pass2(*base, *p2, **a["kw"]),
+                         reps=20),
+        pass1_plain_ms=cuda_ms(lambda: PB.pass1_reference(
+            *base, a["n_rows"], a["cot"], **a["kw"]), reps=plain_reps,
+            warmup=1),
+        pass2_plain_ms=cuda_ms(lambda: PB.pass2_reference(
+            *base, *p2, **a["kw"]), reps=plain_reps, warmup=1))
+
+
+def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64):
+    """The whole stream_composite backward (K1 forward, K3 + K4 + fold)
+    against autograd through the plain forward: gradients of mean2d, conic,
+    opacity, rgb and depth under a seeded random cotangent on colour, depth
+    and final T."""
+    import torch
+
+    from dge_tpu_torch.ops import binning as B
+    from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import projection as P
+
+    prep = P.preprocess(scene.xyz, scene.get_scaling, scene.get_rotation,
+                        scene.get_opacity, scene.get_features, scene.alive,
+                        cam, scene.active_sh_degree, scene.max_sh_degree)
+    pb = B.bin_gaussians_pairs(prep.mean2d, prep.depth, prep.radius,
+                               prep.visible, height=cam.height,
+                               width=cam.width, tile_px=32, max_per_tile=4096)
+    # both sides composite the same stream, spilled or not
+    names = ("mean2d", "conic", "rgb", "depth", "opacity")
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    wts = [torch.randn(cam.height, cam.width, c, generator=gen).to(
+        scene.device) for c in (3, 1, 1)]
+    geom = dict(height=cam.height, width=cam.width, tiles_x=pb.tiles_x,
+                tiles_y=pb.tiles_y, tile_px=32, chunk=max(chunk, 128))
+    starts = pb.starts.to(torch.int32).contiguous()
+    counts = pb.counts.to(torch.int32).contiguous()
+    res = {}
+    for kind in ("kernels", "plain"):
+        leaves = [getattr(prep, k).detach().clone().requires_grad_(True)
+                  for k in names]
+        if kind == "kernels":
+            color, depth, tfin = PB.stream_composite(
+                *leaves, pb.pair_ids, starts, counts, **geom)
+        else:
+            color, depth, tfin = PC.composite_pairs(
+                pb.pair_ids, starts, counts, *leaves,
+                bg=torch.zeros(3, device=scene.device), use_kernel=False,
+                **geom)
+        loss = ((color * wts[0]).sum() + (depth * wts[1][..., 0]).sum()
+                + (tfin * wts[2][..., 0]).sum())
+        res[kind] = torch.autograd.grad(loss, leaves)
+    worst = 0.0
+    for k, got, want in zip(names, res["kernels"], res["plain"]):
+        r = rel_err(got, want, f"{what} d{k}")
+        log(f"  {what}: d{k} max|g| {float(want.abs().max()):.3e} "
+            f"rel err {r:.3e}")
+        worst = max(worst, r)
+    return worst
+
+
+def mean_psnr_against_capture(frames, names):
+    import numpy as np
+    import torch
+
+    from dge_tpu_torch.ops import losses as L
+    from dge_tpu_torch.utils import saving
+
+    psnrs = []
+    for img, name in zip(frames, names):
+        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"render {name}: bad shape or non-finite")
+        gt = saving.load_image(os.path.join(CAPTURE, "images", name + ".png"))
+        psnrs.append(float(L.psnr(torch.from_numpy(img),
+                                  torch.from_numpy(gt))))
+    return float(np.mean(psnrs)), psnrs
+
+
+def train_cell(scene, cam, caps, tight_cull, a, times):
+    """Phase 5: the stages of one train step on the bench scene at 512^2
+    (seeded random target, lambda_dssim=0), forward + backward of render,
+    and whole train steps, with and without the per-step host read of the
+    spill."""
+    import numpy as np
+    import torch
+
+    from dge_tpu_torch.ops import losses as L
+    from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import projection as P
+    from dge_tpu_torch.ops import render as R
+    from dge_tpu_torch.systems import fit as F
+    from dge_tpu_torch.systems import optim as O
+
+    dev = scene.device
+    target = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(cam.height, cam.width, 3)).astype(np.float32)).to(dev)
+    bg = torch.zeros(3, device=dev)
+    kw = dict(tile_px=32, chunk=64, tight_cull=tight_cull, **caps)
+
+    def leaf_scene():
+        return scene.with_params({k: v.detach().requires_grad_(True)
+                                  for k, v in scene.params().items()})
+
+    def prep_fwd_bwd():
+        s = leaf_scene()
+        prep = P.preprocess(s.xyz, s.get_scaling, s.get_rotation,
+                            s.get_opacity, s.get_features, s.alive, cam,
+                            s.active_sh_degree, s.max_sh_degree)
+        loss = (prep.mean2d.sum() + prep.conic.sum() + prep.rgb.sum()
+                + prep.depth.sum() + prep.opacity.sum())
+        return torch.autograd.grad(loss, list(s.params().values()))
+
+    def render_fwd_bwd():
+        s = leaf_scene()
+        out = R.render(s, cam, bg, backend="cuda_train", **kw)
+        return torch.autograd.grad(L.l1_loss(out.color, target),
+                                   list(s.params().values()))
+
+    img = R.render(scene, cam, bg, backend="cuda_stream", **kw).color
+
+    def loss_fwd_bwd():
+        x = img.detach().requires_grad_(True)
+        return torch.autograd.grad(L.l1_loss(x, target), x)
+
+    optimizer = O.make_optimizer(O.OptimConfig.scaled(1500))
+    params = {k: v.detach() for k, v in scene.params().items()}
+    opt_state = optimizer.init(params)
+    grads = {k: torch.randn_like(v) * 1e-3 for k, v in params.items()}
+    pair_grads = PB.pairs_pass2(
+        a["data"], a["starts"], a["counts"], a["blk_off"], a["row_tile"],
+        a["cot"], a["fwd"], a["boundary_t"], a["suffix"], **a["kw"])
+    pair_ids = a["pair_ids"]
+
+    stages = dict(
+        preprocess_fwd_bwd_ms=cuda_ms(prep_fwd_bwd),
+        fold_ms=cuda_ms(lambda: PB.fold_to_gaussians(pair_grads, pair_ids,
+                                                     scene.capacity)),
+        loss_fwd_bwd_ms=cuda_ms(loss_fwd_bwd),
+        adam_ms=cuda_ms(lambda: optimizer.update(grads, opt_state, params)),
+        render_fwd_bwd_ms=cuda_ms(render_fwd_bwd),
+    )
+
+    step = F.make_train_step(optimizer, lambda_dssim=0.0, **kw)
+    state = [scene, opt_state, F.FitState.create(scene.capacity, dev)]
+
+    def one_step(sync: bool):
+        s, o, f, aux = step(*state, cam, target, bg)
+        state[:] = [s, o, f]
+        if sync:
+            int(aux["spill"])
+        return aux
+
+    for _ in range(3):
+        one_step(True)
+    stages["train_step_ms"] = cuda_ms(lambda: one_step(False), reps=10,
+                                      warmup=0)
+    for name, sync in (("steps_per_s_sync", True), ("steps_per_s_nosync",
+                                                     False)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(20):
+            aux = one_step(sync)
+        torch.cuda.synchronize()
+        stages[name] = 20 / (time.time() - t0)
+    if not bool(torch.isfinite(aux["loss"])):
+        raise AssertionError("train step: non-finite loss")
+    busy = device_busy(lambda: one_step(True), steps=5)
+    if busy["device_busy_share"] is not None:
+        # the trace slows the host; the untraced step is the fairer base
+        busy["device_share_of_train_step"] = (busy["device_ms_per_step"]
+                                              / stages["train_step_ms"])
+    stages.update(busy)
+    stages.update(times)
+    return stages
+
+
+def device_busy(step, steps: int) -> dict:
+    """Share of the wall time of ``steps`` calls during which the card ran a
+    kernel, and the kernels that took most of it, from a torch.profiler
+    trace; ``None`` where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.time() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # kernels only: a host-side op's device time is its kernels' over again
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in events)
+    if total <= 0:
+        return dict(device_busy_share=None, device_kernels=None)
+    return dict(
+        device_busy_share=total / wall_us,
+        profiled_step_ms=wall_us / steps / 1e3,
+        device_ms_per_step=total / steps / 1e3,
+        device_launches_per_step=sum(e.count for e in events) / steps,
+        device_kernels=[(e.key[:60], dev_us(e) / steps / 1e3, e.count // steps)
+                        for e in events[:8]])
 
 
 def kernel_vs_plain(inp, what: str) -> float:
@@ -258,7 +593,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
+                    help="steps of phase 4's fit (default %(default)s; the "
+                    "quality gate's own recipe is 6000)")
     args = ap.parse_args(argv)
+    phases = {int(x) for x in args.phases.split(",")}
+    fit_steps = args.fit_steps
 
     import numpy as np
     import torch
@@ -269,15 +611,14 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     from dge_tpu_torch import launch
-    from dge_tpu_torch.ops import losses as L
+    from dge_tpu_torch.ops import cuda_build
     from dge_tpu_torch.ops import pairs_composite as PC
     from dge_tpu_torch.ops import render as R
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
-    from dge_tpu_torch.utils import saving
 
-    # parity: no TF32 anywhere (the render path itself has no matmul)
+    # parity: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -286,136 +627,289 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.time()
-    lib = PC.build_library()
-    log(f"built {os.path.relpath(lib, ROOT)} in {time.time() - t0:.1f} s")
-    with open(lib + ".ptxas.txt") as f:
-        for line in f.read().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-
-    # ---- phase 1: kernel vs plain --------------------------------------
-    log("phase 1: kernel vs plain")
-    errs = []
-    fx = boundary_fixture(dev)
-    errs.append(kernel_vs_plain(fx, "block-boundary fixture"))
-    got = PC.composite_pairs_stream(fx["data"], fx["starts"], fx["counts"],
-                                    tiles_x=1, tile_px=16, chunk=128)
-    c, t = float(got[0, 0].mean()), float(got[0, 4].mean())
-    log(f"  fixture colour {c:.6f} T {t:.6f} (block rule: 0.9975, 0.0025; "
-        "hard break: 0.995, 0.005)")
-    if abs(c - 0.9975) > 1e-6 or abs(t - 0.0025) > 1e-7:
-        raise AssertionError("block-boundary fixture: wrong block semantics")
-
-    rng = np.random.default_rng(0)
-    rscene = random_scene(rng, 4000, dev)
-    rcam = bench_camera(256, 256, dev)
-    for chunk in (128, 256):
-        inp = stream_inputs(rscene, rcam, {}, False, 32, chunk)
-        errs.append(kernel_vs_plain(inp, f"random scene chunk {chunk}"))
-    before = PC.launch_counts["pairs_composite"]
-    ko = R.render(rscene, rcam, tile_px=32, max_per_tile=4096)
-    po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
-                  backend="torch")
-    if PC.launch_counts["pairs_composite"] != before + 1:
-        raise AssertionError("cuda_stream render did not launch the kernel")
-    for a, b, tol, what in ((ko.color, po.color, TOL["color"], "colour"),
-                            (ko.depth, po.depth, TOL["depth"], "depth"),
-                            (ko.alpha, po.alpha, TOL["trans"], "alpha")):
-        e = float((a - b).abs().max())
-        log(f"  random scene render {what}: max|err| {e:.3e}")
-        if e > tol:
-            raise AssertionError(f"random scene render {what} {e} > {tol}")
-
-    # ---- phase 2: the main path ----------------------------------------
-    log("phase 2: main path (dge_tpu_torch.launch --render, quality-gate "
-        "scene over fit_capture at 256^2)")
+    libs = cuda_build.build_all()
+    log(f"built {[os.path.relpath(v, ROOT) for v in libs.values()]} in "
+        f"{time.time() - t0:.1f} s")
+    for lib in libs.values():
+        with open(lib + ".ptxas.txt") as f:
+            for line in f.read().splitlines():
+                if "registers" in line or "spill" in line:
+                    log(f"  ptxas: {line.strip()}")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="  [%(name)s] %(message)s")
-    with tempfile.TemporaryDirectory() as tmp:
-        PC.reset_launch_counts()
-        run = launch.main(["--render", "--gs_source", QUALITY_PLY,
-                           "--source", CAPTURE, "--out", tmp,
-                           "data.height=256", "data.width=256"])
-        main_launches = dict(PC.launch_counts)
-        n_png = len(os.listdir(os.path.join(run.trial_dir, "renders")))
-    log(f"  launches during the main path: {main_launches}")
-    if main_launches["pairs_composite"] < len(run.frames) + 1:
-        raise AssertionError("main path did not go through the kernel")
-    if run.spill != 0:
-        raise AssertionError(f"main path spill {run.spill} after the ladder")
-    if n_png != len(run.frames) or len(run.frames) != 16:
-        raise AssertionError(f"expected 16 renders, got {n_png}")
-    psnrs = []
-    for img, name in zip(run.frames, run.image_names):
-        if img.shape != (256, 256, 3) or not np.isfinite(img).all():
-            raise AssertionError(f"render {name}: bad shape or non-finite")
-        gt = saving.load_image(os.path.join(CAPTURE, "images", name + ".png"))
-        psnrs.append(float(L.psnr(torch.from_numpy(img),
-                                  torch.from_numpy(gt))))
-    mean_psnr = float(np.mean(psnrs))
-    log(f"  mean PSNR {mean_psnr:.4f} dB over {len(psnrs)} views "
-        f"(min {min(psnrs):.4f}), caps {run.caps}, tight_cull "
-        f"{run.tight_cull}")
-    if mean_psnr < PSNR_MIN:
-        raise AssertionError(f"mean PSNR {mean_psnr} < {PSNR_MIN}")
-    # the kernel at the main path's shapes: view 0 of the capture
-    qscene = G.load_ply(QUALITY_PLY, device=dev)
-    cs = DS.ColmapScene(CAPTURE, height=256, width=256)
-    qcam = CameraArrays.from_camera(cs.cameras[0], device=dev)
-    inp = stream_inputs(qscene, qcam, run.caps, run.tight_cull, 32, 64)
-    errs.append(kernel_vs_plain(inp, "main path view 0"))
-    kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
-    margs = (inp["data"], inp["starts"], inp["counts"])
-    main_ms = cuda_ms(lambda: PC.composite_pairs_stream(*margs, **kw), reps=20)
-    main_plain = cuda_ms(lambda: PC.composite_pairs_reference(*margs, **kw),
-                         reps=5, warmup=1)
-    main_bound, main_by = bound_ms(inp["pairs"], inp["starts"].shape[0], 32)
-    log(f"  main path view 0: kernel {main_ms:.4f} ms, plain "
-        f"{main_plain:.4f} ms, bound {main_bound:.5f} ms ({main_by}), "
-        f"pairs {inp['pairs']}")
 
-    # ---- phase 3: full width -------------------------------------------
-    log("phase 3: full width (bench scene; each cell also holds the kernel "
-        "against the plain version)")
-    bench = G.load_ply(BENCH_PLY, device=dev)
-    bg = torch.zeros(3, device=dev)
-    cells = [full_width_cell("512x512", bench, bench_camera(512, 512, dev),
-                             bg)]
-    cam1080 = bench_camera(1080, 1920, dev)
-    cells.append(full_width_cell(
-        "1920x1080", bench, cam1080, bg, chunk=256, tight_cull=True,
-        max_per_tile=2048, max_tiles_per_gaussian=64, small_slots=16,
-        max_pairs=3 << 18, big_capacity=16384))
-    errs += [c["max_abs_err"] for c in cells]
+    errs = {"pairs_composite": [], "pairs_pass1": [], "pairs_pass2": []}
+    rels = {"pairs_pass1": [], "pairs_pass2": []}
 
+    def hold(inp, what, seed=0):
+        """All three kernels against their plain versions on one stream."""
+        errs["pairs_composite"].append(kernel_vs_plain(inp, f"{what} K1"))
+        a, (e1, e2, r1, r2) = backward_vs_plain(inp, what, seed)
+        errs["pairs_pass1"].append(e1)
+        errs["pairs_pass2"].append(e2)
+        rels["pairs_pass1"].append(r1)
+        rels["pairs_pass2"].append(r2)
+        return a
+
+    bench = bg = None
+    if phases & {3, 5}:
+        bench = G.load_ply(BENCH_PLY, device=dev)
+        bg = torch.zeros(3, device=dev)
+
+    # ---- phase 1: kernels vs plain -------------------------------------
+    if 1 in phases:
+        log("phase 1: kernels vs plain")
+        fx = boundary_fixture(dev)
+        hold(fx, "block-boundary fixture")
+        got = PC.composite_pairs_stream(fx["data"], fx["starts"],
+                                        fx["counts"], tiles_x=1, tile_px=16,
+                                        chunk=128)
+        c, t = float(got[0, 0].mean()), float(got[0, 4].mean())
+        log(f"  fixture colour {c:.6f} T {t:.6f} (block rule: 0.9975, "
+            "0.0025; hard break: 0.995, 0.005)")
+        if abs(c - 0.9975) > 1e-6 or abs(t - 0.0025) > 1e-7:
+            raise AssertionError("block-boundary fixture: wrong block "
+                                 "semantics")
+
+        rng = np.random.default_rng(0)
+        rscene = random_scene(rng, 4000, dev)
+        rcam = bench_camera(256, 256, dev)
+        for chunk in (128, 256):
+            hold(stream_inputs(rscene, rcam, {}, False, 32, chunk),
+                 f"random scene chunk {chunk}", seed=chunk)
+        before = PC.launch_counts["pairs_composite"]
+        ko = R.render(rscene, rcam, tile_px=32, max_per_tile=4096)
+        po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
+                      backend="torch")
+        if PC.launch_counts["pairs_composite"] != before + 1:
+            raise AssertionError("cuda_stream render did not launch the "
+                                 "kernel")
+        for a, b, tol, what in ((ko.color, po.color, TOL["color"], "colour"),
+                                (ko.depth, po.depth, TOL["depth"], "depth"),
+                                (ko.alpha, po.alpha, TOL["trans"], "alpha")):
+            e = float((a - b).abs().max())
+            log(f"  random scene render {what}: max|err| {e:.3e}")
+            if e > tol:
+                raise AssertionError(f"random scene render {what} {e} > {tol}")
+        for chunk in (64, 256):
+            composite_grads_vs_autograd(
+                rscene, rcam, f"stream_composite backward chunk "
+                f"{max(chunk, 128)}", chunk)
+
+    # ---- phase 2: the render path --------------------------------------
+    render_launches = mean_psnr = psnrs = None
+    main_k1 = {}
+    if 2 in phases:
+        log("phase 2: render path (dge_tpu_torch.launch --render, "
+            "quality-gate scene over fit_capture at 256^2)")
+        with tempfile.TemporaryDirectory() as tmp:
+            PC.reset_launch_counts()
+            run = launch.main(["--render", "--gs_source", QUALITY_PLY,
+                               "--source", CAPTURE, "--out", tmp,
+                               "data.height=256", "data.width=256"])
+            render_launches = dict(PC.launch_counts)
+            n_png = len(os.listdir(os.path.join(run.trial_dir, "renders")))
+        log(f"  launches during the render path: {render_launches}")
+        if render_launches["pairs_composite"] < len(run.frames) + 1:
+            raise AssertionError("render path did not go through the kernel")
+        if run.spill != 0:
+            raise AssertionError(f"render path spill {run.spill} after the "
+                                 "ladder")
+        if n_png != len(run.frames) or len(run.frames) != 16:
+            raise AssertionError(f"expected 16 renders, got {n_png}")
+        mean_psnr, psnrs = mean_psnr_against_capture(run.frames,
+                                                     run.image_names)
+        log(f"  mean PSNR {mean_psnr:.4f} dB over {len(psnrs)} views "
+            f"(min {min(psnrs):.4f}), caps {run.caps}, tight_cull "
+            f"{run.tight_cull}")
+        if mean_psnr < PSNR_MIN:
+            raise AssertionError(f"mean PSNR {mean_psnr} < {PSNR_MIN}")
+        # the kernel at the render path's shapes: view 0 of the capture
+        qscene = G.load_ply(QUALITY_PLY, device=dev)
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        qcam = CameraArrays.from_camera(cs.cameras[0], device=dev)
+        inp = stream_inputs(qscene, qcam, run.caps, run.tight_cull, 32, 64)
+        errs["pairs_composite"].append(
+            kernel_vs_plain(inp, "render path view 0"))
+        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
+        margs = (inp["data"], inp["starts"], inp["counts"])
+        main_k1 = dict(
+            ms=cuda_ms(lambda: PC.composite_pairs_stream(*margs, **kw),
+                       reps=20),
+            plain_ms=cuda_ms(lambda: PC.composite_pairs_reference(*margs,
+                                                                  **kw),
+                             reps=5, warmup=1))
+        main_k1["bound_ms"], main_k1["bound_by"] = bound_ms(
+            inp["pairs"], inp["starts"].shape[0], 32)
+        log(f"  render path view 0: kernel {main_k1['ms']:.4f} ms, plain "
+            f"{main_k1['plain_ms']:.4f} ms, bound {main_k1['bound_ms']:.5f} "
+            f"ms ({main_k1['bound_by']}), pairs {inp['pairs']}")
+
+    # ---- phase 3: full width, forward ----------------------------------
+    cells = []
+    if 3 in phases:
+        log("phase 3: full width (bench scene; each cell also holds the "
+            "kernel against the plain version)")
+        cells.append(full_width_cell("512x512", bench,
+                                     bench_camera(512, 512, dev), bg))
+        cells.append(full_width_cell(
+            "1920x1080", bench, bench_camera(1080, 1920, dev), bg, chunk=256,
+            tight_cull=True, max_per_tile=2048, max_tiles_per_gaussian=64,
+            small_slots=16, max_pairs=3 << 18, big_capacity=16384))
+        errs["pairs_composite"] += [c["max_abs_err"] for c in cells]
+
+    # ---- phase 4: the training path ------------------------------------
+    fit = {}
+    if 4 in phases:
+        log(f"phase 4: training path (dge_tpu_torch.launch --fit on "
+            f"fit_capture at 256^2, SH 3, {fit_steps} steps, seed 0)")
+        with tempfile.TemporaryDirectory() as tmp:
+            PC.reset_launch_counts()
+            frun = launch.main(["--fit", "--source", CAPTURE, "--out", tmp,
+                                "--seed", "0", "data.height=256",
+                                "data.width=256", "system.sh_degree=3",
+                                f"trainer.max_steps={fit_steps}"])
+            fit_launches = dict(PC.launch_counts)
+            log(f"  launches during the fit: {fit_launches}; "
+                f"{frun.steps / frun.seconds:.2f} steps/s "
+                f"({frun.seconds:.1f} s), alive {frun.n_alive}, last-100 "
+                f"train PSNR {frun.last_psnr:.3f} dB, caps {frun.caps}")
+            if not frun.losses_finite:
+                raise AssertionError("fit: a loss was not finite")
+            for k, v in fit_launches.items():
+                if v < fit_steps:
+                    raise AssertionError(f"fit: {k} launched {v} times in "
+                                         f"{fit_steps} steps")
+            if frun.n_alive <= 8000:
+                raise AssertionError(f"fit: alive {frun.n_alive} did not grow")
+            if frun.last_psnr < FIT_PSNR_MIN:
+                raise AssertionError(f"fit: train PSNR {frun.last_psnr} < "
+                                     f"{FIT_PSNR_MIN}")
+            erun = launch.main(["--render", "--gs_source", frun.ply_path,
+                                "--source", CAPTURE, "--out", tmp,
+                                "data.height=256", "data.width=256"])
+            if erun.spill != 0:
+                raise AssertionError("fit evaluation: spill after the ladder")
+            eval_psnr, eval_views = mean_psnr_against_capture(
+                erun.frames, erun.image_names)
+            log(f"  spill-free evaluation PSNR {eval_psnr:.4f} dB over "
+                f"{len(eval_views)} views (min {min(eval_views):.4f})")
+            if eval_psnr < FIT_PSNR_MIN:
+                raise AssertionError(f"fit: evaluation PSNR {eval_psnr} < "
+                                     f"{FIT_PSNR_MIN}")
+            # the kernels at the fit's shapes: view 0, the loop's final caps
+            fscene = G.load_ply(frun.ply_path, device=dev)
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        fcam = CameraArrays.from_camera(cs.cameras[0], device=dev)
+        fcaps = {k: v for k, v in frun.caps.items()
+                 if k not in ("tile_px", "chunk", "tight_cull")}
+        inp = stream_inputs(fscene, fcam, fcaps, frun.caps["tight_cull"],
+                            frun.caps["tile_px"], frun.caps["chunk"])
+        a = hold(inp, "fit view 0")
+        ft = backward_times(a, plain_reps=3)
+        fb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
+                             32)
+        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
+        margs = (inp["data"], inp["starts"], inp["counts"])
+        fit = dict(
+            steps=frun.steps, seconds=frun.seconds,
+            steps_per_s=frun.steps / frun.seconds, n_alive=frun.n_alive,
+            train_psnr_db=frun.last_psnr, eval_psnr_db=eval_psnr,
+            eval_views_db=eval_views, caps=frun.caps, launches=fit_launches,
+            view0=dict(pairs=inp["pairs"], rows=a["rows"],
+                       k1_ms=cuda_ms(lambda: PC.composite_pairs_stream(
+                           *margs, **kw), reps=20), **ft,
+                       pass1_bound_ms=fb[0][0], pass1_bound_by=fb[0][1],
+                       pass2_bound_ms=fb[1][0], pass2_bound_by=fb[1][1]))
+        log(f"  fit view 0: {fit['view0']}")
+
+    # ---- phase 5: full width, training ---------------------------------
+    train = {}
+    if 5 in phases:
+        log("phase 5: full width, training (bench scene at 512^2, seeded "
+            "random target, lambda_dssim=0)")
+        cam512 = bench_camera(512, 512, dev)
+        r = R.SpillFreeRenderer(bench, bg, tile_px=32,
+                                log=lambda m: log(f"  [512x512] {m}"))
+        if r.probe(cam512) != 0:
+            raise AssertionError("512x512: spill after the ladder")
+        inp = stream_inputs(bench, cam512, r.caps, r.tight_cull, 32, 64)
+        a = hold(inp, "512x512")
+        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
+        margs = (inp["data"], inp["starts"], inp["counts"])
+        times = backward_times(a)
+        times["k1_ms"] = cuda_ms(lambda: PC.composite_pairs_stream(
+            *margs, **kw), reps=20)
+        tb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
+                             32)
+        train = train_cell(bench, cam512, r.caps, r.tight_cull, a, times)
+        train.update(pairs=inp["pairs"], rows=a["rows"], caps=r.caps,
+                     tight_cull=r.tight_cull, pass1_bound_ms=tb[0][0],
+                     pass1_bound_by=tb[0][1], pass2_bound_ms=tb[1][0],
+                     pass2_bound_by=tb[1][1])
+        log("  512x512 training cell: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in train.items() if k != "device_kernels"))
+        for name, ms, count in train["device_kernels"] or []:
+            log(f"    device: {ms:.4f} ms/step in {count} launches of {name}")
+
+    if phases != {1, 2, 3, 4, 5}:
+        log(f"phases {sorted(phases)} passed; the result lines need all five")
+        return 0
+
+    v0 = fit["view0"]
     kernels = [{
         "name": "pairs_composite",
         "route": "cuda",
         "source": "dge_tpu_torch/csrc/pairs_composite.cu",
         "replaces": "dge_tpu/ops/pallas_composite.py:232",
-        "launches": main_launches["pairs_composite"],
-        "max_abs_err": max(errs),
-        "ms": main_ms,
-        "plain_ms": main_plain,
-        "bound_ms": main_bound,
-        "bound_by": main_by,
+        "launches": render_launches["pairs_composite"],
+        "launches_fit": fit["launches"]["pairs_composite"],
+        "max_abs_err": max(errs["pairs_composite"]),
+        **main_k1,
         "library_ms": None,  # no single PyTorch call computes this function
         "cells": cells,
+    }, {
+        "name": "pairs_pass1",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/pairs_backward.cu",
+        "replaces": "dge_tpu/ops/pallas_backward.py:111",
+        "launches": fit["launches"]["pairs_pass1"],
+        "max_abs_err": max(errs["pairs_pass1"]),
+        "max_rel_err": max(rels["pairs_pass1"]),  # of the field's max
+        "ms": v0["pass1_ms"],
+        "plain_ms": v0["pass1_plain_ms"],
+        "bound_ms": v0["pass1_bound_ms"],
+        "bound_by": v0["pass1_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "pairs_pass2",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/pairs_backward.cu",
+        "replaces": "dge_tpu/ops/pallas_backward.py:157",
+        "launches": fit["launches"]["pairs_pass2"],
+        "max_abs_err": max(errs["pairs_pass2"]),
+        "max_rel_err": max(rels["pairs_pass2"]),  # of the row's max |grad|
+        "ms": v0["pass2_ms"],
+        "plain_ms": v0["pass2_plain_ms"],
+        "bound_ms": v0["pass2_bound_ms"],
+        "bound_by": v0["pass2_bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
     }]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
-              "psnr_views_db": psnrs, "card": smi,
-              "seconds": time.time() - t_start}
+              "psnr_views_db": psnrs, "fit": fit, "train_512": train,
+              "card": smi, "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
-    log('kernels: ["pairs_composite"]')
+    log('kernels: ["pairs_composite", "pairs_pass1", "pairs_pass2"]')
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

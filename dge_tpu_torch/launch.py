@@ -1,17 +1,25 @@
 """CLI of the PyTorch/CUDA port.
 
-JAX counterpart: the repo's ``launch.py`` (``--render``, launch.py:151-198).
-This slice has the render mode only:
+JAX counterpart: the repo's ``launch.py`` (``--render``, launch.py:151-198;
+``--fit``, launch.py:232-307). Two modes:
 
     python -m dge_tpu_torch.launch --render --gs_source scene.ply \\
         --source capture_dir --out outputs [--cpu] [--config cfg.yaml] \\
         data.height=256 data.width=256
 
-It loads the PLY and the COLMAP capture, probes the spill-free binning caps
-on view 0 (tile_px 32), renders every view and writes
-``<out>/<name>/<tag>@<time>/renders/NNNN.png``, ``cmd.txt`` and
-``parsed.yaml``. It runs on the GPU unless ``--cpu`` is given; without a
-card and without ``--cpu`` it raises. Dotted overrides apply with or without
+    python -m dge_tpu_torch.launch --fit --source capture_dir --out outputs \\
+        [--cpu] [--seed 0] data.height=256 data.width=256 \\
+        system.sh_degree=3 trainer.max_steps=7000
+
+``--render`` loads the PLY and the COLMAP capture, probes the spill-free
+binning caps on view 0 (tile_px 32), renders every view and writes
+``<out>/<name>/<tag>@<time>/renders/NNNN.png``. ``--fit`` initialises a scene
+from the capture's COLMAP points and fits it to the capture's images (vanilla
+3DGS: L1 + SSIM, densify, opacity reset, SH step-up, spill ladder), writing
+``point_cloud.ply`` and ``metrics.jsonl`` (TensorBoard events too with
+``trainer.tensorboard=true``). Both write ``cmd.txt`` and
+``parsed.yaml``, run on the GPU unless ``--cpu`` is given, and raise without
+a card and without ``--cpu``. Dotted overrides apply with or without
 ``--config``.
 """
 
@@ -38,11 +46,27 @@ class RenderRun(NamedTuple):
     trial_dir: str
 
 
+class FitRun(NamedTuple):
+    ply_path: str  # the fitted scene
+    steps: int
+    last_psnr: float  # mean train PSNR over the last (up to) 100 steps
+    losses_finite: bool  # every step's L1 loss was finite
+    n_alive: int
+    caps: dict  # binning caps in effect at the end (FitLoop.caps)
+    launches: dict  # kernel launch counts of this run
+    seconds: float  # wall time of the training loop
+    trial_dir: str
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="dge_tpu_torch launcher")
     p.add_argument("--config", type=str, help="experiment YAML")
-    p.add_argument("--render", action="store_true",
-                   help="render a pretrained PLY for every capture view")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--render", action="store_true",
+                      help="render a pretrained PLY for every capture view")
+    mode.add_argument("--fit", action="store_true",
+                      help="fit a 3DGS scene to the capture's images")
+    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--gs_source", type=str, default=None, help="pretrained PLY")
     p.add_argument("--source", type=str, default=None, help="COLMAP scene dir")
     p.add_argument("--out", type=str, default="outputs")
@@ -58,8 +82,8 @@ def main(argv=None):
     from dge_tpu_torch.utils import config as C
     from dge_tpu_torch.utils import saving
 
-    if not args.render:
-        log.error("choose a mode: --render")
+    if not (args.render or args.fit):
+        log.error("choose a mode: --render / --fit")
         sys.exit(2)
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = C.load_config(args.config, args.overrides)
@@ -70,6 +94,8 @@ def main(argv=None):
 
     gs_source = args.gs_source or cfg.get("system", {}).get("gs_source")
     source = args.source or cfg.get("data", {}).get("source")
+    if args.fit:
+        return run_fit(cfg, source, trial_dir, args.seed, device)
     return run_render(cfg, gs_source, source, trial_dir, device)
 
 
@@ -112,6 +138,100 @@ def run_render(cfg, gs_source, source, trial_dir, device) -> RenderRun:
     log.info("wrote %d renders to %s", len(frames), out_dir)
     return RenderRun(frames, [c.image_name for c in cs.cameras], total_spill,
                      renderer.caps, renderer.tight_cull, trial_dir)
+
+
+def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
+    """Vanilla 3DGS fitting against the capture's images
+    (gaussiansplatting/train.py analog)."""
+    import time
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene import gaussians as G
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.systems import fit as F
+    from dge_tpu_torch.systems import optim as O
+    from dge_tpu_torch.utils import saving
+    from dge_tpu_torch.utils.logger import MetricsLogger
+
+    data_cfg = cfg.get("data", {})
+    h = int(data_cfg.get("height", 512))
+    w = int(data_cfg.get("width", 512))
+    cs = DS.ColmapScene(source, height=h, width=w)
+    pts, cols = cs.point_cloud()
+    # sh_degree=3 is the vanilla-3DGS default (train.py); DGE edits fit with
+    # sh_degree=0 (DGE.py configure)
+    sh_deg = int(cfg.get("system", {}).get("sh_degree", 3))
+    scene = G.create_from_pcd(pts, cols, max_sh_degree=sh_deg, device=device)
+    cams = [CameraArrays.from_camera(c, device=device) for c in cs.cameras]
+    targets = []
+    for c in cs.cameras:
+        img = saving.load_image(os.path.join(cs.images_dir,
+                                             c.image_name + ".png"))
+        if img.shape[:2] != (h, w):
+            raise ValueError(
+                f"{c.image_name}: image is {img.shape[:2]}, the fit runs at "
+                f"({h}, {w}); set data.height/data.width to the capture's size")
+        targets.append(torch.from_numpy(img).to(device))
+
+    ocfg = O.OptimConfig.scaled(
+        int(cfg.get("trainer", {}).get("max_steps", 7000)))
+    loop = F.FitLoop(ocfg, extent=cs.cameras_extent,
+                     spatial_lr_scale=cs.cameras_extent)
+    opt_state, fit_state = loop.init(scene)
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    bg = torch.zeros(3, device=device)
+    metrics = MetricsLogger(
+        trial_dir,
+        tensorboard=bool(cfg.get("trainer", {}).get("tensorboard", False)))
+    log.info("fitting %d gaussians to %d views on %s for %d steps",
+             scene.n_alive, len(cams), device, ocfg.max_steps)
+    before = dict(PC.launch_counts)
+    psnrs, losses = [], []
+    t0 = time.time()
+    for step in range(ocfg.max_steps):
+        i = int(rng.integers(len(cams)))
+        scene, opt_state, fit_state, aux = loop.train_step(
+            scene, opt_state, fit_state, cams[i], targets[i], bg)
+        scene, opt_state, fit_state, _ = loop.maybe_densify(
+            scene, opt_state, fit_state, gen)
+        scene, opt_state, fit_state = loop.maybe_housekeep(
+            scene, opt_state, fit_state)
+        # one host sync per step: training against truncated tile lists
+        # corrupts the scene, so the spill is read every step
+        spill = int(aux["spill"])
+        if loop.react_to_spill(spill, scene.capacity, aux.get("spill_parts")):
+            log.warning("step %d: binning spill persisted: caps now %s",
+                        step, loop.caps)
+        psnrs.append(aux["psnr"])
+        losses.append(aux["loss"])
+        if step % 10 == 0:
+            metrics.log(step, {
+                "train/loss": float(aux["loss"]),
+                "train/psnr": float(aux["psnr"]),
+                "train/n_alive": scene.n_alive,
+                "train/spill": spill,
+            })
+        if step % 100 == 0:
+            log.info("step %d loss %.4f psnr %.2f n=%d spill %d", step,
+                     float(aux["loss"]), float(aux["psnr"]), scene.n_alive,
+                     spill)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    metrics.close()
+    ply = os.path.join(trial_dir, "point_cloud.ply")
+    G.save_ply(scene, ply)
+    last = torch.stack(psnrs[-100:]).mean() if psnrs else torch.zeros(())
+    finite = bool(torch.isfinite(torch.stack(losses)).all()) if losses else True
+    log.info("saved %d gaussians to %s (last train PSNR %.2f dB, %.1f s)",
+             scene.n_alive, ply, float(last), seconds)
+    return FitRun(ply, ocfg.max_steps, float(last), finite, scene.n_alive,
+                  loop.caps,
+                  {k: v - before[k] for k, v in PC.launch_counts.items()},
+                  seconds, trial_dir)
 
 
 if __name__ == "__main__":

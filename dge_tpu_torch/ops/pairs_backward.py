@@ -1,0 +1,395 @@
+"""Differentiable pair-stream compositing: the forward kernel plus two
+hand-written backward kernels behind one ``torch.autograd.Function``.
+
+JAX counterpart: ``dge_tpu/ops/pallas_backward.py`` (``_pass1_kernel``,
+``_pass2_kernel``, ``_stream_backward``, ``stream_composite``). The kernels
+are ``dge_tpu_torch/csrc/pairs_backward.cu``; its source note states what
+they compute, the design and the bounds.
+
+- ``block_rows`` lays the (tile, stream block) rows out compactly.
+- ``pairs_pass1`` / ``pairs_pass2`` are the kernels' wrappers: CUDA tensors
+  launch the kernel or raise, CPU tensors take the plain version; nothing
+  falls back.
+- ``pass1_reference`` / ``pass2_reference`` are the plain PyTorch versions
+  (``torch.cumprod`` and a flipped ``cumsum`` per block), same inputs and
+  outputs as the kernels.
+- ``stream_backward`` runs pass 1, pass 2 and the fold to per-Gaussian
+  gradients ``[10, N]`` (one ``index_add_`` over ``pair_ids``).
+- ``stream_composite`` is the Function: forward = stream assembly + the
+  forward kernel (``pairs_composite.composite_pairs_stream``), backward =
+  ``stream_backward``. It returns (color, depth, final_T) with a zero
+  background; the caller adds ``bg·T``, so that autograd supplies dL/dT_fin.
+
+Every block of a tile's range is visited once. The TPU wrapper clamps its
+block index to the stream's last block, so a tile whose range reaches that
+block re-runs it and its gradients are added more than once; the port does
+not copy that (ROADMAP.md §3).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from dge_tpu_torch.ops import cuda_build
+from dge_tpu_torch.ops import pairs_composite as PC
+from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
+                                               T_EPS, launch_counts)
+
+MAX_CHUNK = 512  # pass 2 keeps 2 x [10, chunk] floats in static-size smem
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(cuda_build.build_library("pairs_backward"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.pairs_pass1.argtypes = [
+            ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
+        lib.pairs_pass1.restype = i32
+        lib.pairs_pass2.argtypes = [
+            ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
+            i32, i32, ptr, ptr]
+        lib.pairs_pass2.restype = i32
+        _lib = lib
+    return _lib
+
+
+def block_rows(starts, counts, chunk: int, pc: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Compact row layout of the (tile, stream block) pairs.
+
+    A tile with range [start, start + count) touches the chunk-aligned
+    blocks start//chunk .. (end-1)//chunk. Returns ``blk_off`` [T] int32 (the
+    first row of each tile: the exclusive prefix sum of the block counts),
+    ``row_tile`` [R] int32 (the tile of each row; T marks an unused row) and
+    R = ceil(pc/chunk) + T, an upper bound of the rows in use that needs no
+    host sync (the tiles' ranges are disjoint and lie in [0, pc))."""
+    num_tiles = starts.shape[0]
+    s = starts.long()
+    e = s + counts.long()
+    nblk = torch.where(counts > 0, (e - 1) // chunk - s // chunk + 1,
+                       torch.zeros_like(s))
+    cum = torch.cumsum(nblk, 0)
+    n_rows = -(-pc // chunk) + num_tiles
+    row_tile = torch.searchsorted(
+        cum, torch.arange(n_rows, device=starts.device), right=True)
+    return ((cum - nblk).to(torch.int32), row_tile.to(torch.int32), n_rows)
+
+
+def _pixel_coords(tiles, tiles_x: int, tile_px: int, dev):
+    """Pixel coordinates of ``tiles`` [G] -> (px, py), each [G, 1, P]."""
+    pid = torch.arange(tile_px * tile_px, device=dev)
+    px = ((tiles % tiles_x) * tile_px)[:, None] + pid[None, :] % tile_px
+    py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
+    return px.float()[:, None, :], py.float()[:, None, :]
+
+
+def _block_state(data, idx, in_range, px, py, trans):
+    """The forward's per-block quantities for the stream positions ``idx``
+    [G, C] from the entering transmittance ``trans`` [G, 1, P] (the
+    arithmetic of ``composite_pairs_reference``)."""
+    pc = data.shape[1]
+    f = data[:, idx.clamp(0, pc - 1)][..., None]  # [FEAT, G, C, 1]
+    dx = f[0] - px
+    dy = f[1] - py
+    power = -0.5 * (f[2] * dx * dx + f[4] * dy * dy) - f[3] * dx * dy
+    ex = torch.exp(power)
+    raw = f[5] * ex
+    alpha = torch.clamp(raw, max=ALPHA_MAX)
+    keep = (power <= 0.0) & (alpha >= ALPHA_EPS) & in_range[..., None]
+    eff = torch.where(keep, alpha, torch.zeros_like(alpha))
+    one_minus = 1.0 - eff
+    cp = torch.cumprod(one_minus, dim=1)  # inclusive, [G, C, P]
+    applied = trans * cp >= T_EPS
+    t_prev = trans * (cp / one_minus)
+    w = torch.where(applied, eff * t_prev, torch.zeros_like(cp))
+    return dict(f=f, dx=dx, dy=dy, ex=ex, raw=raw, keep=keep, eff=eff,
+                one_minus=one_minus, cp=cp, applied=applied, t_prev=t_prev,
+                w=w)
+
+
+def _pair_g(f, cot):
+    """g = rgb·dL/dC + depth·dL/dD per (pair, pixel); cot [G, 5, P]."""
+    return (f[6] * cot[:, None, 0] + f[7] * cot[:, None, 1]
+            + f[8] * cot[:, None, 2] + f[9] * cot[:, None, 3])
+
+
+def pass1_reference(data, starts, counts, blk_off, n_rows: int, cot, *,
+                    tiles_x: int, tile_px: int, chunk: int):
+    """Plain PyTorch version of pass 1 → (boundary_T, suffix), each
+    [n_rows, P]: per (tile, stream block) row the transmittance entering the
+    block and the sum of ``w·g`` over this and all later blocks of the tile.
+    Unused rows are 0."""
+    dev = data.device
+    p = tile_px * tile_px
+    boundary_t = torch.zeros(n_rows, p, dtype=torch.float32, device=dev)
+    suffix = torch.zeros(n_rows, p, dtype=torch.float32, device=dev)
+    live = torch.nonzero(counts > 0).flatten()
+    if data.shape[1] == 0 or live.numel() == 0:
+        return boundary_t, suffix
+    starts = starts.long()
+    ends = starts + counts.long()
+    first = starts // chunk
+    nblk = (ends - 1) // chunk - first + 1
+    slot = torch.arange(chunk, device=dev)
+    group = max(1, (1 << 23) // (chunk * p))
+    for g0 in range(0, live.numel(), group):
+        tiles = live[g0:g0 + group]
+        px, py = _pixel_coords(tiles, tiles_x, tile_px, dev)
+        s, e, fb, nb = starts[tiles], ends[tiles], first[tiles], nblk[tiles]
+        row0 = blk_off[tiles].long()
+        cot_g = cot[tiles]
+        trans = torch.ones(tiles.numel(), 1, p, device=dev)
+        totals = []
+        for k in range(int(nb.max())):
+            idx = (fb + k)[:, None] * chunk + slot[None, :]
+            in_range = (idx >= s[:, None]) & (idx < e[:, None])
+            st = _block_state(data, idx, in_range, px, py, trans)
+            has = k < nb
+            boundary_t[(row0 + k)[has]] = trans[has, 0]
+            # 0 for a tile whose range ended before block k
+            totals.append((st["w"] * _pair_g(st["f"], cot_g)).sum(dim=1))
+            trans = trans * torch.where(
+                st["applied"], st["cp"], torch.ones_like(st["cp"])).amin(
+                    dim=1, keepdim=True)
+        run = torch.zeros(tiles.numel(), p, device=dev)
+        for k in reversed(range(len(totals))):
+            run = run + totals[k]
+            has = k < nb
+            suffix[(row0 + k)[has]] = run[has]
+    return boundary_t, suffix
+
+
+def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
+                    boundary_t, suffix, *, tiles_x: int, tile_px: int,
+                    chunk: int):
+    """Plain PyTorch version of pass 2 → per-pair gradients [10, Pc] in
+    stream order (rows mx, my, conic a, b, c, opacity, r, g, b, depth; 0 at
+    positions outside every tile's range). The in-block suffix is a flipped
+    ``cumsum``; the later blocks' part is ``suffix`` minus the block's own
+    total."""
+    dev = data.device
+    num_tiles = starts.shape[0]
+    p = tile_px * tile_px
+    pc = data.shape[1]
+    grads = torch.zeros(FEAT, pc, dtype=torch.float32, device=dev)
+    rows = torch.nonzero(row_tile < num_tiles).flatten()
+    if pc == 0 or rows.numel() == 0:
+        return grads
+    starts = starts.long()
+    ends = starts + counts.long()
+    slot = torch.arange(chunk, device=dev)
+    group = max(1, (1 << 22) // (chunk * p))
+    for g0 in range(0, rows.numel(), group):
+        r = rows[g0:g0 + group]
+        tiles = row_tile[r].long()
+        k = r - blk_off[tiles].long()
+        px, py = _pixel_coords(tiles, tiles_x, tile_px, dev)
+        idx = (starts[tiles] // chunk + k)[:, None] * chunk + slot[None, :]
+        in_range = (idx >= starts[tiles][:, None]) & (idx < ends[tiles][:, None])
+        st = _block_state(data, idx, in_range, px, py, boundary_t[r][:, None, :])
+        f, w, dx, dy = st["f"], st["w"], st["dx"], st["dy"]
+        cot_g = cot[tiles]  # [G, 5, P]
+        g = _pair_g(f, cot_g)
+        wg = w * g
+        suf_in = torch.flip(torch.cumsum(torch.flip(wg, [1]), 1), [1]) - wg
+        later = suffix[r][:, None, :] - wg.sum(dim=1, keepdim=True)
+        tfin_term = (cot_g[:, 4] * fwd_out[tiles, 4])[:, None, :]
+        contrib = (st["eff"] > 0.0) & st["applied"]
+        dalpha = torch.where(
+            contrib,
+            st["t_prev"] * g - (suf_in + later + tfin_term) / st["one_minus"],
+            torch.zeros_like(g))
+        # chain through alpha = min(0.99, op·exp(power)): none when clamped
+        da = torch.where((st["raw"] < ALPHA_MAX) & st["keep"], dalpha,
+                         torch.zeros_like(g))
+        dpow = da * st["raw"]
+        vals = torch.stack([
+            (dpow * (-(f[2] * dx + f[3] * dy))).sum(-1),
+            (dpow * (-(f[4] * dy + f[3] * dx))).sum(-1),
+            (dpow * (-0.5) * dx * dx).sum(-1),
+            (dpow * (-(dx * dy))).sum(-1),
+            (dpow * (-0.5) * dy * dy).sum(-1),
+            (da * st["ex"]).sum(-1),
+            (w * cot_g[:, None, 0]).sum(-1),
+            (w * cot_g[:, None, 1]).sum(-1),
+            (w * cot_g[:, None, 2]).sum(-1),
+            (w * cot_g[:, None, 3]).sum(-1),
+        ])  # [FEAT, G, C]
+        grads[:, idx[in_range]] = vals[:, in_range]
+    return grads
+
+
+def _check(name: str, tensors, chunk: int, tile_px: int):
+    """Shared argument checks; returns True when every tensor is on the CPU
+    (the plain version runs) and False when all share one CUDA device."""
+    for what, t, dtype in tensors:
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
+                             f"tensor, got {t.dtype}")
+    devices = {t.device for _, t, _ in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name}: all tensors must share one CUDA device, "
+                         f"got {devices}")
+    if not 1 <= tile_px <= 32:
+        raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
+                         "tile_px**2 <= 1024")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
+    return False
+
+
+def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
+                tiles_x: int, tile_px: int, chunk: int):
+    """Pass 1's wrapper → (boundary_T, suffix), each [n_rows, P]. On CUDA
+    tensors it launches the kernel (rows not in use are left unwritten), or
+    raises; on CPU tensors it takes the plain version."""
+    num_tiles = starts.shape[0]
+    p = tile_px * tile_px
+    f32, i32 = torch.float32, torch.int32
+    on_cpu = _check("pairs_pass1", (
+        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
+        ("blk_off", blk_off, i32), ("cot", cot, f32)), chunk, tile_px)
+    if data.dim() != 2 or data.shape[0] != FEAT:
+        raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
+    if cot.shape != (num_tiles, 5, p) or blk_off.shape != (num_tiles,):
+        raise ValueError("cot must be [T, 5, P] and blk_off [T]")
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    if on_cpu:
+        return pass1_reference(data, starts, counts, blk_off, n_rows, cot, **kw)
+    lib = _load()
+    boundary_t = torch.empty(n_rows, p, dtype=f32, device=data.device)
+    suffix = torch.empty(n_rows, p, dtype=f32, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.pairs_pass1(
+            data.data_ptr(), data.shape[1], starts.data_ptr(),
+            counts.data_ptr(), blk_off.data_ptr(), cot.data_ptr(), num_tiles,
+            tiles_x, tile_px, chunk, boundary_t.data_ptr(), suffix.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_pass1 launch failed: cudaError {err}")
+    launch_counts["pairs_pass1"] += 1
+    return boundary_t, suffix
+
+
+def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
+                boundary_t, suffix, *, tiles_x: int, tile_px: int, chunk: int):
+    """Pass 2's wrapper → per-pair gradients [10, Pc] in stream order. On
+    CUDA tensors it launches the kernel, or raises; on CPU tensors it takes
+    the plain version."""
+    num_tiles = starts.shape[0]
+    n_rows = row_tile.shape[0]
+    p = tile_px * tile_px
+    f32, i32 = torch.float32, torch.int32
+    on_cpu = _check("pairs_pass2", (
+        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
+        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32),
+        ("cot", cot, f32), ("fwd_out", fwd_out, f32),
+        ("boundary_t", boundary_t, f32), ("suffix", suffix, f32)),
+        chunk, tile_px)
+    if cot.shape != (num_tiles, 5, p) or fwd_out.shape != (num_tiles, 5, p):
+        raise ValueError("cot and fwd_out must be [T, 5, P]")
+    if boundary_t.shape != (n_rows, p) or suffix.shape != (n_rows, p):
+        raise ValueError("boundary_t and suffix must be [R, P], R = rows")
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    if on_cpu:
+        return pass2_reference(data, starts, counts, blk_off, row_tile, cot,
+                               fwd_out, boundary_t, suffix, **kw)
+    lib = _load()
+    # zeros: positions outside every tile's range are never written
+    grads = torch.zeros(FEAT, data.shape[1], dtype=f32, device=data.device)
+    with torch.cuda.device(data.device):
+        err = lib.pairs_pass2(
+            data.data_ptr(), data.shape[1], starts.data_ptr(),
+            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
+            n_rows, cot.data_ptr(), fwd_out.data_ptr(), boundary_t.data_ptr(),
+            suffix.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
+            grads.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_pass2 launch failed: cudaError {err}")
+    launch_counts["pairs_pass2"] += 1
+    return grads
+
+
+def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int):
+    """Per-pair gradients [10, Pc] → per-Gaussian [10, N]: one scatter-add
+    over the stream (plain PyTorch, as the TPU version folds in jnp)."""
+    out = torch.zeros(FEAT, num_gaussians, dtype=pair_grads.dtype,
+                      device=pair_grads.device)
+    return out.index_add_(1, pair_ids.long(), pair_grads)
+
+
+def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
+                    num_gaussians: int, *, tiles_x: int, tile_px: int,
+                    chunk: int):
+    """Pass 1 → pass 2 → fold; returns the per-Gaussian cotangents [10, N]
+    of (mean2d x, y, conic a, b, c, opacity, r, g, b, depth)."""
+    blk_off, row_tile, n_rows = block_rows(starts, counts, chunk,
+                                           data.shape[1])
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    boundary_t, suffix = pairs_pass1(data, starts, counts, blk_off, n_rows,
+                                     cot, **kw)
+    pair_grads = pairs_pass2(data, starts, counts, blk_off, row_tile, cot,
+                             fwd_out, boundary_t, suffix, **kw)
+    return fold_to_gaussians(pair_grads, pair_ids, num_gaussians)
+
+
+def image_to_tiles(x, tiles_x: int, tiles_y: int, tile_px: int):
+    """[H, W, ...] → [T, P, ...] tile-major, zero-padded to whole tiles (the
+    inverse of ``pairs_composite.untile``)."""
+    h, w = x.shape[:2]
+    trailing = tuple(x.shape[2:])
+    xp = x.new_zeros((tiles_y * tile_px, tiles_x * tile_px) + trailing)
+    xp[:h, :w] = x
+    xp = xp.reshape((tiles_y, tile_px, tiles_x, tile_px) + trailing)
+    return xp.transpose(1, 2).reshape(
+        (tiles_y * tiles_x, tile_px * tile_px) + trailing)
+
+
+class _StreamComposite(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mean2d, conic, rgb, depth, opac, pair_ids, starts,
+                counts, geom):
+        height, width, tiles_x, tiles_y, tile_px, chunk = geom
+        data = PC.assemble_stream_data(pair_ids, mean2d, conic, rgb, depth,
+                                       opac)
+        out = PC.composite_pairs_stream(data, starts, counts, tiles_x=tiles_x,
+                                        tile_px=tile_px, chunk=chunk)
+        ctx.save_for_backward(data, pair_ids, starts, counts, out)
+        ctx.geom = geom
+        ctx.num_gaussians = mean2d.shape[0]
+        g = (tiles_x, tiles_y, tile_px, height, width)
+        return (PC.untile(out[:, 0:3].transpose(1, 2), *g),
+                PC.untile(out[:, 3], *g), PC.untile(out[:, 4], *g))
+
+    @staticmethod
+    def backward(ctx, d_color, d_depth, d_tfin):
+        data, pair_ids, starts, counts, out = ctx.saved_tensors
+        height, width, tiles_x, tiles_y, tile_px, chunk = ctx.geom
+        cot_img = torch.cat([d_color, d_depth[..., None], d_tfin[..., None]],
+                            dim=-1).float()  # [H, W, 5]
+        cot = image_to_tiles(cot_img, tiles_x, tiles_y, tile_px).transpose(
+            1, 2).contiguous()  # [T, 5, P]
+        g = stream_backward(data, pair_ids, starts, counts, cot, out,
+                            ctx.num_gaussians, tiles_x=tiles_x,
+                            tile_px=tile_px, chunk=chunk)
+        return (g[0:2].T, g[2:5].T, g[6:9].T, g[9], g[5],
+                None, None, None, None)
+
+
+def stream_composite(mean2d, conic, rgb, depth, opac, pair_ids, starts,
+                     counts, *, height: int, width: int, tiles_x: int,
+                     tiles_y: int, tile_px: int, chunk: int):
+    """Differentiable pair-stream compositing → (color [H, W, 3], depth
+    [H, W], final_T [H, W]) over a zero background. Forward: the compositing
+    kernel; backward: the two backward kernels (plain versions on the CPU).
+    ``starts``/``counts`` are contiguous int32 [T]."""
+    return _StreamComposite.apply(
+        mean2d, conic, rgb, depth, opac, pair_ids, starts, counts,
+        (height, width, tiles_x, tiles_y, tile_px, chunk))

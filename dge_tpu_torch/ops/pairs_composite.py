@@ -27,29 +27,24 @@ block re-runs it; the port does not copy that (ROADMAP.md §3).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from typing import Tuple
 
 import torch
+
+from dge_tpu_torch.ops import cuda_build
 
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 FEAT = 10  # mx, my, conic a, b, c, opacity, r, g, b, depth
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                    "csrc", "pairs_composite.cu")
-BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build")
+_SRC = cuda_build.source_path("pairs_composite")
+BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches since the last reset (one per launch, counted where the
-# kernel is launched and nowhere else)
-launch_counts = {"pairs_composite": 0}
+# kernel is launched and nowhere else); pairs_pass1 and pairs_pass2 are the
+# backward kernels of ops/pairs_backward.py
+launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_pass2": 0}
 _lib = None
 
 
@@ -111,7 +106,7 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
         py = py.float()[:, None, :]
         s, e, fb = starts[tiles], ends[tiles], first[tiles]
         trans = torch.ones(tiles.numel(), 1, p, device=dev)
-        acc = torch.zeros(tiles.numel(), 4, p, device=dev)
+        acc = 0.0
         for k in range(int(nblk[tiles].max())):
             idx = (fb + k)[:, None] * chunk + slot[None, :]  # [G, C]
             in_range = (idx >= s[:, None]) & (idx < e[:, None])
@@ -127,8 +122,8 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
             applied = trans * cp >= T_EPS
             w = torch.where(applied, eff * trans * (cp / one_minus),
                             torch.zeros_like(cp))
-            for r in range(4):
-                acc[:, r] += (w * f[6 + r]).sum(dim=1)
+            acc = acc + torch.stack(
+                [(w * f[6 + r]).sum(dim=1) for r in range(4)], dim=1)
             trans = trans * torch.where(applied, cp, torch.ones_like(cp)).amin(
                 dim=1, keepdim=True)
         out[tiles, 0:4] = acc
@@ -136,44 +131,10 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
     return out
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    return os.path.join(home, "bin", "nvcc")
-
-
-def build_library() -> str:
-    """Compile csrc/pairs_composite.cu into build/ unless a library built
-    from the same source bytes is already there; returns its path."""
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(BUILD_DIR, f"libpairs_composite_{digest}.so")
-    if os.path.exists(lib_path):
-        return lib_path
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SRC]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, lib_path)  # atomic: concurrent builds agree
-    with open(lib_path + ".ptxas.txt", "w") as fh:
-        fh.write(res.stderr)
-    return lib_path
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build_library())
+        lib = ctypes.CDLL(cuda_build.build_library("pairs_composite"))
         lib.pairs_composite.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -5,15 +5,20 @@ JAX counterpart: ``dge_tpu/ops/render.py`` (``RenderOut``, ``render``,
 ``grow_caps``, ``SpillFreeRenderer``); reference analog
 gaussian_renderer/__init__.py:45-150. Backends:
 
-- ``"cuda_stream"``: pair binning + the hand-written CUDA kernel
+- ``"cuda_stream"``: pair binning + the hand-written CUDA forward kernel
   (ops/pairs_composite.py, the counterpart of JAX ``"pallas_stream"``),
-  through its wrapper, which takes the plain version for CPU tensors;
-- ``"torch"``: pair binning + the kernel's plain PyTorch version.
+  through its wrapper, which takes the plain version for CPU tensors. Not
+  differentiable through the kernel: for evaluation;
+- ``"cuda_train"``: the same forward kernel with the two hand-written
+  backward kernels behind one ``torch.autograd.Function``
+  (ops/pairs_backward.py, the counterpart of JAX ``"pallas_train"``);
+- ``"torch"``: pair binning + the forward kernel's plain PyTorch version,
+  differentiable by plain autograd: the CPU twin and the gradient oracle.
 
 ``backend=None`` picks ``"cuda_stream"`` for a scene on a CUDA device and
-``"torch"`` for a scene on the CPU. The differentiable per-tile-list
-backends, ``render_weights`` and ``render_point_cloud`` belong to the
-training slice.
+``"torch"`` for a scene on the CPU; ``default_train_backend`` gives the
+backend a trainer uses. The per-tile-list backends, ``render_weights`` and
+``render_point_cloud`` belong to the edit slice.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dge_tpu_torch.ops import binning, pairs_composite, projection
+from dge_tpu_torch.ops import (binning, pairs_backward, pairs_composite,
+                               projection)
 
-BACKENDS = ("cuda_stream", "torch")
+BACKENDS = ("cuda_stream", "cuda_train", "torch")
 
 
 class RenderOut(NamedTuple):
@@ -40,6 +46,12 @@ class RenderOut(NamedTuple):
 
 def default_backend(device) -> str:
     return "cuda_stream" if torch.device(device).type == "cuda" else "torch"
+
+
+def default_train_backend(device) -> str:
+    """``"cuda_train"`` (kernel forward and backward) on a CUDA device,
+    ``"torch"`` (plain autograd) on the CPU."""
+    return "cuda_train" if torch.device(device).type == "cuda" else "torch"
 
 
 def grow_caps(caps: dict, parts) -> dict:
@@ -85,6 +97,9 @@ def render(
     max_pairs: int = 0,
     big_capacity: int = 0,
     small_slots: int = 4,
+    scale_modifier: float = 1.0,
+    override_color: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
     chunk: int = 64,
     backend: Optional[str] = None,
     tight_cull: bool = False,
@@ -92,9 +107,14 @@ def render(
     """Render ``scene`` from ``cam`` (a CameraArrays on the scene's device).
 
     The compositor runs on stream blocks of ``max(chunk, 128)`` pairs, as
-    the JAX ``"pallas_stream"`` backend does. ``tight_cull`` drops (Gaussian,
-    tile) pairs no pixel of which can pass the alpha >= 1/255 skip — exact
-    for the image."""
+    the JAX pair-stream backends do. ``tight_cull`` drops (Gaussian, tile)
+    pairs no pixel of which can pass the alpha >= 1/255 skip: exact for
+    colour, depth and gradients. Preprocess runs under autograd whenever a
+    scene parameter (or ``mean2d_offset``, ``override_color``) requires a
+    gradient; binning always takes detached inputs. ``mean2d_offset`` [N, 2]
+    is added to the projected means: pass zeros and take the gradient with
+    respect to it to harvest per-Gaussian screen-space gradients for
+    densification."""
     backend = backend or default_backend(scene.device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown render backend {backend!r}")
@@ -102,22 +122,27 @@ def render(
     bg = (torch.zeros(3, device=dev) if bg is None
           else torch.as_tensor(bg, dtype=torch.float32).to(dev))
 
+    prep = projection.preprocess(
+        scene.xyz,
+        scene.get_scaling,
+        scene.get_rotation,
+        scene.get_opacity,
+        scene.get_features,
+        scene.alive,
+        cam,
+        scene.active_sh_degree,
+        scene.max_sh_degree,
+        scale_modifier=scale_modifier,
+        override_color=override_color,
+    )
+    mean2d = prep.mean2d
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
     with torch.no_grad():
-        prep = projection.preprocess(
-            scene.xyz,
-            scene.get_scaling,
-            scene.get_rotation,
-            scene.get_opacity,
-            scene.get_features,
-            scene.alive,
-            cam,
-            scene.active_sh_degree,
-            scene.max_sh_degree,
-        )
         pb = binning.bin_gaussians_pairs(
-            prep.mean2d,
-            prep.depth,
-            prep.radius,
+            mean2d.detach(),
+            prep.depth.detach(),
+            prep.radius.detach(),
             prep.visible,
             height=cam.height,
             width=cam.width,
@@ -127,32 +152,28 @@ def render(
             max_pairs=max_pairs,
             big_capacity=big_capacity,
             small_slots=small_slots,
-            conic=prep.conic if tight_cull else None,
-            opacity=prep.opacity if tight_cull else None,
+            conic=prep.conic.detach() if tight_cull else None,
+            opacity=prep.opacity.detach() if tight_cull else None,
         )
+    geom = dict(height=cam.height, width=cam.width, tiles_x=pb.tiles_x,
+                tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
+    feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
+    if backend == "cuda_train":
+        # kernel forward and kernel backward; bg·T stays outside the
+        # Function so that autograd supplies dL/dT_fin
+        color, depth, final_t = pairs_backward.stream_composite(
+            *feats, pb.pair_ids, pb.starts.to(torch.int32).contiguous(),
+            pb.counts.to(torch.int32).contiguous(), **geom)
+        color = color + final_t[..., None] * bg[None, None, :]
+    else:
         color, depth, final_t = pairs_composite.composite_pairs(
-            pb.pair_ids,
-            pb.starts,
-            pb.counts,
-            prep.mean2d,
-            prep.conic,
-            prep.rgb,
-            prep.depth,
-            prep.opacity,
-            height=cam.height,
-            width=cam.width,
-            tiles_x=pb.tiles_x,
-            tiles_y=pb.tiles_y,
-            tile_px=tile_px,
-            bg=bg,
-            chunk=max(chunk, 128),
-            use_kernel=backend == "cuda_stream",
-        )
+            pb.pair_ids, pb.starts, pb.counts, *feats, bg=bg,
+            use_kernel=backend == "cuda_stream", **geom)
     return RenderOut(
         color=color,
         depth=depth,
         alpha=1.0 - final_t,
-        radii=prep.radius,
+        radii=prep.radius.detach(),
         visible=prep.visible,
         spill=pb.spill,
         spill_parts=pb.spill_parts,

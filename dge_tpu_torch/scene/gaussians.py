@@ -9,19 +9,29 @@ Parameterization matches the reference (gaussian_model.py:42-57): scaling
 stored as log (activation exp), opacity as logit (sigmoid), rotation as an
 unnormalized wxyz quaternion (normalize), SH features split into DC + rest.
 In this system the Gaussian buffers are the weights; ``from_numpy_params``
-carries a JAX scene's buffers across as numpy arrays.
+carries a JAX scene's buffers across as numpy arrays. ``create_from_pcd``
+initialises a scene for fitting from a coloured point cloud.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from dge_tpu_torch import resolve_device
 from dge_tpu_torch.scene import ply as ply_io
+
+# Trainable leaf names, in reference optimizer-group order
+# (gaussian_model.py:346-357: xyz, f_dc, f_rest, opacity, scaling, rotation).
+PARAM_NAMES = ("xyz", "features_dc", "features_rest", "opacity", "scaling",
+               "rotation")
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x / (1.0 - x))
 
 
 @dataclasses.dataclass
@@ -71,6 +81,21 @@ class GaussianScene:
     def get_features(self) -> torch.Tensor:
         """[Np, K, 3] full SH coefficient stack."""
         return torch.cat([self.features_dc, self.features_rest], dim=1)
+
+    # ---- trainable parameters ----
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {k: getattr(self, k) for k in PARAM_NAMES}
+
+    def replace(self, **changes) -> "GaussianScene":
+        return dataclasses.replace(self, **changes)
+
+    def with_params(self, params: Dict[str, torch.Tensor]) -> "GaussianScene":
+        return self.replace(**params)
+
+    def one_up_sh_degree(self) -> "GaussianScene":
+        """Reference oneupSHdegree (gaussian_model.py:270-272)."""
+        return self.replace(
+            active_sh_degree=min(self.active_sh_degree + 1, self.max_sh_degree))
 
 
 def _pad(arr: np.ndarray, capacity: int, fill=0.0) -> np.ndarray:
@@ -207,3 +232,50 @@ def save_ply(scene: GaussianScene, path: str) -> None:
 def rgb_to_sh(rgb: np.ndarray) -> np.ndarray:
     """RGB2SH (utils/sh_utils.py:112-113): C0-normalized DC coefficient."""
     return (rgb - 0.5) / 0.28209479177387814
+
+
+def sh_to_rgb(sh: np.ndarray) -> np.ndarray:
+    return sh * 0.28209479177387814 + 0.5
+
+
+def mean_sq_dist_to_3nn(points: np.ndarray) -> np.ndarray:
+    """Mean squared distance to the 3 nearest neighbours per point
+    (simple-knn distCUDA2, simple_knn.cu:185-218), used to initialise the
+    Gaussian scales: the native grid-hash KNN (dge_tpu_torch/native.py) with
+    a scipy KDTree fallback. Host code."""
+    from dge_tpu_torch.native import knn_mean_sq_dist
+
+    return knn_mean_sq_dist(np.asarray(points, np.float32), k=3)
+
+
+def create_from_pcd(
+    points: np.ndarray,
+    colors: np.ndarray,
+    max_sh_degree: int = 3,
+    capacity: Optional[int] = None,
+    device="cuda",
+) -> GaussianScene:
+    """Initialise from a coloured point cloud (reference create_from_pcd,
+    gaussian_model.py:274-334): scales from the 3-NN mean squared distance,
+    opacity 0.1, identity rotation, DC-only colour."""
+    n = points.shape[0]
+    dist2 = np.maximum(mean_sq_dist_to_3nn(points.astype(np.float64)), 1e-7)
+    scaling = np.log(np.sqrt(dist2))[:, None].repeat(3, axis=1).astype(np.float32)
+    rotation = np.zeros((n, 4), dtype=np.float32)
+    rotation[:, 0] = 1.0
+    opacity = np.full((n, 1), np.log(0.1 / 0.9), dtype=np.float32)
+    features_dc = rgb_to_sh(colors.astype(np.float32)).reshape(n, 1, 3)
+    features_rest = np.zeros((n, (max_sh_degree + 1) ** 2 - 1, 3),
+                             dtype=np.float32)
+    return from_arrays(
+        points.astype(np.float32),
+        features_dc,
+        features_rest,
+        opacity,
+        scaling,
+        rotation,
+        max_sh_degree=max_sh_degree,
+        capacity=capacity,
+        active_sh_degree=0,
+        device=device,
+    )

@@ -1,0 +1,288 @@
+"""The backward of the pair-stream compositing in the PyTorch port: the
+analytic two-pass plain versions (``pass1_reference`` / ``pass2_reference`` +
+fold, the CPU twins of the CUDA kernels) against the JAX package's Pallas
+backward in interpret mode and against torch autograd through the plain
+forward; ``render`` gradients against ``jax.grad`` of the JAX ``"jnp"``
+backend. The port runs on the CPU; the same numpy inputs go through both
+packages. Gradient tolerance: 2e-3·max|g| + 1e-7 per field, the tolerance
+the JAX package sets for its own backward (tests/test_pallas.py:95-100)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dge_tpu.ops import pallas_backward as JPB
+from dge_tpu.ops import pallas_composite as JPC
+from dge_tpu.ops import render as JR
+from dge_tpu_torch.ops import pairs_backward as TPB
+from dge_tpu_torch.ops import pairs_composite as TPC
+from dge_tpu_torch.ops import render as TR
+from dge_tpu_torch.scene.camera_arrays import CameraArrays
+from tests.conftest import make_random_scene, make_test_camera
+from tests.test_torch_kernel import random_stream
+from tests.test_torch_scene import to_port
+
+ROWS = ("mean x", "mean y", "conic a", "conic b", "conic c", "opacity",
+        "r", "g", "b", "depth")
+
+
+def assert_grads_close(got, want, names, what=""):
+    for k, a, b in zip(names, got, want):
+        a, b = np.asarray(a), np.asarray(b)
+        scale = np.abs(b).max()
+        assert np.isfinite(a).all(), (what, k)
+        np.testing.assert_allclose(a, b, atol=2e-3 * scale + 1e-7, rtol=0,
+                                   err_msg=f"{what} {k}")
+
+
+def stream_case(rng, tail):
+    """A 2x2-tile stream at tile 16, chunk 128, with a random cotangent."""
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(
+        rng, 4, 16, tail)
+    pc = len(ids)
+    cot = rng.normal(size=(4, 5, 256)).astype(np.float32)
+    return dict(ids=ids, starts=starts, counts=counts, feats=(m, c, r, d, o),
+                tiles_x=tiles_x, pc=pc, cot=cot, n=len(m))
+
+
+def port_backward(case, chunk=128):
+    """Port: plain forward, then pass 1 + pass 2 + fold on CPU tensors."""
+    t = {k: torch.from_numpy(case[k]) for k in ("ids", "starts", "counts",
+                                                "cot")}
+    feats = [torch.from_numpy(x) for x in case["feats"]]
+    data = TPC.assemble_stream_data(t["ids"], *feats)
+    kw = dict(tiles_x=case["tiles_x"], tile_px=16, chunk=chunk)
+    out = TPC.composite_pairs_stream(data, t["starts"], t["counts"], **kw)
+    g = TPB.stream_backward(data, t["ids"], t["starts"], t["counts"],
+                            t["cot"], out, case["n"], **kw)
+    return data, out, g
+
+
+def jax_backward(case, chunk=128, max_per_tile=384):
+    """JAX: Pallas forward for T_fin, then `_stream_backward` (both Pallas
+    kernels in interpret mode) → [10, N]."""
+    m, c, r, d, o = case["feats"]
+    feat = np.zeros((JPC.FEAT, case["n"]), np.float32)
+    feat[:10] = np.stack([m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2], o,
+                          r[:, 0], r[:, 1], r[:, 2], d])
+    side = 16 * case["tiles_x"]
+    _, _, tfin = JPC.composite_pairs_pallas(
+        jnp.asarray(case["ids"]), jnp.asarray(case["starts"]),
+        jnp.asarray(case["counts"]), *(jnp.asarray(x) for x in (m, c, r, d, o)),
+        height=side, width=side, tiles_x=case["tiles_x"],
+        tiles_y=4 // case["tiles_x"], tile_px=16, bg=jnp.zeros(3),
+        max_per_tile=max_per_tile, chunk=chunk)
+    tfin_tiles = JPB._image_to_tiles(tfin, case["tiles_x"],
+                                     4 // case["tiles_x"], 16)
+    g = JPB._stream_backward(
+        jnp.asarray(case["ids"]), jnp.asarray(case["starts"]),
+        jnp.asarray(case["counts"]), jnp.asarray(feat),
+        jnp.asarray(case["cot"]), tfin_tiles, num_tiles=4,
+        tiles_x=case["tiles_x"], tile_px=16, chunk=chunk,
+        max_per_tile=max_per_tile)
+    return np.asarray(g)[:10], np.asarray(tfin_tiles)
+
+
+def pad_to_blocks(case, chunk, extra_blocks):
+    """Lengthen the stream to a whole number of blocks plus ``extra_blocks``
+    past the last tile's range (ids of the tail are never read in range)."""
+    end = int(case["starts"][-1] + case["counts"][-1])
+    want = -(-end // chunk) * chunk + extra_blocks * chunk
+    ids = np.zeros(want, np.int32)
+    keep = min(want, case["pc"])
+    ids[:keep] = case["ids"][:keep]
+    return dict(case, ids=ids, pc=want)
+
+
+def test_two_pass_matches_pallas_backward():
+    """pass1_reference + pass2_reference + fold against the JAX
+    `_stream_backward` on a stream that runs a block past the last tile."""
+    case = pad_to_blocks(stream_case(np.random.default_rng(5), 0), 128, 1)
+    _, out, g = port_backward(case)
+    g_ref, tfin = jax_backward(case)
+    np.testing.assert_allclose(out[:, 4].numpy(), tfin, atol=2e-4)
+    assert float(np.abs(g_ref).max()) > 1e-3  # a real gradient
+    assert_grads_close(g.numpy(), g_ref, ROWS, "vs pallas backward")
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_two_pass_matches_autograd_of_plain_forward(chunk):
+    """The analytic backward against torch autograd through
+    composite_pairs_reference, with a cotangent on all five outputs."""
+    case = stream_case(np.random.default_rng(6), 3)
+    data, out, g = port_backward(case, chunk)
+    ids = torch.from_numpy(case["ids"]).long()
+    starts, counts = (torch.from_numpy(case[k]) for k in ("starts", "counts"))
+    feat = torch.stack([torch.from_numpy(x) for x in (
+        case["feats"][0][:, 0], case["feats"][0][:, 1],
+        case["feats"][1][:, 0], case["feats"][1][:, 1],
+        case["feats"][1][:, 2], case["feats"][4], case["feats"][2][:, 0],
+        case["feats"][2][:, 1], case["feats"][2][:, 2], case["feats"][3])])
+    feat.requires_grad_(True)
+    plain = TPC.composite_pairs_reference(
+        feat[:, ids], starts, counts, tiles_x=case["tiles_x"], tile_px=16,
+        chunk=chunk)
+    assert torch.equal(plain.detach(), out)
+    (plain * torch.from_numpy(case["cot"])).sum().backward()
+    assert_grads_close(g.numpy(), feat.grad.numpy(), ROWS, "vs autograd")
+
+
+def test_block_rows_layout():
+    """Rows are compact, in tile order, and within the sync-free bound."""
+    starts = torch.tensor([0, 100, 100, 260, 700], dtype=torch.int32)
+    counts = torch.tensor([100, 0, 160, 440, 1], dtype=torch.int32)
+    blk_off, row_tile, n_rows = TPB.block_rows(starts, counts, 128, 1024)
+    # blocks: tile 0 -> {0}, tile 2 -> {0, 1, 2}, tile 3 -> {2..5}, tile 4 -> {5}
+    assert blk_off.tolist() == [0, 1, 1, 4, 8]
+    assert n_rows == 8 + 5
+    assert row_tile.tolist() == [0, 2, 2, 2, 3, 3, 3, 3, 4, 5, 5, 5, 5]
+
+
+def test_reference_backward_reruns_last_stream_block():
+    """The JAX backward clamps its block index to the stream's last block,
+    so a tile whose range reaches that block re-runs it and its gradients
+    are added again (pallas_backward.py:128,167,334-336). The port visits
+    each block once: it matches the JAX package on a stream that runs one
+    block past the tile, and differs from it on the short stream."""
+    total = 384
+    m = np.full((total, 2), 8.0, np.float32)  # all at pixel (8, 8)
+    c = np.zeros((total, 3), np.float32)  # conic 0: alpha = opacity
+    o = np.zeros(total, np.float32)
+    o[[0, 1, 2, 128]] = [0.5, 0.3, 0.4, 0.5]
+    r = np.tile(np.array([[1.0, 0.5, 0.25]], np.float32), (total, 1))
+    d = np.ones(total, np.float32)
+    cot = np.ones((1, 5, 256), np.float32)
+    base = dict(starts=np.zeros(1, np.int32), counts=np.full(1, 129, np.int32),
+                feats=(m, c, r, d, o), tiles_x=1, cot=cot, n=total)
+
+    def jax_one(pc):
+        case = dict(base, ids=np.arange(pc, dtype=np.int32), pc=pc)
+        feat = np.zeros((JPC.FEAT, total), np.float32)
+        feat[:10] = np.stack([m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2], o,
+                              r[:, 0], r[:, 1], r[:, 2], d])
+        # T_fin of the true image: (1-.5)(1-.3)(1-.4)(1-.5)
+        tfin = jnp.full((1, 256), 0.105, jnp.float32)
+        g = JPB._stream_backward(
+            jnp.asarray(case["ids"]), jnp.asarray(base["starts"]),
+            jnp.asarray(base["counts"]), jnp.asarray(feat), jnp.asarray(cot),
+            tfin, num_tiles=1, tiles_x=1, tile_px=16, chunk=128,
+            max_per_tile=256)
+        return np.asarray(g)[:10]
+
+    case = dict(base, ids=np.arange(384, dtype=np.int32), pc=384)
+    _, out, g = port_backward(case)
+    np.testing.assert_allclose(out[0, 4].numpy(), 0.105, atol=1e-6)
+    long, short = jax_one(384), jax_one(256)
+    assert_grads_close(g.numpy(), long, ROWS, "long stream")
+    # d colour of slot 128 = sum over pixels of its weight: 256 * 0.21 * 0.5
+    np.testing.assert_allclose(g[6, 128].item(), 256 * 0.105, rtol=1e-5)
+    # block 1 ran twice, the second time from the T it had left behind:
+    # slot 128's colour gradient is 256 * (0.105 + 0.0525)
+    np.testing.assert_allclose(short[6, 128], 1.5 * long[6, 128], rtol=1e-5)
+    _, _, g_short = port_backward(dict(case, ids=case["ids"][:256], pc=256))
+    np.testing.assert_allclose(g_short.numpy(), g.numpy(), atol=1e-6)
+
+
+def render_loss_torch(ts, cam, bg, target, offset, backend):
+    out = TR.render(ts, cam, bg, tile_px=16, max_per_tile=128, chunk=32,
+                    mean2d_offset=offset, backend=backend)
+    return (torch.mean((out.color - target) ** 2) + 0.1 * torch.mean(out.depth)
+            + 0.05 * torch.mean(out.alpha))
+
+
+def test_render_gradients_match_jax_jnp(rng):
+    """Gradients of all six parameter groups and of mean2d_offset through
+    the port's render (backend "torch": plain autograd; backend "cuda_train"
+    on CPU tensors: the analytic two-pass versions behind the Function)
+    against jax.grad of the JAX "jnp" backend
+    (sizes of tests/test_pallas.py:73-124)."""
+    js = make_random_scene(rng, n=48, capacity=64)
+    cam, jcam = make_test_camera(height=32, width=32)
+    target = rng.uniform(size=(32, 32, 3)).astype(np.float32)
+    bg = np.array([0.3, 0.1, 0.0], np.float32)
+
+    def jloss(params, offset):
+        out = JR.render(js.with_params(params), jcam, jnp.asarray(bg),
+                        tile_px=16, max_per_tile=128, chunk=32,
+                        mean2d_offset=offset, backend="jnp")
+        return (jnp.mean((out.color - jnp.asarray(target)) ** 2)
+                + 0.1 * jnp.mean(out.depth) + 0.05 * jnp.mean(out.alpha))
+
+    g_params, g_off = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        js.params(), jnp.zeros((64, 2)))
+    names = list(js.params())
+    want = [g_params[k] for k in names] + [g_off]
+    assert float(np.abs(np.asarray(g_off)).max()) > 1e-6
+    tcam = CameraArrays.from_camera(cam, "cpu")
+    for backend in ("torch", "cuda_train"):
+        ts = to_port(js)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in ts.params().items()}
+        offset = torch.zeros(64, 2, requires_grad=True)
+        loss = render_loss_torch(ts.with_params(params), tcam,
+                                 torch.from_numpy(bg),
+                                 torch.from_numpy(target), offset, backend)
+        got = torch.autograd.grad(loss, [params[k] for k in names] + [offset])
+        assert_grads_close([g.numpy() for g in got], want,
+                           names + ["mean2d_offset"], backend)
+
+
+def test_gradients_finite_with_dead_and_culled_rows(rng):
+    """torch.where does not stop a NaN from the branch not taken: dead rows
+    (scaling -20, opacity -10), Gaussians behind the camera and far off
+    screen must leave every gradient finite, and the dead rows' exactly 0."""
+    js = make_random_scene(rng, n=40, capacity=64, max_sh_degree=3)
+    xyz = np.asarray(js.xyz).copy()
+    xyz[0] = [0.0, 0.3, -4.0]  # at the camera centre
+    xyz[1] = [0.0, 0.0, -9.0]  # behind the camera
+    xyz[2] = [50.0, 0.0, 0.0]  # far off screen
+    xyz[3] = [0.0, 0.3, -3.8 + 1e-4]  # just inside the near plane
+    js = js.replace(xyz=jnp.asarray(xyz))
+    cam, _ = make_test_camera(height=32, width=32)
+    tcam = CameraArrays.from_camera(cam, "cpu")
+    target = torch.from_numpy(rng.uniform(size=(32, 32, 3)).astype(np.float32))
+    for backend in ("torch", "cuda_train"):
+        ts = to_port(js)
+        params = {k: v.clone().requires_grad_(True)
+                  for k, v in ts.params().items()}
+        offset = torch.zeros(64, 2, requires_grad=True)
+        loss = render_loss_torch(ts.with_params(params), tcam, None, target,
+                                 offset, backend)
+        grads = torch.autograd.grad(loss, list(params.values()) + [offset])
+        for k, g in zip(list(params) + ["offset"], grads):
+            assert bool(torch.isfinite(g).all()), (backend, k)
+            assert float(g[~ts.alive].abs().max()) == 0.0, (backend, k)
+        assert float(grads[0].abs().max()) > 0.0
+
+
+def test_cuda_train_on_cpu_launches_nothing(rng):
+    """On CPU tensors the Function's wrappers take the plain versions and
+    count no launch; the wrappers still check what they are given."""
+    ts = to_port(make_random_scene(rng, n=24))
+    cam, _ = make_test_camera(height=32, width=32)
+    before = dict(TPC.launch_counts)
+    assert set(before) == {"pairs_composite", "pairs_pass1", "pairs_pass2"}
+    xyz = ts.xyz.clone().requires_grad_(True)
+    out = TR.render(ts.replace(xyz=xyz), CameraArrays.from_camera(cam, "cpu"),
+                    tile_px=16, backend="cuda_train")
+    out.color.sum().backward()
+    assert float(xyz.grad.abs().max()) > 0
+    assert TPC.launch_counts == before
+    assert TR.default_train_backend("cuda") == "cuda_train"
+    assert TR.default_train_backend("cpu") == "torch"
+    case = stream_case(np.random.default_rng(1), 0)
+    t = {k: torch.from_numpy(case[k]) for k in ("starts", "counts", "cot")}
+    data = TPC.assemble_stream_data(torch.from_numpy(case["ids"]),
+                                    *(torch.from_numpy(x)
+                                      for x in case["feats"]))
+    blk_off, row_tile, n_rows = TPB.block_rows(t["starts"], t["counts"], 128,
+                                               case["pc"])
+    kw = dict(tiles_x=2, tile_px=16, chunk=128)
+    with pytest.raises(ValueError, match="cot must be"):
+        TPB.pairs_pass1(data, t["starts"], t["counts"], blk_off, n_rows,
+                        t["cot"][:, :4].contiguous(), **kw)
+    with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
+        TPB.pairs_pass1(data, t["starts"].long(), t["counts"], blk_off,
+                        n_rows, t["cot"], **kw)

@@ -1,12 +1,14 @@
-"""The CUDA compositing kernel of the PyTorch port: its wrapper's checks
-on the CPU, and the kernel against its plain version on a card (marked
-``gpu``; skips without a card). This file imports neither JAX nor the JAX
+"""The CUDA kernels of the PyTorch port (forward compositing, backward pass
+1 and pass 2): their wrappers' checks on the CPU, and each kernel against
+its plain version on a card (marked ``gpu``; skips without a card). This file imports neither JAX nor the JAX
 package, so the card's machine runs it without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 
-Tolerances: colour 1e-4, depth 1e-3, final T 2e-4 (f32 rounding: the
-kernel walks pairs one by one, the plain version uses torch.cumprod)."""
+Tolerances: colour 1e-4, depth 1e-3, final T and boundary T 2e-4 (f32
+rounding: the kernels walk pairs one by one, the plain versions use
+torch.cumprod); suffix sums and gradients 2e-3·max + 1e-7 per field (the
+pixel sums run in another order, and with shared-memory atomics)."""
 
 import os
 
@@ -83,10 +85,110 @@ def test_kernel_matches_plain_on_card(chunk):
     assert float(err[:, 4].max()) <= 2e-4
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_backward_kernels_match_plain_on_card(chunk):
+    """Pass 1 and pass 2 against their plain versions, and the whole
+    Function's gradients against autograd through the plain forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    rng = np.random.default_rng(4)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(
+        rng, 8, 32, tail=3)
+    dev = torch.device("cuda")
+    ids_t = torch.from_numpy(ids).to(dev)
+    feats = [torch.from_numpy(x).to(dev) for x in (m, c, r, d, o)]
+    data = TPC.assemble_stream_data(ids_t, *feats)
+    st = torch.from_numpy(starts).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
+    cot = torch.from_numpy(
+        rng.normal(size=(8, 5, 1024)).astype(np.float32)).to(dev)
+    fwd = TPC.composite_pairs_stream(data, st, ct, **kw)
+    blk_off, row_tile, n_rows = TPB.block_rows(st, ct, chunk, data.shape[1])
+    before = dict(TPC.launch_counts)
+    bt, suf = TPB.pairs_pass1(data, st, ct, blk_off, n_rows, cot, **kw)
+    grads = TPB.pairs_pass2(data, st, ct, blk_off, row_tile, cot, fwd, bt,
+                            suf, **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
+    assert TPC.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
+    bt_p, suf_p = TPB.pass1_reference(data, st, ct, blk_off, n_rows, cot, **kw)
+    grads_p = TPB.pass2_reference(data, st, ct, blk_off, row_tile, cot, fwd,
+                                  bt, suf, **kw)
+    used = row_tile < 8
+    assert float((bt[used] - bt_p[used]).abs().max()) <= 2e-4
+
+    def close(a, b):
+        return float((a - b).abs().max()) <= 2e-3 * float(b.abs().max()) + 1e-7
+
+    assert close(suf[used], suf_p[used])
+    for f in range(10):
+        assert close(grads[f], grads_p[f]), f
+    # the Function: kernels in both directions against plain autograd
+    geom = dict(height=32 * (8 // tiles_x), width=32 * tiles_x,
+                tiles_x=tiles_x, tiles_y=8 // tiles_x, tile_px=32, chunk=chunk)
+    wt = torch.from_numpy(rng.normal(size=(
+        geom["height"], geom["width"], 5)).astype(np.float32)).to(dev)
+    res = []
+    for use_kernels in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in feats]
+        if use_kernels:
+            col, dep, tfin = TPB.stream_composite(*leaves, ids_t, st, ct,
+                                                  **geom)
+        else:
+            col, dep, tfin = TPC.composite_pairs(
+                ids_t, st, ct, *leaves, bg=torch.zeros(3, device=dev),
+                use_kernel=False, **geom)
+        loss = ((col * wt[..., :3]).sum() + (dep * wt[..., 3]).sum()
+                + (tfin * wt[..., 4]).sum())
+        res.append(torch.autograd.grad(loss, leaves))
+    for got, want in zip(*res):
+        assert close(got, want)
+
+
+def test_backward_wrappers_take_plain_versions_for_cpu_tensors():
+    """On CPU tensors pass 1 and pass 2 run their plain versions and count
+    no launch; a chunk the kernels cannot stage is refused only for CUDA
+    tensors, which the CPU never reaches."""
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    rng = np.random.default_rng(0)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(rng, 4, 16, 5)
+    data = TPC.assemble_stream_data(*(torch.from_numpy(x)
+                                      for x in (ids, m, c, r, d, o)))
+    st, ct = torch.from_numpy(starts), torch.from_numpy(counts)
+    kw = dict(tiles_x=tiles_x, tile_px=16, chunk=128)
+    cot = torch.from_numpy(rng.normal(size=(4, 5, 256)).astype(np.float32))
+    fwd = TPC.composite_pairs_stream(data, st, ct, **kw)
+    blk_off, row_tile, n_rows = TPB.block_rows(st, ct, 128, data.shape[1])
+    before = dict(TPC.launch_counts)
+    bt, suf = TPB.pairs_pass1(data, st, ct, blk_off, n_rows, cot, **kw)
+    grads = TPB.pairs_pass2(data, st, ct, blk_off, row_tile, cot, fwd, bt,
+                            suf, **kw)
+    assert TPC.launch_counts == before
+    want = TPB.pass1_reference(data, st, ct, blk_off, n_rows, cot, **kw)
+    assert torch.equal(bt, want[0]) and torch.equal(suf, want[1])
+    assert grads.shape == (10, data.shape[1])
+    assert float(grads.abs().max()) > 0
+    # positions past every tile's range carry no gradient
+    assert float(grads[:, int(starts[-1] + counts[-1]):].abs().max()) == 0.0
+    with pytest.raises(ValueError, match=r"must be \[R, P\]"):
+        TPB.pairs_pass2(data, st, ct, blk_off, row_tile, cot, fwd, bt[:-1],
+                        suf, **kw)
+
+
 def test_build_paths_stay_in_repo():
+    from dge_tpu_torch.ops import cuda_build
+
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert TPC.BUILD_DIR == os.path.join(root, "build")
     assert os.path.isfile(TPC._SRC) and TPC._SRC.startswith(root)
+    for name in cuda_build.SOURCES:
+        assert os.path.isfile(cuda_build.source_path(name))
+    assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward")
 
 
 def test_cpu_render_takes_plain_version():
