@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -13,8 +13,12 @@ process per source, started together) and runs:
    boundary T 2e-4; suffix and per-pair gradients 2e-3·max + 1e-7), and the
    whole ``stream_composite`` backward against autograd through the plain
    forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per field);
-   the later phases hold the kernels against the plain versions on their
-   streams too;
+   the per-tile-list kernel (K2) on the list form of the fixture and on the
+   random scene's lists at chunk 128 and 256, with and without ``order``,
+   and the log-space arm of the stream kernel (K5) on the same streams as
+   K1, against its plain version and against K1 (colour 1e-4, depth 1e-3,
+   final T 2e-4); the later phases hold the kernels against the plain
+   versions on their streams too;
 2. the render path: ``dge_tpu_torch.launch --render`` of the quality-gate
    scene over the committed 16-view capture at 256^2, in-process, with the
    launch counters set to 0 just before and read just after; spill must be
@@ -32,11 +36,23 @@ process per source, started together) and runs:
 5. full width, training: on the bench scene at 512^2 with a seeded random
    target and ``lambda_dssim=0``: K3 and K4 against their plain versions,
    CUDA-event times of K1, K3 and K4 alone, of the stages of a train step,
-   of forward + backward of ``render`` and of a whole train step.
+   of forward + backward of ``render`` and of a whole train step;
+6. the evaluation path: ``dge_tpu_torch.launch --validate`` of the
+   quality-gate scene over the capture at 256^2, in-process, twice: on the
+   default backend (K1) and with ``--backend cuda_tiles`` (per-tile lists,
+   K2), counters set to 0 before each; spill 0 and mean PSNR at least 41.5
+   dB in both, the two within 0.02 dB, SSIM finite, K2 launched at least
+   once per view and K1 never in the second run; ``--export`` with an
+   8-frame orbit; the mask lift (``render_weights``) over the 16 views; K2
+   at the path's shapes and, on the bench scene, at 512^2 and 1920x1080
+   (whole ``cuda_tiles`` render, list binning, kernel, plain version, bound,
+   image against ``cuda_stream``); and the K1-vs-K5 tool
+   (``dge_tpu_torch.tools.proto_logdot``) at 512^2, counters set to 0
+   before it.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all five ran. It prints one JSON line with every
+gate's own recipe); the result lines are printed only when all six ran. It prints one JSON line with every
 kernel, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -73,8 +89,27 @@ FLOPS_PER_PAIR_PIXEL = 25  # one exp + ~12 FMAs per (pair, pixel)
 FLOPS_PASS1 = 35
 FLOPS_PASS2 = 70
 GRAD_TOL = 2e-3  # x max|reference| + 1e-7, per field
+FLOPS_LOGDOT = 27  # K1's count plus one log and one exp per (pair, pixel)
 FIT_STEPS = 1200
 FIT_PSNR_MIN = 30.0
+BACKENDS_PSNR_TOL = 0.02  # dB between the stream and the list validate run
+# list image against stream image, both spill-free. The two binnings keep
+# the same pairs in every tile, but order ties in quantised depth by
+# submission, which differs (the stream's two-tier emission submits small
+# Gaussians first), so some tiles' lists are permuted among equal depths. In
+# the tiles whose order is the same, the two families part only at a pixel
+# where a pair was refused (T·cp < 1e-4, chunks cut at other places): before
+# that pair T was below 1e-4 / (1 - 0.99), and all that later chunks can
+# still add is bounded by that residual, so there the images differ by less
+# than 1e-2, and only where the final T is below 1e-2
+LIST_VS_STREAM_TOL = 1e-2
+# where the pair-stream ladder starts on the bench scene at 1920x1080
+STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
+                          max_tiles_per_gaussian=64, small_slots=16,
+                          max_pairs=3 << 18, big_capacity=16384)
+ALL_PHASES = {1, 2, 3, 4, 5, 6}
+KERNEL_NAMES = ("pairs_composite", "pairs_pass1", "pairs_pass2",
+                "tiles_composite", "pairs_logdot")
 
 
 def log(msg: str) -> None:
@@ -101,12 +136,15 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound_ms(pairs: int, num_tiles: int, tile_px: int):
-    """Least time of the compositing on this card: bytes (stream read once,
-    [T, 5, P] written once) over HBM rate vs operations over f32 rate."""
+def bound_ms(pairs: int, num_tiles: int, tile_px: int,
+             flops: int = FLOPS_PER_PAIR_PIXEL, bytes_per_pair: int = 40):
+    """Least time of a forward compositing on this card: bytes (each pair's
+    features read once, 40 bytes, plus 4 for its list entry on the list
+    path; [T, 5, P] written once) over HBM rate vs operations over f32
+    rate."""
     p = tile_px * tile_px
-    t_bytes = (pairs * 10 * 4 + num_tiles * p * 5 * 4) / HBM_BYTES_PER_S
-    t_ops = pairs * p * FLOPS_PER_PAIR_PIXEL / F32_FLOPS
+    t_bytes = (pairs * bytes_per_pair + num_tiles * p * 5 * 4) / HBM_BYTES_PER_S
+    t_ops = pairs * p * flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -504,6 +542,179 @@ def kernel_vs_plain(inp, what: str) -> float:
     return compare(got, want, what)
 
 
+def list_inputs(scene, cam, caps, tight_cull, tile_px, chunk):
+    """The list kernel's inputs for one frame, as render(backend=
+    "cuda_tiles") forms them."""
+    import torch
+
+    from dge_tpu_torch.ops import binning as B
+    from dge_tpu_torch.ops import tiles_composite as TT
+
+    preprocess, _, _ = stream_stages(scene, cam, {}, tight_cull, tile_px)
+    prep = preprocess()
+
+    def binning():
+        return B.bin_gaussians(
+            prep.mean2d, prep.depth, prep.radius, prep.visible,
+            height=cam.height, width=cam.width, tile_px=tile_px,
+            max_per_tile=caps["max_per_tile"],
+            max_tiles_per_gaussian=caps["max_tiles_per_gaussian"],
+            conic=prep.conic if tight_cull else None,
+            opacity=prep.opacity if tight_cull else None)
+
+    bins = binning()
+    if int(bins.spill) != 0:
+        raise AssertionError(f"list binning spills {int(bins.spill)} at "
+                             f"{caps}")
+    feats = (prep.mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
+    return dict(feat=TT.feature_table(*feats), feats=feats,
+                lists=bins.lists.contiguous(), counts=bins.counts.contiguous(),
+                order=None, tiles_x=bins.tiles_x, tiles_y=bins.tiles_y,
+                pairs=int(bins.counts.sum()), chunk=max(chunk, 128),
+                tile_px=tile_px, binning=binning)
+
+
+def list_kernel_vs_plain(inp, what: str) -> float:
+    """K2 against its plain version (ops/composite.composite_lists at the
+    kernel's chunk) on one frame's lists."""
+    import torch
+
+    from dge_tpu_torch.ops import composite as CMP
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import tiles_composite as TT
+
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"])
+    before = PC.launch_counts["tiles_composite"]
+    got = TT.composite_tiles_kernel(inp["feat"], inp["lists"], inp["counts"],
+                                    inp["order"], **kw)
+    torch.cuda.synchronize()
+    if PC.launch_counts["tiles_composite"] != before + 1:
+        raise AssertionError("tiles_composite launch counter did not advance")
+    want = CMP.composite_lists(inp["lists"], inp["counts"], *inp["feats"],
+                               order=inp["order"], **kw)
+    return compare(got, want, what)
+
+
+def list_times(inp, plain_reps: int = 3) -> dict:
+    """CUDA-event times of K2, its plain version and the list binning, and
+    K2's bound, at one frame's shapes."""
+    from dge_tpu_torch.ops import composite as CMP
+    from dge_tpu_torch.ops import tiles_composite as TT
+
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"])
+    args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
+    b_ms, b_by = bound_ms(inp["pairs"], inp["counts"].shape[0],
+                          inp["tile_px"], bytes_per_pair=44)
+    return dict(
+        ms=cuda_ms(lambda: TT.composite_tiles_kernel(*args, **kw), reps=20),
+        plain_ms=cuda_ms(lambda: CMP.composite_lists(
+            inp["lists"], inp["counts"], *inp["feats"], order=inp["order"],
+            **kw), reps=plain_reps, warmup=1),
+        bound_ms=b_ms, bound_by=b_by,
+        bin_gaussians_ms=cuda_ms(inp["binning"], reps=5, warmup=1))
+
+
+def logdot_vs_plain(inp, what: str) -> float:
+    """K5 against its plain version and against K1 on one stream."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.tools import proto_logdot as LD
+
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"])
+    args = (inp["data"], inp["starts"], inp["counts"])
+    before = PC.launch_counts["pairs_logdot"]
+    got = LD.composite_pairs_logdot(*args, **kw)
+    torch.cuda.synchronize()
+    if PC.launch_counts["pairs_logdot"] != before + 1:
+        raise AssertionError("pairs_logdot launch counter did not advance")
+    err = compare(got, LD.composite_pairs_logdot_reference(*args, **kw),
+                  f"{what} K5 vs plain")
+    compare(got, PC.composite_pairs_stream(*args, **kw), f"{what} K5 vs K1")
+    return err
+
+
+def list_cell(name, scene, cam, bg, stream_start, *, chunk=64, **start):
+    """Phase 6, full width on lists: probe a spill-free ``cuda_tiles``
+    renderer, hold K2 against its plain version on the frame's lists, time
+    the whole render, the list binning, the kernel and the plain version,
+    and compare binning and image with the spill-free ``cuda_stream`` ones:
+    the same pairs in every tile, and in the tiles that also hold them in
+    the same order, images that differ by the chunk rule alone."""
+    import torch
+
+    from dge_tpu_torch.ops import render as R
+
+    r = R.SpillFreeRenderer(scene, bg, tile_px=32, chunk=chunk,
+                            backend="cuda_tiles",
+                            log=lambda m: log(f"  [{name} lists] {m}"),
+                            **start)
+    if r.probe(cam) != 0:
+        raise AssertionError(f"{name} lists: spill after the ladder")
+    out = r.render(cam)
+    if int(out.spill) != 0 or not bool(torch.isfinite(out.color).all()):
+        raise AssertionError(f"{name} lists: spill or non-finite colour")
+    rs = R.SpillFreeRenderer(scene, bg, tile_px=32, chunk=chunk,
+                             **stream_start)
+    if rs.probe(cam) != 0:
+        raise AssertionError(f"{name}: cuda_stream spills after the ladder")
+    stream = rs.render(cam)
+    inp = list_inputs(scene, cam, r.caps, r.tight_cull, 32, chunk)
+    sinp = stream_inputs(scene, cam, rs.caps, rs.tight_cull, 32, chunk)
+    k = inp["lists"].shape[1]
+    slot = torch.arange(k, device=scene.device)[None, :]
+    pos = (sinp["starts"][:, None].long() + slot).clamp(
+        max=sinp["pair_ids"].numel() - 1)
+    none = torch.full_like(inp["lists"], -1)
+    s_ids = torch.where(slot < sinp["counts"][:, None],
+                        sinp["pair_ids"][pos], none)
+    l_ids = torch.where(slot < inp["counts"][:, None], inp["lists"], none)
+    if not torch.equal(s_ids.sort(dim=1).values, l_ids.sort(dim=1).values):
+        raise AssertionError(f"{name}: list and stream binning keep "
+                             "different pairs")
+    same_order = (s_ids == l_ids).all(dim=1)  # [T]
+    ys = torch.arange(cam.height, device=scene.device) // 32
+    xs = torch.arange(cam.width, device=scene.device) // 32
+    ordered = same_order[ys[:, None] * inp["tiles_x"] + xs[None, :]]  # [H, W]
+    apart = (out.color - stream.color).abs().amax(-1)
+    diff = float(apart.max())
+    n_diff = int((apart > 1e-5).sum())
+    rule = ordered & (apart > 1e-5)
+    diff_rule = float(apart[ordered].max()) if bool(ordered.any()) else 0.0
+    t_rule = float((1.0 - stream.alpha)[rule].max()) if bool(rule.any()) \
+        else 0.0
+    err = list_kernel_vs_plain(inp, f"{name} K2 vs plain")
+    cell = dict(cell=name, render_ms=cuda_ms(lambda: r.render(cam), reps=10),
+                **list_times(inp), entries=inp["pairs"],
+                tiles=int(inp["counts"].shape[0]),
+                list_width=int(inp["lists"].shape[1]),
+                fullest_tile=int(inp["counts"].max()), chunk=inp["chunk"],
+                caps=r.caps, tight_cull=r.tight_cull, max_abs_err=err,
+                vs_stream_max_abs=diff, vs_stream_pixels_over_1e5=n_diff,
+                tiles_in_stream_order=int(same_order.sum()),
+                vs_stream_max_abs_in_those=diff_rule,
+                vs_stream_max_final_t_in_those=t_rule)
+    log(f"  {name} lists: render {cell['render_ms']:.3f} ms/frame, "
+        f"bin_gaussians {cell['bin_gaussians_ms']:.3f} ms, K2 "
+        f"{cell['ms']:.3f} ms, plain {cell['plain_ms']:.3f} ms, bound "
+        f"{cell['bound_ms']:.4f} ms ({cell['bound_by']}), entries "
+        f"{cell['entries']}, fullest tile {cell['fullest_tile']}, list width "
+        f"{cell['list_width']}, caps {r.caps}; image vs cuda_stream max|diff| "
+        f"{diff:.3e} ({n_diff} pixels over 1e-5); {cell['tiles_in_stream_order']} "
+        f"of {cell['tiles']} tiles hold their pairs in the stream's order, "
+        f"and there max|diff| {diff_rule:.3e}, at pixels with final T up to "
+        f"{t_rule:.3e}")
+    if diff_rule > LIST_VS_STREAM_TOL or t_rule > LIST_VS_STREAM_TOL:
+        raise AssertionError(
+            f"{name}: in tiles of equal order cuda_tiles and cuda_stream "
+            f"differ by {diff_rule}, at pixels with final T up to {t_rule}: "
+            f"more than the chunk rule allows ({LIST_VS_STREAM_TOL})")
+    return cell
+
+
 def boundary_fixture(dev):
     """One 16x16 tile: alpha 0.99, 0.5, 0.99 in slots 0-2, 0.5 in slot 128
     (chunk 128); the stream runs a block past the tile's range."""
@@ -593,7 +804,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -638,12 +849,14 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stdout,
                         format="  [%(name)s] %(message)s")
 
-    errs = {"pairs_composite": [], "pairs_pass1": [], "pairs_pass2": []}
+    errs = {k: [] for k in KERNEL_NAMES}
     rels = {"pairs_pass1": [], "pairs_pass2": []}
 
     def hold(inp, what, seed=0):
-        """All three kernels against their plain versions on one stream."""
+        """The four stream kernels (K1, K3, K4 and the log-space arm K5)
+        against their plain versions on one stream."""
         errs["pairs_composite"].append(kernel_vs_plain(inp, f"{what} K1"))
+        errs["pairs_logdot"].append(logdot_vs_plain(inp, what))
         a, (e1, e2, r1, r2) = backward_vs_plain(inp, what, seed)
         errs["pairs_pass1"].append(e1)
         errs["pairs_pass2"].append(e2)
@@ -652,7 +865,7 @@ def main(argv=None) -> int:
         return a
 
     bench = bg = None
-    if phases & {3, 5}:
+    if phases & {3, 5, 6}:
         bench = G.load_ply(BENCH_PLY, device=dev)
         bg = torch.zeros(3, device=dev)
 
@@ -695,6 +908,67 @@ def main(argv=None) -> int:
             composite_grads_vs_autograd(
                 rscene, rcam, f"stream_composite backward chunk "
                 f"{max(chunk, 128)}", chunk)
+
+        # K2: the fixture as one tile's list (chunks count from the tile's
+        # own slot 0: slot 128 is applied again, slot 100 stays refused),
+        # then the random scene's lists, direct ids and through `order`
+        from dge_tpu_torch.ops import binning as B
+        from dge_tpu_torch.ops import tiles_composite as TT
+        for slot, want_c, want_t in ((128, 0.9975, 0.0025),
+                                     (100, 0.995, 0.005)):
+            feat = fx["data"].clone()
+            feat[5, 128] = 0.0
+            feat[5, slot] = 0.5
+            linp = dict(
+                feat=feat.T.contiguous(), lists=torch.arange(
+                    129, dtype=torch.int32, device=dev)[None, :].contiguous(),
+                counts=fx["counts"], order=None, tiles_x=1, tile_px=16,
+                chunk=128, feats=(feat[0:2].T, feat[2:5].T, feat[6:9].T,
+                                  feat[9], feat[5]))
+            errs["tiles_composite"].append(list_kernel_vs_plain(
+                linp, f"list fixture slot {slot} K2"))
+            got = TT.composite_tiles_kernel(
+                linp["feat"], linp["lists"], linp["counts"], tiles_x=1,
+                tile_px=16, chunk=128)
+            c, t = float(got[0, 0].mean()), float(got[0, 4].mean())
+            log(f"  list fixture slot {slot}: colour {c:.6f} T {t:.6f} "
+                f"(tile-relative rule: {want_c}, {want_t})")
+            if abs(c - want_c) > 1e-6 or abs(t - want_t) > 1e-7:
+                raise AssertionError("list fixture: wrong chunk semantics")
+        for chunk in (128, 256):
+            linp = list_inputs(rscene, rcam, dict(
+                max_per_tile=4096, max_tiles_per_gaussian=64), False, 32,
+                chunk)
+            errs["tiles_composite"].append(list_kernel_vs_plain(
+                linp, f"random scene lists chunk {chunk} K2"))
+            prep = stream_stages(rscene, rcam, {}, False, 32)[0]()
+            scan = B.bin_gaussians_scan(
+                prep.mean2d, prep.depth, prep.radius, prep.visible,
+                height=256, width=256, tile_px=32, max_per_tile=4096)
+            if not torch.equal(scan.counts, linp["counts"]):
+                raise AssertionError("bin_gaussians_scan counts differ")
+            oinp = dict(linp, lists=scan.lists.contiguous(),
+                        order=scan.order.contiguous())
+            errs["tiles_composite"].append(list_kernel_vs_plain(
+                oinp, f"random scene lists through order chunk {chunk} K2"))
+        before = dict(PC.launch_counts)
+        lo = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
+                      max_tiles_per_gaussian=64, backend="cuda_tiles")
+        po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
+                      max_tiles_per_gaussian=64, backend="torch_tiles",
+                      chunk=128)
+        if (PC.launch_counts["tiles_composite"]
+                != before["tiles_composite"] + 1
+                or PC.launch_counts["pairs_composite"]
+                != before["pairs_composite"]):
+            raise AssertionError("cuda_tiles render did not launch K2 alone")
+        for a, b, tol, what in ((lo.color, po.color, TOL["color"], "colour"),
+                                (lo.depth, po.depth, TOL["depth"], "depth"),
+                                (lo.alpha, po.alpha, TOL["trans"], "alpha")):
+            e = float((a - b).abs().max())
+            log(f"  random scene cuda_tiles render {what}: max|err| {e:.3e}")
+            if e > tol or int(lo.spill) != 0:
+                raise AssertionError(f"cuda_tiles render {what} {e} > {tol}")
 
     # ---- phase 2: the render path --------------------------------------
     render_launches = mean_psnr = psnrs = None
@@ -754,8 +1028,7 @@ def main(argv=None) -> int:
                                      bench_camera(512, 512, dev), bg))
         cells.append(full_width_cell(
             "1920x1080", bench, bench_camera(1080, 1920, dev), bg, chunk=256,
-            tight_cull=True, max_per_tile=2048, max_tiles_per_gaussian=64,
-            small_slots=16, max_pairs=3 << 18, big_capacity=16384))
+            **STREAM_START_1080P))
         errs["pairs_composite"] += [c["max_abs_err"] for c in cells]
 
     # ---- phase 4: the training path ------------------------------------
@@ -776,7 +1049,8 @@ def main(argv=None) -> int:
                 f"train PSNR {frun.last_psnr:.3f} dB, caps {frun.caps}")
             if not frun.losses_finite:
                 raise AssertionError("fit: a loss was not finite")
-            for k, v in fit_launches.items():
+            for k in ("pairs_composite", "pairs_pass1", "pairs_pass2"):
+                v = fit_launches[k]
                 if v < fit_steps:
                     raise AssertionError(f"fit: {k} launched {v} times in "
                                          f"{fit_steps} steps")
@@ -853,8 +1127,157 @@ def main(argv=None) -> int:
         for name, ms, count in train["device_kernels"] or []:
             log(f"    device: {ms:.4f} ms/step in {count} launches of {name}")
 
-    if phases != {1, 2, 3, 4, 5}:
-        log(f"phases {sorted(phases)} passed; the result lines need all five")
+    # ---- phase 6: the evaluation path (per-tile lists, K2; the K5 tool) --
+    ev = {}
+    if 6 in phases:
+        log("phase 6: evaluation path (dge_tpu_torch.launch --validate of "
+            "the quality-gate scene over fit_capture at 256^2, on "
+            "cuda_stream and on cuda_tiles; --export; mask lift; K2 full "
+            "width; the K1-vs-K5 tool)")
+        from dge_tpu_torch.tools import proto_logdot as LD
+        runs = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for backend in ("cuda_stream", "cuda_tiles"):
+                PC.reset_launch_counts()
+                t0 = time.time()
+                vrun = launch.main(
+                    ["--validate", "--gs_source", QUALITY_PLY, "--source",
+                     CAPTURE, "--out", tmp, "--backend", backend,
+                     "data.height=256", "data.width=256"])
+                res = dict(vrun.results["fit_capture"],
+                           launches=dict(PC.launch_counts),
+                           seconds=time.time() - t0)
+                runs[backend] = res
+                log(f"  --validate on {backend}: {res}")
+                n_png = len(os.listdir(os.path.join(
+                    vrun.eval_dir, "fit_capture", "renders")))
+                if res["spill"] != 0 or res["n_views"] != 16 or n_png != 16:
+                    raise AssertionError(f"validate {backend}: spill or "
+                                         "missing views")
+                if not res["psnr"] >= PSNR_MIN:
+                    raise AssertionError(f"validate {backend}: PSNR "
+                                         f"{res['psnr']} < {PSNR_MIN}")
+                if not math.isfinite(res["ssim"]) or res["lpips"] is not None:
+                    raise AssertionError(f"validate {backend}: bad SSIM/LPIPS")
+            if (runs["cuda_stream"]["launches"]["pairs_composite"] < 16
+                    or runs["cuda_stream"]["launches"]["tiles_composite"]):
+                raise AssertionError("default validate did not go through K1")
+            if (runs["cuda_tiles"]["launches"]["tiles_composite"] < 16
+                    or runs["cuda_tiles"]["launches"]["pairs_composite"]):
+                raise AssertionError("cuda_tiles validate did not go through "
+                                     "K2 alone")
+            gap = abs(runs["cuda_stream"]["psnr"] - runs["cuda_tiles"]["psnr"])
+            log(f"  PSNR gap between the two backends: {gap:.5f} dB")
+            if gap > BACKENDS_PSNR_TOL:
+                raise AssertionError(f"validate: backends differ by {gap} dB")
+            erun = launch.main(["--export", "--gs_source", QUALITY_PLY,
+                                "--out", tmp, "data.height=256",
+                                "data.width=256", "export.frames=8"])
+            n_png = len(os.listdir(os.path.join(erun.trial_dir,
+                                                "orbit_frames")))
+            if (len(erun.frames) != 8 or n_png != 8
+                    or not os.path.exists(erun.scene_ply)):
+                raise AssertionError("export: frames or scene.ply missing")
+            for i, f in enumerate(erun.frames):
+                if (f.shape != (256, 256, 3) or not np.isfinite(f).all()
+                        or f.max() < 0.05):
+                    raise AssertionError(f"export frame {i}: non-finite or "
+                                         "black")
+            brightest = max(float(f.max()) for f in erun.frames)
+            log(f"  --export: 8 orbit frames, brightest {brightest:.3f}")
+
+        # the mask lift over the 16 views, at caps nothing can overflow
+        qscene = G.load_ply(QUALITY_PLY, device=dev)
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        qcams = [CameraArrays.from_camera(c, device=dev) for c in cs.cameras]
+        lift_kw = dict(tile_px=32, max_per_tile=qscene.capacity,
+                       max_tiles_per_gaussian=64)
+        half = torch.zeros(256, 256, device=dev)
+        half[:, 128:] = 1.0
+        w_full, h_full = R.render_weights(qscene, qcams[0],
+                                          torch.ones(256, 256, device=dev),
+                                          **lift_kw)
+        if not torch.equal(w_full, h_full) or float(h_full.sum()) <= 0:
+            raise AssertionError("mask lift: full mask weights != hits")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        w_sum = torch.zeros(qscene.capacity, device=dev)
+        h_sum = torch.zeros(qscene.capacity, device=dev)
+        for cam in qcams:
+            w, h = R.render_weights(qscene, cam, half, **lift_kw)
+            w_sum += w
+            h_sum += h
+        torch.cuda.synchronize()
+        lift_ms = (time.time() - t0) * 1e3 / len(qcams)
+        n_hit = int((h_sum > 0).sum())
+        frac = float(w_sum.sum() / h_sum.sum())
+        log(f"  mask lift: {lift_ms:.2f} ms/view, {n_hit} of "
+            f"{qscene.n_alive} Gaussians hit, masked share of hits "
+            f"{frac:.4f}")
+        if (n_hit == 0 or not 0.0 < frac < 1.0
+                or bool((w_sum > h_sum).any())
+                or not bool(torch.isfinite(w_sum).all())):
+            raise AssertionError("mask lift: bad weights")
+
+        # K2 at the evaluation path's shapes: view 0 of the capture
+        r = R.SpillFreeRenderer(qscene, torch.zeros(3, device=dev),
+                                tile_px=32, backend="cuda_tiles")
+        if r.probe(qcams[0]) != 0:
+            raise AssertionError("validate view 0: spill after the ladder")
+        inp = list_inputs(qscene, qcams[0], r.caps, r.tight_cull, 32, 64)
+        errs["tiles_composite"].append(
+            list_kernel_vs_plain(inp, "validate view 0 K2"))
+        main_k2 = list_times(inp, plain_reps=5)
+        log(f"  validate view 0: K2 {main_k2['ms']:.4f} ms, plain "
+            f"{main_k2['plain_ms']:.4f} ms, bound {main_k2['bound_ms']:.5f} "
+            f"ms ({main_k2['bound_by']}), bin_gaussians "
+            f"{main_k2['bin_gaussians_ms']:.3f} ms, entries {inp['pairs']}, "
+            f"caps {r.caps}")
+
+        # K2 at full width: the bench scene at 512^2 and 1920x1080
+        list_cells = [
+            list_cell("512x512", bench, bench_camera(512, 512, dev), bg, {},
+                      tight_cull=True, max_tiles_per_gaussian=256),
+            list_cell("1920x1080", bench, bench_camera(1080, 1920, dev), bg,
+                      STREAM_START_1080P, chunk=256, tight_cull=True,
+                      max_per_tile=2048, max_tiles_per_gaussian=256)]
+        errs["tiles_composite"] += [c["max_abs_err"] for c in list_cells]
+
+        # the K1-vs-K5 tool on the bench scene at 512^2, then K5 against its
+        # plain version on the tool's stream
+        PC.reset_launch_counts()
+        tool = LD.main([])
+        tool_launches = dict(PC.launch_counts)
+        if tool_launches["pairs_logdot"] < 1 or tool["k5_ms"] is None:
+            raise AssertionError("proto_logdot did not launch K5")
+        r5 = R.SpillFreeRenderer(bench, bg, tile_px=32, chunk=128)
+        if r5.probe(bench_camera(512, 512, dev)) != 0:
+            raise AssertionError("512x512: spill after the ladder")
+        inp5 = stream_inputs(bench, bench_camera(512, 512, dev), r5.caps,
+                             r5.tight_cull, 32, 128)
+        if inp5["pairs"] != tool["pairs"]:
+            raise AssertionError("the tool's stream is not the 512x512 cell's")
+        errs["pairs_logdot"].append(logdot_vs_plain(inp5, "512x512"))
+        kw5 = dict(tiles_x=inp5["tiles_x"], tile_px=32, chunk=inp5["chunk"])
+        args5 = (inp5["data"], inp5["starts"], inp5["counts"])
+        b5 = bound_ms(inp5["pairs"], inp5["starts"].shape[0], 32,
+                      flops=FLOPS_LOGDOT)
+        main_k5 = dict(
+            ms=tool["k5_ms"], k1_ms=tool["k1_ms"],
+            plain_ms=cuda_ms(lambda: LD.composite_pairs_logdot_reference(
+                *args5, **kw5), reps=3, warmup=1),
+            bound_ms=b5[0], bound_by=b5[1], pairs=tool["pairs"],
+            max_dcolor_vs_k1=tool["max_dcolor"],
+            max_ddepth_vs_k1=tool["max_ddepth"],
+            max_dtrans_vs_k1=tool["max_dtrans"])
+        log(f"  proto_logdot at 512x512: {main_k5}, launches {tool_launches}")
+        ev = dict(validate=runs, lift_ms_per_view=lift_ms,
+                  lift_gaussians_hit=n_hit, view0=main_k2,
+                  list_cells=list_cells, logdot=main_k5,
+                  logdot_launches=tool_launches)
+
+    if phases != ALL_PHASES:
+        log(f"phases {sorted(phases)} passed; the result lines need all six")
         return 0
 
     v0 = fit["view0"]
@@ -895,6 +1318,28 @@ def main(argv=None) -> int:
         "bound_ms": v0["pass2_bound_ms"],
         "bound_by": v0["pass2_bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "tiles_composite",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/tiles_composite.cu",
+        "replaces": "dge_tpu/ops/pallas_composite.py:51",
+        "launches": ev["validate"]["cuda_tiles"]["launches"][
+            "tiles_composite"],
+        "max_abs_err": max(errs["tiles_composite"]),
+        **{k: ev["view0"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")},
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cells": ev["list_cells"],
+    }, {
+        "name": "pairs_logdot",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/pairs_logdot.cu",
+        "replaces": "tools/proto_logdot.py:86",
+        "launches": ev["logdot_launches"]["pairs_logdot"],
+        "max_abs_err": max(errs["pairs_logdot"]),
+        **{k: ev["logdot"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
+        "library_ms": None,  # no single PyTorch call computes this function
     }]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -902,14 +1347,14 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
-              "card": smi, "seconds": time.time() - t_start}
+              "evaluation": ev, "card": smi, "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
     log(json.dumps({"kernels": kernels}))
     log(smi)
-    log('kernels: ["pairs_composite", "pairs_pass1", "pairs_pass2"]')
+    log("kernels: " + json.dumps(list(KERNEL_NAMES)))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,19 @@
 """CLI of the PyTorch/CUDA port.
 
-JAX counterpart: the repo's ``launch.py`` (``--render``, launch.py:151-198;
-``--fit``, launch.py:232-307). Two modes:
+JAX counterpart: the repo's ``launch.py`` (``--render`` / ``--test``,
+launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
+``--fit``, launch.py:232-307). Five modes (``--train``, the DGE edit, is not
+ported yet):
 
     python -m dge_tpu_torch.launch --render --gs_source scene.ply \\
         --source capture_dir --out outputs [--cpu] [--config cfg.yaml] \\
-        data.height=256 data.width=256
+        [--backend cuda_tiles] data.height=256 data.width=256
+
+    python -m dge_tpu_torch.launch --validate --gs_source scene.ply \\
+        --source capture_dir --out outputs data.height=256 data.width=256
+
+    python -m dge_tpu_torch.launch --export --gs_source scene.ply \\
+        --out outputs [export.frames=120]
 
     python -m dge_tpu_torch.launch --fit --source capture_dir --out outputs \\
         [--cpu] [--seed 0] data.height=256 data.width=256 \\
@@ -13,13 +21,19 @@ JAX counterpart: the repo's ``launch.py`` (``--render``, launch.py:151-198;
 
 ``--render`` loads the PLY and the COLMAP capture, probes the spill-free
 binning caps on view 0 (tile_px 32), renders every view and writes
-``<out>/<name>/<tag>@<time>/renders/NNNN.png``. ``--fit`` initialises a scene
+``<out>/<name>/<tag>@<time>/renders/NNNN.png``; ``--test`` is the same
+mode. ``--validate`` renders every view the same way and scores PSNR / SSIM
+against the capture's images into ``eval/results.json``
+(tools/full_eval.py). ``--export`` writes a turntable orbit
+(``orbit_frames/NNNN.png``, ``orbit.mp4`` where imageio is installed) and a
+copy of the scene as ``scene.ply``. ``--fit`` initialises a scene
 from the capture's COLMAP points and fits it to the capture's images (vanilla
 3DGS: L1 + SSIM, densify, opacity reset, SH step-up, spill ladder), writing
 ``point_cloud.ply`` and ``metrics.jsonl`` (TensorBoard events too with
-``trainer.tensorboard=true``). Both write ``cmd.txt`` and
-``parsed.yaml``, run on the GPU unless ``--cpu`` is given, and raise without
-a card and without ``--cpu``. Dotted overrides apply with or without
+``trainer.tensorboard=true``). Capture images may be PNG or JPEG at any size:
+they are area-resized to ``data.height`` x ``data.width``. Every mode writes
+``cmd.txt`` and ``parsed.yaml``, runs on the GPU unless ``--cpu`` is given,
+and raises without a card and without ``--cpu``. Dotted overrides apply with or without
 ``--config``.
 """
 
@@ -46,6 +60,18 @@ class RenderRun(NamedTuple):
     trial_dir: str
 
 
+class ValidateRun(NamedTuple):
+    results: dict  # scene name -> {psnr, ssim, lpips, n_views, ...}
+    eval_dir: str  # holds results.json and <scene>/renders/
+    trial_dir: str
+
+
+class ExportRun(NamedTuple):
+    frames: List[np.ndarray]  # the orbit's [H, W, 3] float32 frames
+    scene_ply: str  # the copy of the scene
+    trial_dir: str
+
+
 class FitRun(NamedTuple):
     ply_path: str  # the fitted scene
     steps: int
@@ -64,15 +90,26 @@ def parse_args(argv=None):
     mode = p.add_mutually_exclusive_group()
     mode.add_argument("--render", action="store_true",
                       help="render a pretrained PLY for every capture view")
+    mode.add_argument("--test", action="store_true",
+                      help="the same as --render")
+    mode.add_argument("--validate", action="store_true",
+                      help="render every capture view and write PSNR/SSIM "
+                      "to eval/results.json")
+    mode.add_argument("--export", action="store_true",
+                      help="turntable orbit frames and a copy of the scene")
     mode.add_argument("--fit", action="store_true",
                       help="fit a 3DGS scene to the capture's images")
+    p.add_argument("--backend", type=str, default=None,
+                   help="render backend of --render/--test/--validate "
+                   "(default: the device's own)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--gs_source", type=str, default=None, help="pretrained PLY")
     p.add_argument("--source", type=str, default=None, help="COLMAP scene dir")
     p.add_argument("--out", type=str, default="outputs")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
-    return p.parse_args(argv)
+    # intermixed: dotted overrides may stand anywhere among the options
+    return p.parse_intermixed_args(argv)
 
 
 def main(argv=None):
@@ -82,8 +119,10 @@ def main(argv=None):
     from dge_tpu_torch.utils import config as C
     from dge_tpu_torch.utils import saving
 
-    if not (args.render or args.fit):
-        log.error("choose a mode: --render / --fit")
+    if not (args.render or args.test or args.validate or args.export
+            or args.fit):
+        log.error("choose a mode: --render / --test / --validate / "
+                  "--export / --fit")
         sys.exit(2)
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = C.load_config(args.config, args.overrides)
@@ -96,10 +135,59 @@ def main(argv=None):
     source = args.source or cfg.get("data", {}).get("source")
     if args.fit:
         return run_fit(cfg, source, trial_dir, args.seed, device)
-    return run_render(cfg, gs_source, source, trial_dir, device)
+    if args.validate:
+        return run_validate(cfg, gs_source, source, trial_dir, device,
+                            args.backend)
+    if args.export:
+        return run_export(cfg, gs_source, trial_dir, device)
+    return run_render(cfg, gs_source, source, trial_dir, device, args.backend)
 
 
-def run_render(cfg, gs_source, source, trial_dir, device) -> RenderRun:
+def _size(cfg):
+    data_cfg = cfg.get("data", {})
+    return int(data_cfg.get("height", 512)), int(data_cfg.get("width", 512))
+
+
+def run_validate(cfg, gs_source, source, trial_dir, device,
+                 backend=None) -> ValidateRun:
+    """Render every capture view and write PSNR / SSIM to eval/results.json
+    (gaussiansplatting/metrics.py:36-93 analog for one scene)."""
+    from dge_tpu_torch.tools import full_eval
+
+    h, w = _size(cfg)
+    eval_dir = os.path.join(trial_dir, "eval")
+    argv = ["--pairs", f"{gs_source}:{source}", "--out", eval_dir,
+            "--height", str(h), "--width", str(w)]
+    if backend:
+        argv += ["--backend", backend]
+    if device.type == "cpu":
+        argv.append("--cpu")
+    return ValidateRun(full_eval.main(argv), eval_dir, trial_dir)
+
+
+def run_export(cfg, gs_source, trial_dir, device) -> ExportRun:
+    """Artifact export from a PLY: turntable orbit and a copy of the scene
+    (the viewer-free --export analog)."""
+    import shutil
+
+    from dge_tpu_torch.tools import orbit_video
+
+    h, w = _size(cfg)
+    argv = [gs_source, os.path.join(trial_dir, "orbit.mp4"),
+            "--height", str(h), "--width", str(w),
+            "--frames", str(int(cfg.get("export", {}).get("frames", 120)))]
+    if device.type == "cpu":
+        argv.append("--cpu")
+    frames = orbit_video.main(argv)
+    scene_ply = os.path.join(trial_dir, "scene.ply")
+    shutil.copy(gs_source, scene_ply)
+    log.info("exported %d orbit frames and scene.ply to %s", len(frames),
+             trial_dir)
+    return ExportRun(frames, scene_ply, trial_dir)
+
+
+def run_render(cfg, gs_source, source, trial_dir, device,
+               backend=None) -> RenderRun:
     """Render a pretrained PLY for every camera and save the frames
     (gaussiansplatting/render.py analog)."""
     from dge_tpu_torch.ops import render as R
@@ -108,9 +196,7 @@ def run_render(cfg, gs_source, source, trial_dir, device) -> RenderRun:
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
     from dge_tpu_torch.utils import saving
 
-    data_cfg = cfg.get("data", {})
-    h = int(data_cfg.get("height", 512))
-    w = int(data_cfg.get("width", 512))
+    h, w = _size(cfg)
     scene = G.load_ply(gs_source, device=device)
     cs = DS.ColmapScene(source, height=h, width=w)
     cams = [CameraArrays.from_camera(c, device=device) for c in cs.cameras]
@@ -119,7 +205,8 @@ def run_render(cfg, gs_source, source, trial_dir, device) -> RenderRun:
 
     bg = torch.zeros(3, device=device)
     # evaluation must not truncate: probe-and-grow the caps until spill == 0
-    renderer = R.SpillFreeRenderer(scene, bg, tile_px=32, log=log.info)
+    renderer = R.SpillFreeRenderer(scene, bg, tile_px=32, log=log.info,
+                                   backend=backend)
     renderer.probe(cams[0])
     out_dir = os.path.join(trial_dir, "renders")
     frames = []
@@ -154,9 +241,7 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
     from dge_tpu_torch.utils import saving
     from dge_tpu_torch.utils.logger import MetricsLogger
 
-    data_cfg = cfg.get("data", {})
-    h = int(data_cfg.get("height", 512))
-    w = int(data_cfg.get("width", 512))
+    h, w = _size(cfg)
     cs = DS.ColmapScene(source, height=h, width=w)
     pts, cols = cs.point_cloud()
     # sh_degree=3 is the vanilla-3DGS default (train.py); DGE edits fit with
@@ -164,15 +249,11 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
     sh_deg = int(cfg.get("system", {}).get("sh_degree", 3))
     scene = G.create_from_pcd(pts, cols, max_sh_degree=sh_deg, device=device)
     cams = [CameraArrays.from_camera(c, device=device) for c in cs.cameras]
-    targets = []
-    for c in cs.cameras:
-        img = saving.load_image(os.path.join(cs.images_dir,
-                                             c.image_name + ".png"))
-        if img.shape[:2] != (h, w):
-            raise ValueError(
-                f"{c.image_name}: image is {img.shape[:2]}, the fit runs at "
-                f"({h}, {w}); set data.height/data.width to the capture's size")
-        targets.append(torch.from_numpy(img).to(device))
+    targets = [
+        torch.from_numpy(saving.load_image(
+            saving.find_image(cs.images_dir, c.image_name),
+            size=(h, w))).to(device)
+        for c in cs.cameras]
 
     ocfg = O.OptimConfig.scaled(
         int(cfg.get("trainer", {}).get("max_steps", 7000)))

@@ -1,19 +1,25 @@
-"""Pair-stream tile binning: duplicate (tile, Gaussian) pairs, sort by
+"""Tile binning: duplicate (tile, Gaussian) pairs, sort by
 ``[tile | quantized depth]`` int32 keys, recover per-tile ranges.
 
-JAX counterpart: ``dge_tpu/ops/binning.py``, the pair path only
-(``bin_gaussians_pairs`` with the bucketed emission, ``binning.py:371-641``).
+JAX counterpart: ``dge_tpu/ops/binning.py``. Two forms of the result:
+
+- ``bin_gaussians_pairs`` (``binning.py:371-641``, bucketed emission): the
+  sorted pair stream itself, for the pair-stream compositors;
+- ``bin_gaussians`` (``binning.py:248-347``): capped per-tile lists
+  ``[T, K]`` gathered out of the same sort, for the per-tile-list
+  compositors and the mask lift; ``bin_gaussians_scan``
+  (``binning.py:160-245``) is its prefix-sum oracle.
+
 The reference's dynamic-size pipeline is rasterizer_impl.cu:179-285. The
 caps are the same as in the JAX version, so ``pair_ids``, ``starts``,
-``counts``, ``spill`` and ``spill_parts`` come out identical for identical
-inputs: both sorts are stable sorts on int32, ties keep submission order.
-The per-tile-list binning (``bin_gaussians`` / ``bin_gaussians_scan``) is
-not part of this slice.
+``counts``, ``lists``, ``spill`` and ``spill_parts`` come out identical for
+identical inputs: both sorts are stable sorts on int32, ties keep submission
+order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,6 +28,19 @@ import torch
 # cancellation magnitude (qabs).
 CULL_Q_MARGIN = 1e-3
 CULL_Q_REL = 2e-5
+
+
+class TileBins(NamedTuple):
+    """Capped per-tile Gaussian lists."""
+
+    lists: torch.Tensor  # [T, K] int32 per-tile Gaussian lists (depth order)
+    counts: torch.Tensor  # [T] int32 number of valid entries (capped at K)
+    # [N] int32 depth permutation the lists index into, or None when the
+    # lists hold original ids
+    order: Optional[torch.Tensor]
+    spill: torch.Tensor  # scalar int32 total overflow dropped
+    tiles_x: int
+    tiles_y: int
 
 
 class PairBins(NamedTuple):
@@ -227,13 +246,44 @@ def _bucketed_pair_keys(
     return keys, ids, spill_b, spill_cap
 
 
+def _quantize_depth(depth, vis, num_tiles):
+    """The depth field of the int32 ``tile << depth_bits | dq`` keys: view
+    depth of the visible Gaussians quantised to the bits the tile id leaves
+    over. Returns (depth_bits, dq [N] int32)."""
+    bits_tile = max(int(num_tiles + 1).bit_length(), 1)
+    depth_bits = 31 - bits_tile
+    if depth_bits < 16:
+        raise ValueError(f"too many tiles ({num_tiles}) for int32 "
+                         "[tile|depth] keys; raise tile_px")
+    inf = torch.tensor(float("inf"), device=depth.device)
+    dmin = torch.where(vis, depth, inf).min()
+    dmax = torch.where(vis, depth, -inf).max()
+    dq = torch.clamp(
+        (depth - dmin) / torch.clamp(dmax - dmin, min=1e-12), 0.0, 1.0
+    ) * ((1 << depth_bits) - 1)
+    # clamp AFTER the int cast: (2^27 - 1) rounds up to 2^27 in f32, which
+    # would overflow the depth field into the tile id
+    return depth_bits, torch.clamp(dq.to(torch.int32), 0,
+                                   (1 << depth_bits) - 1)
+
+
+def _tile_ranges(keys, num_tiles, depth_bits):
+    """[start, end) of each tile's run in the sorted keys
+    (identifyTileRanges analog)."""
+    tids = torch.arange(num_tiles, dtype=torch.int32,
+                        device=keys.device) << depth_bits
+    starts = torch.searchsorted(keys, tids, right=False).to(torch.int32)
+    ends = torch.searchsorted(
+        keys, tids + (1 << depth_bits), right=False).to(torch.int32)
+    return starts, ends
+
+
 def _pair_sort(
     mean2d, depth, radius, visible, *, height, width, tile_px, max_per_tile,
     max_tiles_per_gaussian, max_pairs, small_slots=4, big_capacity=None,
     conic=None, opacity=None,
 ) -> PairBins:
     """Pair-stream binning body (the JAX ``emission="bucketed"`` branch)."""
-    dev = mean2d.device
     n = mean2d.shape[0]
     tiles_x = -(-width // tile_px)
     tiles_y = -(-height // tile_px)
@@ -242,19 +292,7 @@ def _pair_sort(
     x0, x1, y0, y1, vis = tile_rects(
         mean2d, radius, visible, tile_px, tiles_x, tiles_y
     )
-    bits_tile = max(int(num_tiles + 1).bit_length(), 1)
-    depth_bits = 31 - bits_tile
-    if depth_bits < 16:
-        raise ValueError(f"too many tiles ({num_tiles}) for int32 keys")
-    inf = torch.tensor(float("inf"), device=dev)
-    dmin = torch.where(vis, depth, inf).min()
-    dmax = torch.where(vis, depth, -inf).max()
-    dq = torch.clamp(
-        (depth - dmin) / torch.clamp(dmax - dmin, min=1e-12), 0.0, 1.0
-    ) * ((1 << depth_bits) - 1)
-    # clamp AFTER the int cast: (2^27 - 1) rounds up to 2^27 in f32, which
-    # would overflow the depth field into the tile id
-    dq = torch.clamp(dq.to(torch.int32), 0, (1 << depth_bits) - 1)
+    depth_bits, dq = _quantize_depth(depth, vis, num_tiles)
 
     w = x1 - x0
     h = y1 - y0
@@ -268,10 +306,7 @@ def _pair_sort(
     )
     keys, perm = torch.sort(keys, stable=True)
     ids = ids[perm]
-    tids = torch.arange(num_tiles, dtype=torch.int32, device=dev) << depth_bits
-    starts = torch.searchsorted(keys, tids, right=False).to(torch.int32)
-    ends = torch.searchsorted(
-        keys, tids + (1 << depth_bits), right=False).to(torch.int32)
+    starts, ends = _tile_ranges(keys, num_tiles, depth_bits)
     raw = ends - starts
     counts_mpt = torch.clamp(raw, max=max_per_tile)
     counts = torch.minimum(counts_mpt, torch.clamp(max_pairs - starts, min=0))
@@ -323,3 +358,122 @@ def bin_gaussians_pairs(
         small_slots=small_slots, big_capacity=big_capacity or None,
         conic=conic, opacity=opacity,
     )
+
+
+def bin_gaussians(
+    mean2d: torch.Tensor,
+    depth: torch.Tensor,
+    radius: torch.Tensor,
+    visible: torch.Tensor,
+    *,
+    height: int,
+    width: int,
+    tile_px: int = 32,
+    max_per_tile: int = 2048,
+    max_tiles_per_gaussian: int = 32,
+    conic: torch.Tensor = None,
+    opacity: torch.Tensor = None,
+) -> TileBins:
+    """Duplicate-and-sort binning into capped per-tile lists: each Gaussian
+    emits up to ``max_tiles_per_gaussian`` keys ``tile << depth_bits | dq``
+    over its row-major tile rect, one stable sort carrying the Gaussian id
+    orders them by (tile, depth), ``searchsorted`` recovers the per-tile
+    ranges and one gather builds ``lists [T, max_per_tile]`` of ORIGINAL ids
+    (``order`` is None). Entries past ``counts[t]`` are whatever follows the
+    tile's run in the sorted stream: mask by slot, never by id. ``spill``
+    counts both caps: list entries beyond ``max_per_tile`` and rect tiles
+    beyond ``max_tiles_per_gaussian`` (raw, before culling). Passing
+    ``conic`` + ``opacity`` enables exact tight tile culling."""
+    dev = mean2d.device
+    n = mean2d.shape[0]
+    tiles_x = -(-width // tile_px)
+    tiles_y = -(-height // tile_px)
+    num_tiles = tiles_x * tiles_y
+    m = max_tiles_per_gaussian
+
+    x0, x1, y0, y1, vis = tile_rects(
+        mean2d, radius, visible, tile_px, tiles_x, tiles_y
+    )
+    depth_bits, dq = _quantize_depth(depth, vis, num_tiles)
+
+    w = x1 - x0
+    cnt = w * (y1 - y0)
+    j = torch.arange(m, dtype=torch.int32, device=dev)
+    wsafe = torch.clamp(w, min=1)[:, None]
+    tx = x0[:, None] + j[None, :] % wsafe
+    ty = y0[:, None] + j[None, :] // wsafe
+    valid = (j[None, :] < cnt[:, None]) & vis[:, None]
+    if conic is not None:
+        valid &= _cull_valid(mean2d, conic, opacity, x0, y0, w, j, tile_px)
+    tile_id = torch.where(
+        valid, ty * tiles_x + tx,
+        torch.tensor(num_tiles, dtype=torch.int32, device=dev))
+    keys = ((tile_id << depth_bits) | dq[:, None]).reshape(-1)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)[:, None].expand(
+        n, m).reshape(-1)
+    keys, perm = torch.sort(keys, stable=True)
+    ids = ids[perm]
+
+    starts, ends = _tile_ranges(keys, num_tiles, depth_bits)
+    counts = torch.clamp(ends - starts, max=max_per_tile)
+    pos = torch.clamp(
+        starts[:, None].long()
+        + torch.arange(max_per_tile, device=dev)[None, :],
+        0, keys.shape[0] - 1)
+    lists = ids[pos]
+
+    zero = torch.zeros_like(cnt)
+    spill = torch.clamp(ends - starts - max_per_tile, min=0).sum() + \
+        torch.where(vis, torch.clamp(cnt - m, min=0), zero).sum()
+    return TileBins(lists=lists, counts=_i32(counts), order=None,
+                    spill=_i32(spill), tiles_x=tiles_x, tiles_y=tiles_y)
+
+
+def bin_gaussians_scan(
+    mean2d: torch.Tensor,
+    depth: torch.Tensor,
+    radius: torch.Tensor,
+    visible: torch.Tensor,
+    *,
+    height: int,
+    width: int,
+    tile_px: int = 32,
+    max_per_tile: int = 2048,
+    chunk: int = 2048,
+) -> TileBins:
+    """The cross-check oracle of ``bin_gaussians``: one global depth sort
+    (``order``, culled rows last), then a chunked rect-intersection test with
+    prefix-sum compaction into the capped lists, which index into ``order``.
+    No per-Gaussian tile cap and no culling."""
+    dev = mean2d.device
+    n = mean2d.shape[0]
+    tiles_x = -(-width // tile_px)
+    tiles_y = -(-height // tile_px)
+    num_tiles = tiles_x * tiles_y
+
+    inf = torch.tensor(float("inf"), device=dev)
+    order = torch.sort(torch.where(visible, depth, inf), stable=True).indices
+    x0, x1, y0, y1, vis_s = tile_rects(
+        mean2d[order], radius[order], visible[order], tile_px, tiles_x,
+        tiles_y)
+
+    tid = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+    tx = (tid % tiles_x)[:, None]
+    ty = (tid // tiles_x)[:, None]
+    lists = torch.zeros(num_tiles, max_per_tile, dtype=torch.int32, device=dev)
+    offsets = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    for base in range(0, n, chunk):
+        s = slice(base, min(base + chunk, n))
+        hit = (vis_s[s][None, :] & (tx >= x0[s][None, :])
+               & (tx < x1[s][None, :]) & (ty >= y0[s][None, :])
+               & (ty < y1[s][None, :]))  # [T, C]
+        pos = offsets[:, None] + torch.cumsum(hit.to(torch.int32), 1) - 1
+        rows, cols = torch.nonzero(hit & (pos < max_per_tile), as_tuple=True)
+        lists[rows, pos[rows, cols].long()] = (base + cols).to(torch.int32)
+        offsets = offsets + hit.sum(1, dtype=torch.int32)
+    return TileBins(
+        lists=lists,
+        counts=torch.clamp(offsets, max=max_per_tile),
+        order=_i32(order),
+        spill=_i32(torch.clamp(offsets - max_per_tile, min=0).sum()),
+        tiles_x=tiles_x, tiles_y=tiles_y)

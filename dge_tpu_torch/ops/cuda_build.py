@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library ``build/lib<name>_<hash>.so`` at the repository root, keyed by a hash
-of the source bytes, with ptxas's register and spill report beside it
+of the source bytes and of the headers (``csrc/*.cuh``) it may include, with
+ptxas's register and spill report beside it
 (``*.ptxas.txt``). Wrappers load their library with ctypes at first use;
 ``build_all`` compiles several sources at once, one nvcc process each.
 """
@@ -20,7 +21,8 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("pairs_composite", "pairs_backward")
+SOURCES = ("pairs_composite", "pairs_backward", "tiles_composite",
+           "pairs_logdot")
 
 
 def source_path(name: str) -> str:
@@ -40,8 +42,12 @@ def build_library(name: str) -> str:
     """Compile csrc/<name>.cu into build/ unless a library built from the
     same source bytes is already there; returns its path."""
     src = source_path(name)
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    sha = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as fh:
+            sha.update(fh.read())
+    digest = sha.hexdigest()[:16]
     os.makedirs(BUILD_DIR, exist_ok=True)
     lib_path = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
     if os.path.exists(lib_path):

@@ -43,8 +43,11 @@ BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches since the last reset (one per launch, counted where the
 # kernel is launched and nowhere else); pairs_pass1 and pairs_pass2 are the
-# backward kernels of ops/pairs_backward.py
-launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_pass2": 0}
+# backward kernels of ops/pairs_backward.py, tiles_composite the per-tile-list
+# kernel of ops/tiles_composite.py, pairs_logdot the log-space arm of
+# tools/proto_logdot.py
+launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_pass2": 0,
+                 "tiles_composite": 0, "pairs_logdot": 0}
 _lib = None
 
 
@@ -70,14 +73,16 @@ def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac
 
 
 def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
-                              tile_px: int, chunk: int) -> torch.Tensor:
+                              tile_px: int, chunk: int,
+                              log_prefix: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device → [T, 5, P].
 
     Follows the block rule literally: blocks at absolute stream offsets
     ``k·chunk``; inside a block an inclusive ``torch.cumprod`` of ``1-eff``,
     a pair applied iff ``T_block·cp >= 1e-4``, ``w = eff·T_block·cp/(1-eff)``;
     the committed T after the block is ``T_block·cp`` at its last applied
-    pair."""
+    pair. ``log_prefix`` forms ``cp`` as ``exp(cumsum(log(1-eff)))`` instead:
+    the plain version of the log-space kernel of tools/proto_logdot.py."""
     dev = data.device
     num_tiles = starts.shape[0]
     p = tile_px * tile_px
@@ -118,7 +123,10 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
             keep = (power <= 0.0) & (alpha >= ALPHA_EPS) & in_range[..., None]
             eff = torch.where(keep, alpha, torch.zeros_like(alpha))
             one_minus = 1.0 - eff
-            cp = torch.cumprod(one_minus, dim=1)  # inclusive, [G, C, P]
+            if log_prefix:
+                cp = torch.exp(torch.cumsum(torch.log(one_minus), dim=1))
+            else:
+                cp = torch.cumprod(one_minus, dim=1)  # inclusive, [G, C, P]
             applied = trans * cp >= T_EPS
             w = torch.where(applied, eff * trans * (cp / one_minus),
                             torch.zeros_like(cp))

@@ -1,8 +1,9 @@
-"""High-level render API: preprocess -> pair binning -> pair-stream
-compositing, plus the spill-free evaluation renderer.
+"""High-level render API: preprocess -> binning -> compositing, the
+spill-free evaluation renderer, the mask lift and the point-cloud render.
 
 JAX counterpart: ``dge_tpu/ops/render.py`` (``RenderOut``, ``render``,
-``grow_caps``, ``SpillFreeRenderer``); reference analog
+``grow_caps``, ``SpillFreeRenderer``, ``render_weights``,
+``render_point_cloud``); reference analog
 gaussian_renderer/__init__.py:45-150. Backends:
 
 - ``"cuda_stream"``: pair binning + the hand-written CUDA forward kernel
@@ -13,12 +14,21 @@ gaussian_renderer/__init__.py:45-150. Backends:
   backward kernels behind one ``torch.autograd.Function``
   (ops/pairs_backward.py, the counterpart of JAX ``"pallas_train"``);
 - ``"torch"``: pair binning + the forward kernel's plain PyTorch version,
-  differentiable by plain autograd: the CPU twin and the gradient oracle.
+  differentiable by plain autograd: the CPU twin and the gradient oracle;
+- ``"cuda_tiles"``: per-tile-list binning (``bin_gaussians``) + the
+  hand-written CUDA list kernel (ops/tiles_composite.py, the counterpart of
+  JAX ``"pallas"``) at chunk ``max(chunk, 128)``, through its wrapper.
+  Forward only; ``spill_parts`` is None;
+- ``"torch_tiles"``: the same binning + the plain per-tile-list compositor
+  (ops/composite.py, the counterpart of JAX ``"jnp"``) at ``chunk``,
+  differentiable by plain autograd, on either device.
 
 ``backend=None`` picks ``"cuda_stream"`` for a scene on a CUDA device and
 ``"torch"`` for a scene on the CPU; ``default_train_backend`` gives the
-backend a trainer uses. The per-tile-list backends, ``render_weights`` and
-``render_point_cloud`` belong to the edit slice.
+backend a trainer uses. The list backends cut a tile's list into chunks from
+the tile's own slot 0, the stream backends at absolute stream offsets, so
+the two families can differ at pixels that saturate across a chunk edge
+(ops/composite.py).
 """
 
 from __future__ import annotations
@@ -27,10 +37,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from dge_tpu_torch.ops import (binning, pairs_backward, pairs_composite,
-                               projection)
+from dge_tpu_torch.ops import (binning, composite, pairs_backward,
+                               pairs_composite, projection, tiles_composite)
 
-BACKENDS = ("cuda_stream", "cuda_train", "torch")
+BACKENDS = ("cuda_stream", "cuda_train", "torch", "cuda_tiles", "torch_tiles")
+LIST_BACKENDS = ("cuda_tiles", "torch_tiles")
 
 
 class RenderOut(NamedTuple):
@@ -138,6 +149,15 @@ def render(
     mean2d = prep.mean2d
     if mean2d_offset is not None:
         mean2d = mean2d + mean2d_offset
+    if backend in LIST_BACKENDS:
+        color, depth, final_t, spill = _render_lists(
+            backend, prep, mean2d, cam, bg, tile_px=tile_px,
+            max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=chunk,
+            tight_cull=tight_cull)
+        return RenderOut(color=color, depth=depth, alpha=1.0 - final_t,
+                         radii=prep.radius.detach(), visible=prep.visible,
+                         spill=spill)
     with torch.no_grad():
         pb = binning.bin_gaussians_pairs(
             mean2d.detach(),
@@ -180,15 +200,99 @@ def render(
     )
 
 
+def _bin_lists(prep, mean2d, cam, *, tile_px, max_per_tile,
+               max_tiles_per_gaussian, tight_cull) -> binning.TileBins:
+    with torch.no_grad():
+        return binning.bin_gaussians(
+            mean2d.detach(), prep.depth.detach(), prep.radius.detach(),
+            prep.visible, height=cam.height, width=cam.width, tile_px=tile_px,
+            max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            conic=prep.conic.detach() if tight_cull else None,
+            opacity=prep.opacity.detach() if tight_cull else None)
+
+
+def _render_lists(backend, prep, mean2d, cam, bg, *, chunk, **bin_kw):
+    """The per-tile-list backends → (color, depth, final_T, spill)."""
+    bins = _bin_lists(prep, mean2d, cam, **bin_kw)
+    feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
+    geom = dict(height=cam.height, width=cam.width, tiles_x=bins.tiles_x,
+                tiles_y=bins.tiles_y, tile_px=bin_kw["tile_px"], bg=bg)
+    if backend == "cuda_tiles":
+        color, depth, final_t = tiles_composite.composite_tiles(
+            bins.lists, bins.counts, *feats, order=bins.order,
+            chunk=max(chunk, 128), **geom)
+        return color, depth, final_t, bins.spill
+    out = composite.composite(bins.lists, bins.counts, *feats,
+                              spill=bins.spill, chunk=chunk, **geom)
+    return out.color, out.depth, out.final_T, out.spill
+
+
+def render_point_cloud(points, colors, cam, *, point_size: float = 0.01,
+                       opacity: float = 0.99, bg=None, **render_kw
+                       ) -> RenderOut:
+    """Render a raw coloured point cloud as isotropic Gaussians
+    (point_cloud_render, gaussian_renderer/__init__.py:156-250), on the
+    camera's device."""
+    import numpy as np
+
+    from dge_tpu_torch.scene import gaussians as G
+
+    pts = np.asarray(points, np.float32)
+    n = len(pts)
+    rot = np.zeros((n, 4), np.float32)
+    rot[:, 0] = 1.0
+    scene = G.from_arrays(
+        pts,
+        G.rgb_to_sh(np.asarray(colors, np.float32)).reshape(n, 1, 3),
+        np.zeros((n, 0, 3), np.float32),
+        np.full((n, 1), np.log(opacity / (1 - opacity)), np.float32),
+        np.full((n, 3), np.log(point_size), np.float32),
+        rot,
+        max_sh_degree=0,
+        device=cam.device,
+    )
+    return render(scene, cam, bg, **render_kw)
+
+
+def render_weights(scene, cam, mask_img, *, tile_px: int = 32,
+                   max_per_tile: int = 2048, max_tiles_per_gaussian: int = 32,
+                   chunk: int = 64):
+    """Back-project a per-pixel mask ``[H, W]`` to per-Gaussian (weights, hit
+    counts), each ``[capacity]`` (GaussianModel.apply_weights,
+    gaussian_model.py:817-832, apply_weights.cu): lifts a segmentation mask
+    to Gaussian space for local editing. Binning always culls tightly: the
+    lift skips alpha < 1/255 as the colour compositors do."""
+    with torch.no_grad():
+        prep = projection.preprocess(
+            scene.xyz, scene.get_scaling, scene.get_rotation,
+            scene.get_opacity, scene.get_features, scene.alive, cam,
+            scene.active_sh_degree, scene.max_sh_degree)
+        bins = _bin_lists(prep, prep.mean2d, cam, tile_px=tile_px,
+                          max_per_tile=max_per_tile,
+                          max_tiles_per_gaussian=max_tiles_per_gaussian,
+                          tight_cull=True)
+        return composite.lift_weights(
+            bins.lists, bins.counts, bins.order, prep.mean2d, prep.conic,
+            prep.opacity,
+            torch.as_tensor(mask_img, dtype=torch.float32).to(scene.device),
+            num_gaussians=scene.capacity, height=cam.height, width=cam.width,
+            tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, tile_px=tile_px,
+            chunk=chunk)
+
+
 class SpillFreeRenderer:
     """Adaptive-cap renderer for evaluation paths (render CLI, quality
     eval): probe-and-grow the binning caps until ``spill == 0``.
 
     The first rung enables exact tight tile culling; later rungs double
-    only the overflowing cap class (``grow_caps`` + ``spill_parts``). Every
+    only the overflowing cap class (``grow_caps`` + ``spill_parts``); the
+    list backends report no ``spill_parts``, so every cap doubles. Every
     rung syncs ``spill`` to the host. ``backend`` defaults to
     ``"cuda_stream"`` for a scene on a CUDA device and ``"torch"`` for one
-    on the CPU; any other pairing raises.
+    on the CPU; the list backends run where their compositor does
+    (``"cuda_tiles"`` on a CUDA device, ``"torch_tiles"`` on either); any
+    other pairing raises.
 
     Usage::
 
@@ -202,7 +306,10 @@ class SpillFreeRenderer:
                  **render_kw):
         want = default_backend(scene.device)
         backend = backend or want
-        if backend != want:
+        allowed = {want, "torch_tiles"}
+        if torch.device(scene.device).type == "cuda":
+            allowed.add("cuda_tiles")
+        if backend not in allowed:
             raise ValueError(
                 f"SpillFreeRenderer: backend {backend!r} does not run on a "
                 f"scene on {scene.device} (expected {want!r})")

@@ -4,8 +4,10 @@ JAX counterpart: ``dge_tpu/utils/saving.py``, which goes through imageio.
 Images here go through a small stdlib (zlib/struct) PNG codec, so rendering
 needs no imaging package: the writer emits 8-bit RGB; the reader takes
 8-bit non-interlaced greyscale, RGB and their alpha forms (all five row
-filters), which covers the capture images. ``save_video`` runs only when
-imageio is importable.
+filters), which covers the capture images. JPEG captures are decoded by
+imageio or PIL, imported only when one is met. ``load_image(size=)`` resizes
+by area averaging in numpy (the JAX version calls ``cv2.INTER_AREA``).
+``save_video`` runs only when imageio is importable.
 """
 
 from __future__ import annotations
@@ -120,13 +122,79 @@ def save_image(path: str, img: np.ndarray) -> str:
     return path
 
 
-def load_image(path: str) -> np.ndarray:
-    """Returns [H, W, 3] float32 in [0, 1]."""
+IMAGE_EXTS = (".png", ".jpg", ".JPG", ".jpeg")
+
+
+def find_image(directory: str, stem: str) -> str:
+    """The path of ``<stem>`` with the first image extension that exists in
+    ``directory`` (``<stem>.png`` when none does, so that opening it names
+    the missing file)."""
+    for ext in IMAGE_EXTS:
+        path = os.path.join(directory, stem + ext)
+        if os.path.exists(path):
+            return path
+    return os.path.join(directory, stem + IMAGE_EXTS[0])
+
+
+def _decode_other(path: str) -> np.ndarray:
+    """A non-PNG image (JPEG) through imageio or PIL → uint8 array."""
+    try:
+        import imageio.v2 as imageio
+
+        return np.asarray(imageio.imread(path))
+    except ImportError:
+        pass
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(
+            f"cannot decode {path}: only PNG is read without an imaging "
+            "package; install imageio or Pillow, or convert the capture's "
+            "images to PNG") from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _area_weights(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] row-stochastic weights: output cell i covers
+    [i, i+1)·n_in/n_out of the input axis and weighs each input cell by the
+    length of their overlap."""
+    scale = n_in / n_out
+    lo = np.arange(n_out)[:, None] * scale
+    hi = lo + scale
+    cell = np.arange(n_in)[None, :]
+    overlap = np.clip(np.minimum(hi, cell + 1) - np.maximum(lo, cell), 0, None)
+    return (overlap / scale).astype(np.float64)
+
+
+def resize_area(img: np.ndarray, size) -> np.ndarray:
+    """[H, W, C] float → [size[0], size[1], C] float32 by area averaging,
+    separably: exact box means for integer down-scale factors, overlap
+    weights otherwise (what ``cv2.INTER_AREA`` computes when shrinking;
+    enlarging repeats pixels with blended seams)."""
+    h, w = int(size[0]), int(size[1])
+    out = np.einsum("ih,hwc->iwc", _area_weights(img.shape[0], h),
+                    img.astype(np.float64))
+    out = np.einsum("jw,iwc->ijc", _area_weights(img.shape[1], w), out)
+    return out.astype(np.float32)
+
+
+def load_image(path: str, size: Optional[tuple] = None) -> np.ndarray:
+    """Returns [H, W, 3] float32 in [0, 1], area-resized to ``size`` =
+    (height, width) when it is given and differs."""
     with open(path, "rb") as f:
-        img = decode_png(f.read())
+        head = f.read(8)
+        img = decode_png(head + f.read()) if head == _PNG_SIG else None
+    if img is None:
+        img = _decode_other(path)
+    if img.ndim == 2:
+        img = img[..., None]
     if img.shape[2] < 3:
         img = np.repeat(img[..., :1], 3, axis=-1)
-    return img[..., :3].astype(np.float32) / 255.0
+    img = img[..., :3].astype(np.float32) / 255.0
+    if size is not None and tuple(size) != img.shape[:2]:
+        img = resize_area(img, size)
+    return img
 
 
 def save_video(path: str, frames: Sequence[np.ndarray], fps: int = 30,

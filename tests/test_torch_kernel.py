@@ -1,7 +1,9 @@
-"""The CUDA kernels of the PyTorch port (forward compositing, backward pass
-1 and pass 2): their wrappers' checks on the CPU, and each kernel against
-its plain version on a card (marked ``gpu``; skips without a card). This file imports neither JAX nor the JAX
-package, so the card's machine runs it without them:
+"""The CUDA kernels of the PyTorch port (forward compositing over the pair
+stream, backward pass 1 and pass 2, forward compositing over per-tile lists,
+the log-space arm of the stream kernel): their wrappers' checks on the CPU,
+and each kernel against its plain version on a card (marked ``gpu``; skips
+without a card). This file imports neither JAX nor the JAX package, so the
+card's machine runs it without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 
@@ -149,6 +151,111 @@ def test_backward_kernels_match_plain_on_card(chunk):
         assert close(got, want)
 
 
+def random_lists(rng, num_tiles, k):
+    """Random capped per-tile lists over the feature table of
+    ``random_stream`` (an empty tile, a full one, garbage past the counts)."""
+    counts = rng.integers(0, k, size=num_tiles).astype(np.int32)
+    counts[1], counts[2] = 0, k
+    lists = rng.integers(0, 80, size=(num_tiles, k)).astype(np.int32)
+    return lists, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("with_order", [False, True])
+def test_list_kernel_matches_plain_on_card(chunk, with_order):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from dge_tpu_torch.ops import composite as TCMP
+    from dge_tpu_torch.ops import tiles_composite as TTC
+
+    rng = np.random.default_rng(6)
+    _, _, _, m, c, r, d, o, tiles_x = random_stream(rng, 8, 32, tail=0)
+    lists, counts = random_lists(rng, 8, 300)
+    dev = torch.device("cuda")
+    feats = [torch.from_numpy(x).to(dev) for x in (m, c, r, d, o)]
+    lt = torch.from_numpy(lists).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    order = None
+    if with_order:
+        perm = rng.permutation(80).astype(np.int32)
+        order = torch.from_numpy(perm).to(dev)
+        lt = torch.from_numpy(np.argsort(perm).astype(np.int32)[lists]).to(dev)
+    kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
+    before = TPC.launch_counts["tiles_composite"]
+    got = TTC.composite_tiles_kernel(TTC.feature_table(*feats), lt, ct, order,
+                                     **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts["tiles_composite"] == before + 1
+    want = TCMP.composite_lists(lt, ct, *feats, order=order, **kw)
+    err = (got - want).abs()
+    assert float(err[:, 0:3].max()) <= 1e-4
+    assert float(err[:, 3].max()) <= 1e-3
+    assert float(err[:, 4].max()) <= 2e-4
+    assert float(got[1, 4].min()) == 1.0  # the empty tile
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 256])
+def test_logdot_kernel_matches_plain_on_card(chunk):
+    """The log-space arm against its plain version and against the
+    production kernel on the same stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from dge_tpu_torch.tools import proto_logdot as TLD
+
+    rng = np.random.default_rng(1)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(
+        rng, 8, 32, tail=3)
+    dev = torch.device("cuda")
+    data = TPC.assemble_stream_data(*(torch.from_numpy(x).to(dev)
+                                      for x in (ids, m, c, r, d, o)))
+    st = torch.from_numpy(starts).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
+    before = TPC.launch_counts["pairs_logdot"]
+    got = TLD.composite_pairs_logdot(data, st, ct, **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts["pairs_logdot"] == before + 1
+    for want in (TLD.composite_pairs_logdot_reference(data, st, ct, **kw),
+                 TPC.composite_pairs_stream(data, st, ct, **kw)):
+        err = (got - want).abs()
+        assert float(err[:, 0:3].max()) <= 1e-4
+        assert float(err[:, 3].max()) <= 1e-3
+        assert float(err[:, 4].max()) <= 2e-4
+
+
+@pytest.mark.gpu
+def test_cuda_tiles_raises_when_the_library_cannot_load(monkeypatch):
+    """A scene on the card with ``backend="cuda_tiles"`` raises when the
+    kernel library cannot be built or loaded; it never falls back to the
+    plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from dge_tpu_torch.ops import cuda_build
+    from dge_tpu_torch.ops import tiles_composite as TTC
+
+    rng = np.random.default_rng(6)
+    _, _, _, m, c, r, d, o, tiles_x = random_stream(rng, 4, 16, tail=0)
+    lists, counts = random_lists(rng, 4, 40)
+    dev = torch.device("cuda")
+    table = TTC.feature_table(*(torch.from_numpy(x).to(dev)
+                                for x in (m, c, r, d, o)))
+
+    def broken(name):
+        raise RuntimeError(f"nvcc failed: {name}")
+
+    monkeypatch.setattr(TTC, "_lib", None)
+    monkeypatch.setattr(cuda_build, "build_library", broken)
+    before = TPC.launch_counts["tiles_composite"]
+    with pytest.raises(RuntimeError, match="nvcc failed: tiles_composite"):
+        TTC.composite_tiles_kernel(
+            table, torch.from_numpy(lists).to(dev),
+            torch.from_numpy(counts).to(dev), tiles_x=tiles_x, tile_px=16,
+            chunk=128)
+    assert TPC.launch_counts["tiles_composite"] == before
+
+
 def test_backward_wrappers_take_plain_versions_for_cpu_tensors():
     """On CPU tensors pass 1 and pass 2 run their plain versions and count
     no launch; a chunk the kernels cannot stage is refused only for CUDA
@@ -188,7 +295,9 @@ def test_build_paths_stay_in_repo():
     assert os.path.isfile(TPC._SRC) and TPC._SRC.startswith(root)
     for name in cuda_build.SOURCES:
         assert os.path.isfile(cuda_build.source_path(name))
-    assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward")
+    assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward",
+                                  "tiles_composite", "pairs_logdot")
+    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "pair_alpha.cuh"))
 
 
 def test_cpu_render_takes_plain_version():
