@@ -6,13 +6,19 @@
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
 
-1. kernels vs plain: the pair-stream compositing kernel (K1) and the two
-   backward kernels (pass 1 = K3, pass 2 = K4) against their plain PyTorch
-   versions on the block-boundary fixture and on a seeded random scene at
-   chunk 128 and 256 (tolerances: colour 1e-4, depth 1e-3, final T and
-   boundary T 2e-4; suffix and per-pair gradients 2e-3·max + 1e-7), and the
-   whole ``stream_composite`` backward against autograd through the plain
-   forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per field);
+1. kernels vs plain: the pair-stream compositing kernel (K1, with the
+   ``boundary_T`` it stores for the backward) and the backward kernels (pass
+   1 = K3: row totals from a handed-over ``boundary_T`` and without one; the
+   suffix kernel; pass 2 = K4) against their plain PyTorch versions on the
+   block-boundary fixture and on a seeded random scene at tile 8, 16 and 32
+   and chunk 128 and 256, and at chunk 512 (tolerances: colour 1e-4, depth
+   1e-3, final T and boundary T 2e-4; totals, suffix and per-pair gradients
+   2e-3·max + 1e-7: the pixel sums run in another order); two launches of
+   pass 2 give bit-identical gradients; a pair with a NaN colour gives NaN
+   where the plain versions give NaN; a launch the card refuses raises;
+   the whole ``stream_composite`` backward against autograd through the
+   plain forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per
+   field) at the same tiles and chunks;
    the per-tile-list kernel (K2) on the list form of the fixture and on the
    random scene's lists at chunk 128 and 256, with and without ``order``,
    and the log-space arm of the stream kernel (K5) on the same streams as
@@ -30,13 +36,15 @@ process per source, started together) and runs:
 4. the training path: ``dge_tpu_torch.launch --fit`` on the same capture at
    256^2 (SH degree 3, 1,200 steps, seed 0), counters set to 0 just before
    and read just after, then the saved PLY rendered spill-free over the 16
-   views; every loss finite, at least one K1, K3 and K4 launch per step,
+   views; every loss finite, at least one K1, K3, suffix and K4 launch per
+   step,
    more than 8,000 Gaussians alive, train PSNR (last 100 steps) and
    evaluation PSNR at least 30 dB;
 5. full width, training: on the bench scene at 512^2 with a seeded random
    target and ``lambda_dssim=0``: K3 and K4 against their plain versions,
-   CUDA-event times of K1, K3 and K4 alone, of the stages of a train step,
-   of forward + backward of ``render`` and of a whole train step;
+   CUDA-event times of K1 (with and without the ``boundary_T`` store), K3
+   (both routes), the suffix kernel and K4 alone, of the stages of a train
+   step, of forward + backward of ``render`` and of a whole train step;
 6. the evaluation path: ``dge_tpu_torch.launch --validate`` of the
    quality-gate scene over the capture at 256^2, in-process, twice: on the
    default backend (K1) and with ``--backend cuda_tiles`` (per-tile lists,
@@ -62,6 +70,7 @@ device, or outside the repository, it fails. Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import logging
 import math
@@ -108,8 +117,9 @@ STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
 ALL_PHASES = {1, 2, 3, 4, 5, 6}
-KERNEL_NAMES = ("pairs_composite", "pairs_pass1", "pairs_pass2",
-                "tiles_composite", "pairs_logdot")
+KERNEL_NAMES = ("pairs_composite", "pairs_pass1", "pairs_suffix",
+                "pairs_pass2", "tiles_composite", "pairs_logdot")
+BACKWARD_KERNELS = ("pairs_pass1", "pairs_suffix", "pairs_pass2")
 
 
 def log(msg: str) -> None:
@@ -217,16 +227,19 @@ def stage_ms(scene, cam, caps, tight_cull, tile_px) -> dict:
 
 
 def backward_bounds(pairs: int, num_tiles: int, rows: int, tile_px: int):
-    """Least times of pass 1 and pass 2 on this card, as ``bound_ms``: every
-    input read once, every output written once, against the operations."""
+    """Least times of pass 1, pass 2 and the suffix kernel on this card, as
+    ``bound_ms``: every input read once, every output written once, against
+    the operations (one add per row and pixel for the suffix)."""
     p = tile_px * tile_px
     out = []
-    for flops, nbytes in (
-            (FLOPS_PASS1, pairs * 40 + num_tiles * p * 20 + rows * p * 8),
-            (FLOPS_PASS2,
-             pairs * 40 + num_tiles * p * 24 + rows * p * 8 + pairs * 40)):
+    for ops, nbytes in (
+            (pairs * p * FLOPS_PASS1,
+             pairs * 40 + num_tiles * p * 20 + rows * p * 8),
+            (pairs * p * FLOPS_PASS2,
+             pairs * 40 + num_tiles * p * 24 + rows * p * 8 + pairs * 40),
+            (rows * p, rows * p * 8)):
         t_bytes = nbytes / HBM_BYTES_PER_S
-        t_ops = pairs * p * flops / F32_FLOPS
+        t_ops = ops / F32_FLOPS
         out.append((max(t_bytes, t_ops) * 1e3,
                     "bytes" if t_bytes >= t_ops else "operations"))
     return out
@@ -241,9 +254,26 @@ def rel_err(got, want, what: str) -> float:
     return err / max(scale, 1e-30)
 
 
+@contextlib.contextmanager
+def backward_option(**options):
+    """Run the backward kernels with module constants of ops/pairs_backward
+    (MAX_CHUNK) set for the block's duration."""
+    from dge_tpu_torch.ops import pairs_backward as PB
+
+    old = {k: getattr(PB, k) for k in options}
+    for k, v in options.items():
+        setattr(PB, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(PB, k, v)
+
+
 def backward_args(inp, seed: int = 0):
     """The backward kernels' inputs on one stream: a seeded random cotangent
-    [T, 5, P], the forward kernel's output and the compact row layout."""
+    [T, 5, P], the compact row layout, and the forward kernel's output with
+    the boundary T it stores for the backward."""
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
@@ -255,74 +285,220 @@ def backward_args(inp, seed: int = 0):
     cot = torch.randn(num_tiles, 5, inp["tile_px"] ** 2, generator=gen).to(dev)
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
-    fwd = PC.composite_pairs_stream(inp["data"], inp["starts"], inp["counts"],
-                                    **kw)
     blk_off, row_tile, n_rows = PB.block_rows(
         inp["starts"], inp["counts"], inp["chunk"], inp["data"].shape[1])
+    fwd, boundary_t = PC.composite_pairs_stream(
+        inp["data"], inp["starts"], inp["counts"],
+        boundary_rows=(blk_off, n_rows), **kw)
     used = row_tile < num_tiles
-    return dict(inp, cot=cot, fwd=fwd, blk_off=blk_off, row_tile=row_tile,
-                n_rows=n_rows, used=used, rows=int(used.sum()), kw=kw)
+    return dict(inp, cot=cot, fwd=fwd, boundary_t=boundary_t, blk_off=blk_off,
+                row_tile=row_tile, n_rows=n_rows, used=used,
+                rows=int(used.sum()), kw=kw)
 
 
 def backward_vs_plain(inp, what: str, seed: int = 0):
-    """Pass 1 and pass 2 kernels against their plain versions on one stream
-    (pass 2 of both kinds is fed the kernel's pass-1 output). Returns the
-    args and (max abs err of pass 1, of pass 2, and the same two relative to
-    the largest reference value of the field)."""
+    """The backward kernels against their plain versions on one stream: the
+    boundary T that K1 stores, the pass-1 row totals from it, the suffix
+    kernel, pass 1 as a whole on both routes (boundary T handed over, and
+    from K1's walk), and pass 2 (both kinds fed the kernels' pass-1 output).
+    Pass 2 twice must give the same bits. Returns the args and, per backward
+    kernel, (max abs err, the same relative to the field's largest reference
+    value)."""
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
     from dge_tpu_torch.ops import pairs_composite as PC
 
     a = backward_args(inp, seed)
+    used, kw = a["used"], a["kw"]
     base = (a["data"], a["starts"], a["counts"], a["blk_off"])
-    before = dict(PC.launch_counts)
-    bt, suf = PB.pairs_pass1(*base, a["n_rows"], a["cot"], **a["kw"])
-    grads = PB.pairs_pass2(*base, a["row_tile"], a["cot"], a["fwd"], bt, suf,
-                           **a["kw"])
+
+    def max_abs(x, y):
+        return float((x - y).abs().max()) if x.numel() else 0.0
+
+    def counted(fn, **advance):
+        before = dict(PC.launch_counts)
+        out = fn()
+        torch.cuda.synchronize()
+        for k in PC.launch_counts:
+            if PC.launch_counts[k] != before[k] + advance.get(k, 0):
+                raise AssertionError(f"{what}: launch counter {k} advanced by "
+                                     f"{PC.launch_counts[k] - before[k]}")
+        return out
+
+    def pass1(**extra):
+        return PB.pairs_pass1(*base, a["n_rows"], a["cot"], **extra, **kw)
+
+    def pass2(bt, suf):
+        return PB.pairs_pass2(*base, a["row_tile"], a["cot"], a["fwd"], bt,
+                              suf, **kw)
+
+    handed = dict(boundary_t=a["boundary_t"], row_tile=a["row_tile"])
+    totals = counted(lambda: PB.pairs_row_totals(
+        *base, a["row_tile"], a["cot"], a["boundary_t"], **kw), pairs_pass1=1)
+    suf_alone = counted(lambda: PB.pairs_suffix(
+        totals, a["starts"], a["counts"], a["blk_off"],
+        tile_px=inp["tile_px"], chunk=inp["chunk"]), pairs_suffix=1)
+    bt, suf = counted(lambda: pass1(**handed), pairs_pass1=1, pairs_suffix=1)
+    bt_w, suf_w = counted(pass1, pairs_composite=1, pairs_pass1=1,
+                          pairs_suffix=1)
+    grads = counted(lambda: pass2(bt, suf), pairs_pass2=1)
+    same = {"suffix alone": torch.equal(suf_alone[used], suf[used]),
+            "walk route boundary T": torch.equal(bt_w[used], bt[used]),
+            "walk route suffix": torch.equal(suf_w[used], suf[used]),
+            "pass 2 again": torch.equal(pass2(bt, suf), grads)}
     torch.cuda.synchronize()
-    if (PC.launch_counts["pairs_pass1"] != before["pairs_pass1"] + 1
-            or PC.launch_counts["pairs_pass2"] != before["pairs_pass2"] + 1):
-        raise AssertionError("backward launch counters did not advance")
-    bt_p, suf_p = PB.pass1_reference(*base, a["n_rows"], a["cot"], **a["kw"])
+    if not all(same.values()):
+        raise AssertionError(f"{what}: not bit-identical: {same}")
+
+    bt_p, suf_p = PB.pass1_reference(*base, a["n_rows"], a["cot"], **kw)
+    totals_p = PB.row_totals_reference(*base, a["row_tile"], a["cot"], bt,
+                                       **kw)
+    suf_from_totals = PB.suffix_reference(totals, a["starts"], a["counts"],
+                                          a["blk_off"], chunk=inp["chunk"])
     grads_p = PB.pass2_reference(*base, a["row_tile"], a["cot"], a["fwd"], bt,
-                                 suf, **a["kw"])
-    used = a["used"]
-    e_bt = float((bt[used] - bt_p[used]).abs().max()) if a["rows"] else 0.0
+                                 suf, **kw)
+    e_bt = max_abs(bt[used], bt_p[used])
     if e_bt > TOL["trans"]:
         raise AssertionError(f"{what}: boundary T {e_bt} > {TOL['trans']}")
-    r_suf = rel_err(suf[used], suf_p[used], f"{what} pass 1 suffix")
+    r_tot = rel_err(totals[used], totals_p[used], f"{what} row totals")
+    r_suf = rel_err(suf[used], suf_from_totals[used], f"{what} suffix kernel")
+    r_p1 = rel_err(suf[used], suf_p[used], f"{what} pass 1 suffix")
     r_g = [rel_err(grads[f], grads_p[f], f"{what} pass 2 row {f}")
            for f in range(10)]
-    e1 = max(e_bt, float((suf[used] - suf_p[used]).abs().max())
-             if a["rows"] else 0.0)
-    e2 = float((grads - grads_p).abs().max())
-    log(f"  {what}: pass 1 boundary T max|err| {e_bt:.3e}, suffix rel "
-        f"{r_suf:.3e}; pass 2 per-pair grads rel {max(r_g):.3e} "
-        f"(rows {a['rows']}, pairs {inp['pairs']})")
-    a.update(boundary_t=bt, suffix=suf)
-    return a, (e1, e2, max(r_suf, e_bt), max(r_g))
+    log(f"  {what}: K1's boundary T max|err| {e_bt:.3e}; pass 1 row totals "
+        f"rel {r_tot:.3e}, suffix kernel rel {r_suf:.3e}, whole pass 1 rel "
+        f"{r_p1:.3e}; pass 2 per-pair grads rel {max(r_g):.3e}; bit-identical "
+        f"{sorted(same)} (rows {a['rows']}, pairs {inp['pairs']})")
+    a.update(suffix=suf, totals=totals)
+    return a, {
+        "pairs_pass1": (max(e_bt, max_abs(totals[used], totals_p[used]),
+                            max_abs(suf[used], suf_p[used])),
+                        max(r_tot, r_p1, e_bt)),
+        "pairs_suffix": (max_abs(suf[used], suf_from_totals[used]), r_suf),
+        "pairs_pass2": (max_abs(grads, grads_p), max(r_g))}
+
+
+def nan_colour_vs_plain(dev):
+    """A pair with a NaN colour in a 16x16 tile that five wide pairs cover:
+    the row kernels must turn it into NaN exactly where the plain versions
+    do (the row's totals and suffix at every pixel; mean, conic and opacity
+    gradients of every pair of the row) and agree on the rest (the colour
+    and depth gradients, which no NaN reaches)."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_backward as PB
+
+    feat = torch.zeros(10, 8)
+    feat[0:2] = 8.0
+    feat[2] = feat[4] = 1e-3  # alpha 0.28-0.3 at every pixel of the tile
+    feat[5] = 0.3
+    feat[6:9] = 0.5
+    feat[9] = 1.0
+    feat[6, 2] = float("nan")
+    inp = dict(data=feat.to(dev).contiguous(),
+               starts=torch.zeros(1, dtype=torch.int32, device=dev),
+               counts=torch.full((1,), 5, dtype=torch.int32, device=dev),
+               tiles_x=1, tiles_y=1, pairs=5, chunk=128, tile_px=16)
+    a = backward_args(inp, seed=7)
+    base = (a["data"], a["starts"], a["counts"], a["blk_off"])
+    rows = (a["row_tile"], a["cot"])
+    bt, suf = PB.pairs_pass1(*base, a["n_rows"], a["cot"],
+                             boundary_t=a["boundary_t"],
+                             row_tile=a["row_tile"], **a["kw"])
+    totals = PB.pairs_row_totals(*base, *rows, bt, **a["kw"])
+    grads = PB.pairs_pass2(*base, *rows, a["fwd"], bt, suf, **a["kw"])
+    totals_p = PB.row_totals_reference(*base, *rows, bt, **a["kw"])
+    grads_p = PB.pass2_reference(*base, *rows, a["fwd"], bt, suf, **a["kw"])
+    used = a["used"]
+    for what, got, want in (("row totals", totals[used], totals_p[used]),
+                            ("suffix", suf[used], totals_p[used]),
+                            ("pass 2", grads[:, :5], grads_p[:, :5])):
+        if not torch.equal(got.isnan(), want.isnan()):
+            raise AssertionError(f"NaN colour, {what}: the kernel's NaNs are "
+                                 "not the plain version's")
+        rel_err(got.nan_to_num(), want.nan_to_num(), f"NaN colour {what}")
+    if not (bool(totals[used].isnan().all())
+            and bool(grads[:6, :5].isnan().all())
+            and bool(grads[6:].isfinite().all())
+            and float(grads[6:].abs().max()) > 0):
+        raise AssertionError("NaN colour: not where it is expected")
+    log("  NaN colour: row totals, suffix and the mean / conic / opacity "
+        "gradients of the row are NaN in the kernels as in the plain "
+        "versions; colour and depth gradients finite and equal")
 
 
 def backward_times(a, plain_reps: int = 2):
-    """CUDA-event times of pass 1, pass 2 and their plain versions."""
+    """CUDA-event times of K1 with and without the boundary-T store, of the
+    pass-1 row kernel, the suffix kernel, pass 1 as a whole on both routes
+    and pass 2; of the plain versions; and, from a profiler trace, the
+    device time of each hand-written kernel of a training step."""
     from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import pairs_composite as PC
 
-    base = (a["data"], a["starts"], a["counts"], a["blk_off"])
-    p2 = (a["row_tile"], a["cot"], a["fwd"], a["boundary_t"], a["suffix"])
-    return dict(
-        pass1_ms=cuda_ms(lambda: PB.pairs_pass1(*base, a["n_rows"], a["cot"],
-                                                **a["kw"]), reps=20),
-        pass2_ms=cuda_ms(lambda: PB.pairs_pass2(*base, *p2, **a["kw"]),
-                         reps=20),
+    kw = a["kw"]
+    stream = (a["data"], a["starts"], a["counts"])
+    base = stream + (a["blk_off"],)
+
+    def k1():
+        return PC.composite_pairs_stream(*stream, **kw)
+
+    def k1_store():
+        return PC.composite_pairs_stream(
+            *stream, boundary_rows=(a["blk_off"], a["n_rows"]), **kw)
+
+    def row_totals():
+        return PB.pairs_row_totals(*base, a["row_tile"], a["cot"],
+                                   a["boundary_t"], **kw)
+
+    def suffix():
+        return PB.pairs_suffix(a["totals"], a["starts"], a["counts"],
+                               a["blk_off"], tile_px=kw["tile_px"],
+                               chunk=kw["chunk"])
+
+    def pass1(**extra):
+        return PB.pairs_pass1(*base, a["n_rows"], a["cot"], **extra, **kw)
+
+    def pass1_handed():
+        return pass1(boundary_t=a["boundary_t"], row_tile=a["row_tile"])
+
+    def pass2():
+        return PB.pairs_pass2(*base, a["row_tile"], a["cot"], a["fwd"],
+                              a["boundary_t"], a["suffix"], **kw)
+
+    # the two K1 forms in turns: plain, store, store, plain
+    k1_ms = [cuda_ms(f, reps=20) for f in (k1, k1_store, k1_store, k1)]
+    out = dict(
+        k1_ms=min(k1_ms[0], k1_ms[3]), k1_store_ms=min(k1_ms[1], k1_ms[2]),
+        pass1_ms=cuda_ms(row_totals, reps=20),
+        pass2_ms=cuda_ms(pass2, reps=20), suffix_ms=cuda_ms(suffix, reps=20),
+        pass1_whole_ms=cuda_ms(pass1_handed, reps=20),
+        pass1_walk_route_ms=cuda_ms(pass1, reps=20))
+
+    def step():
+        k1_store()
+        pass1_handed()
+        pass2()
+
+    out.update(kernel_device_ms(step, dict(
+        k1_store_device_ms="pairs_composite_kernel",
+        pass1_device_ms="pairs_rows_kernel<false>",
+        suffix_device_ms="rows_suffix_kernel",
+        pass2_device_ms="pairs_rows_kernel<true>")))
+    out.update(
         pass1_plain_ms=cuda_ms(lambda: PB.pass1_reference(
-            *base, a["n_rows"], a["cot"], **a["kw"]), reps=plain_reps,
-            warmup=1),
+            *base, a["n_rows"], a["cot"], **kw), reps=plain_reps, warmup=1),
+        suffix_plain_ms=cuda_ms(lambda: PB.suffix_reference(
+            a["totals"], a["starts"], a["counts"], a["blk_off"],
+            chunk=kw["chunk"]), reps=plain_reps, warmup=1),
         pass2_plain_ms=cuda_ms(lambda: PB.pass2_reference(
-            *base, *p2, **a["kw"]), reps=plain_reps, warmup=1))
+            *base, a["row_tile"], a["cot"], a["fwd"], a["boundary_t"],
+            a["suffix"], **kw), reps=plain_reps, warmup=1))
+    return out
 
 
-def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64):
+def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64,
+                                tile_px: int = 32):
     """The whole stream_composite backward (K1 forward, K3 + K4 + fold)
     against autograd through the plain forward: gradients of mean2d, conic,
     opacity, rgb and depth under a seeded random cotangent on colour, depth
@@ -339,14 +515,15 @@ def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64):
                         cam, scene.active_sh_degree, scene.max_sh_degree)
     pb = B.bin_gaussians_pairs(prep.mean2d, prep.depth, prep.radius,
                                prep.visible, height=cam.height,
-                               width=cam.width, tile_px=32, max_per_tile=4096)
+                               width=cam.width, tile_px=tile_px,
+                               max_per_tile=4096)
     # both sides composite the same stream, spilled or not
     names = ("mean2d", "conic", "rgb", "depth", "opacity")
     gen = torch.Generator(device="cpu").manual_seed(3)
     wts = [torch.randn(cam.height, cam.width, c, generator=gen).to(
         scene.device) for c in (3, 1, 1)]
     geom = dict(height=cam.height, width=cam.width, tiles_x=pb.tiles_x,
-                tiles_y=pb.tiles_y, tile_px=32, chunk=max(chunk, 128))
+                tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
     starts = pb.starts.to(torch.int32).contiguous()
     counts = pb.counts.to(torch.int32).contiguous()
     res = {}
@@ -488,10 +665,15 @@ def train_cell(scene, cam, caps, tight_cull, a, times):
     return stages
 
 
-def device_busy(step, steps: int) -> dict:
-    """Share of the wall time of ``steps`` calls during which the card ran a
-    kernel, and the kernels that took most of it, from a torch.profiler
-    trace; ``None`` where the trace shows no device time."""
+def dev_us(event) -> float:
+    return getattr(event, "self_device_time_total",
+                   getattr(event, "self_cuda_time_total", 0.0))
+
+
+def profiled_kernels(step, steps: int):
+    """A torch.profiler trace of ``steps`` calls → (the kernels' events, most
+    device time first; wall time in us). Kernels only: a host-side op's
+    device time is its kernels' over again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -503,15 +685,17 @@ def device_busy(step, steps: int) -> dict:
             step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernels only: a host-side op's device time is its kernels' over again
     events = sorted((e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA),
                     key=dev_us, reverse=True)
+    return events, wall_us
+
+
+def device_busy(step, steps: int) -> dict:
+    """Share of the wall time of ``steps`` calls during which the card ran a
+    kernel, and the kernels that took most of it, from a torch.profiler
+    trace; ``None`` where the trace shows no device time."""
+    events, wall_us = profiled_kernels(step, steps)
     total = sum(dev_us(e) for e in events)
     if total <= 0:
         return dict(device_busy_share=None, device_kernels=None)
@@ -522,6 +706,21 @@ def device_busy(step, steps: int) -> dict:
         device_launches_per_step=sum(e.count for e in events) / steps,
         device_kernels=[(e.key[:60], dev_us(e) / steps / 1e3, e.count // steps)
                         for e in events[:8]])
+
+
+def kernel_device_ms(step, kernels: dict, steps: int = 10) -> dict:
+    """Device time per launch, in ms, of the kernels named in ``kernels``
+    ({result key: substring of the kernel's name}) over ``steps`` calls of
+    ``step``, from a torch.profiler trace: unlike a CUDA-event pair around
+    one call it holds no host time, which matters below ~0.1 ms. ``None``
+    where the trace shows no such kernel."""
+    events, _ = profiled_kernels(step, steps)
+    out = {}
+    for key, part in kernels.items():
+        found = [e for e in events if part in e.key]
+        n = sum(e.count for e in found)
+        out[key] = sum(dev_us(e) for e in found) / n / 1e3 if n else None
+    return out
 
 
 def kernel_vs_plain(inp, what: str) -> float:
@@ -850,18 +1049,19 @@ def main(argv=None) -> int:
                         format="  [%(name)s] %(message)s")
 
     errs = {k: [] for k in KERNEL_NAMES}
-    rels = {"pairs_pass1": [], "pairs_pass2": []}
+    rels = {k: [] for k in BACKWARD_KERNELS}
 
-    def hold(inp, what, seed=0):
-        """The four stream kernels (K1, K3, K4 and the log-space arm K5)
-        against their plain versions on one stream."""
-        errs["pairs_composite"].append(kernel_vs_plain(inp, f"{what} K1"))
-        errs["pairs_logdot"].append(logdot_vs_plain(inp, what))
-        a, (e1, e2, r1, r2) = backward_vs_plain(inp, what, seed)
-        errs["pairs_pass1"].append(e1)
-        errs["pairs_pass2"].append(e2)
-        rels["pairs_pass1"].append(r1)
-        rels["pairs_pass2"].append(r2)
+    def hold(inp, what, seed=0, forward=True):
+        """The stream kernels (K1, its log-space arm K5, and the backward
+        kernels K3, suffix, K4) against their plain versions on one
+        stream."""
+        if forward:
+            errs["pairs_composite"].append(kernel_vs_plain(inp, f"{what} K1"))
+            errs["pairs_logdot"].append(logdot_vs_plain(inp, what))
+        a, found = backward_vs_plain(inp, what, seed)
+        for k, (e_abs, e_rel) in found.items():
+            errs[k].append(e_abs)
+            rels[k].append(e_rel)
         return a
 
     bench = bg = None
@@ -874,6 +1074,7 @@ def main(argv=None) -> int:
         log("phase 1: kernels vs plain")
         fx = boundary_fixture(dev)
         hold(fx, "block-boundary fixture")
+        nan_colour_vs_plain(dev)
         got = PC.composite_pairs_stream(fx["data"], fx["starts"],
                                         fx["counts"], tiles_x=1, tile_px=16,
                                         chunk=128)
@@ -887,9 +1088,32 @@ def main(argv=None) -> int:
         rng = np.random.default_rng(0)
         rscene = random_scene(rng, 4000, dev)
         rcam = bench_camera(256, 256, dev)
-        for chunk in (128, 256):
-            hold(stream_inputs(rscene, rcam, {}, False, 32, chunk),
-                 f"random scene chunk {chunk}", seed=chunk)
+        for tile_px in (32, 16, 8):
+            for chunk in (128, 256):
+                hold(stream_inputs(rscene, rcam, {}, False, tile_px, chunk),
+                     f"random scene tile {tile_px} chunk {chunk}",
+                     seed=chunk + tile_px, forward=tile_px == 32)
+        # chunk 512: the most shared memory the row kernel asks for
+        inp512 = stream_inputs(rscene, rcam, {}, False, 32, 512)
+        hold(inp512, "random scene tile 32 chunk 512", seed=512,
+             forward=False)
+        # a launch the card refuses (a chunk whose slots exceed an SM's
+        # shared memory) must raise, and leave the next launch unharmed
+        from dge_tpu_torch.ops import pairs_backward as PB
+        a = backward_args(inp512, seed=512)
+        refused = dict(a["kw"], chunk=2 * PB.MAX_CHUNK)
+        with backward_option(MAX_CHUNK=2 * PB.MAX_CHUNK):
+            try:
+                PB.pairs_pass2(a["data"], a["starts"], a["counts"],
+                               a["blk_off"], a["row_tile"], a["cot"],
+                               a["fwd"], a["boundary_t"], a["boundary_t"],
+                               **refused)
+            except RuntimeError as e:
+                log(f"  refused launch raises: {e}")
+            else:
+                raise AssertionError("a refused launch did not raise")
+        hold(inp512, "random scene tile 32 chunk 512 after the refusal",
+             seed=512, forward=False)
         before = PC.launch_counts["pairs_composite"]
         ko = R.render(rscene, rcam, tile_px=32, max_per_tile=4096)
         po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
@@ -904,10 +1128,11 @@ def main(argv=None) -> int:
             log(f"  random scene render {what}: max|err| {e:.3e}")
             if e > tol:
                 raise AssertionError(f"random scene render {what} {e} > {tol}")
-        for chunk in (64, 256):
-            composite_grads_vs_autograd(
-                rscene, rcam, f"stream_composite backward chunk "
-                f"{max(chunk, 128)}", chunk)
+        for tile_px in (32, 16, 8):
+            for chunk in (64, 256):
+                composite_grads_vs_autograd(
+                    rscene, rcam, f"stream_composite backward tile {tile_px} "
+                    f"chunk {max(chunk, 128)}", chunk, tile_px)
 
         # K2: the fixture as one tile's list (chunks count from the tile's
         # own slot 0: slot 128 is applied again, slot 100 stays refused),
@@ -1049,7 +1274,7 @@ def main(argv=None) -> int:
                 f"train PSNR {frun.last_psnr:.3f} dB, caps {frun.caps}")
             if not frun.losses_finite:
                 raise AssertionError("fit: a loss was not finite")
-            for k in ("pairs_composite", "pairs_pass1", "pairs_pass2"):
+            for k in ("pairs_composite",) + BACKWARD_KERNELS:
                 v = fit_launches[k]
                 if v < fit_steps:
                     raise AssertionError(f"fit: {k} launched {v} times in "
@@ -1080,21 +1305,18 @@ def main(argv=None) -> int:
         inp = stream_inputs(fscene, fcam, fcaps, frun.caps["tight_cull"],
                             frun.caps["tile_px"], frun.caps["chunk"])
         a = hold(inp, "fit view 0")
-        ft = backward_times(a, plain_reps=3)
         fb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
                              32)
-        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
-        margs = (inp["data"], inp["starts"], inp["counts"])
         fit = dict(
             steps=frun.steps, seconds=frun.seconds,
             steps_per_s=frun.steps / frun.seconds, n_alive=frun.n_alive,
             train_psnr_db=frun.last_psnr, eval_psnr_db=eval_psnr,
             eval_views_db=eval_views, caps=frun.caps, launches=fit_launches,
             view0=dict(pairs=inp["pairs"], rows=a["rows"],
-                       k1_ms=cuda_ms(lambda: PC.composite_pairs_stream(
-                           *margs, **kw), reps=20), **ft,
+                       **backward_times(a, plain_reps=3),
                        pass1_bound_ms=fb[0][0], pass1_bound_by=fb[0][1],
-                       pass2_bound_ms=fb[1][0], pass2_bound_by=fb[1][1]))
+                       pass2_bound_ms=fb[1][0], pass2_bound_by=fb[1][1],
+                       suffix_bound_ms=fb[2][0], suffix_bound_by=fb[2][1]))
         log(f"  fit view 0: {fit['view0']}")
 
     # ---- phase 5: full width, training ---------------------------------
@@ -1109,18 +1331,15 @@ def main(argv=None) -> int:
             raise AssertionError("512x512: spill after the ladder")
         inp = stream_inputs(bench, cam512, r.caps, r.tight_cull, 32, 64)
         a = hold(inp, "512x512")
-        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
-        margs = (inp["data"], inp["starts"], inp["counts"])
         times = backward_times(a)
-        times["k1_ms"] = cuda_ms(lambda: PC.composite_pairs_stream(
-            *margs, **kw), reps=20)
         tb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
                              32)
         train = train_cell(bench, cam512, r.caps, r.tight_cull, a, times)
         train.update(pairs=inp["pairs"], rows=a["rows"], caps=r.caps,
                      tight_cull=r.tight_cull, pass1_bound_ms=tb[0][0],
                      pass1_bound_by=tb[0][1], pass2_bound_ms=tb[1][0],
-                     pass2_bound_by=tb[1][1])
+                     pass2_bound_by=tb[1][1], suffix_bound_ms=tb[2][0],
+                     suffix_bound_by=tb[2][1])
         log("  512x512 training cell: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in train.items() if k != "device_kernels"))
@@ -1300,11 +1519,29 @@ def main(argv=None) -> int:
         "launches": fit["launches"]["pairs_pass1"],
         "max_abs_err": max(errs["pairs_pass1"]),
         "max_rel_err": max(rels["pairs_pass1"]),  # of the field's max
-        "ms": v0["pass1_ms"],
+        "ms": v0["pass1_ms"],  # the row kernel; the whole wrapper below
+        "device_ms": v0["pass1_device_ms"],  # profiler: no host time
+        "whole_ms": v0["pass1_whole_ms"],
+        "walk_route_ms": v0["pass1_walk_route_ms"],
         "plain_ms": v0["pass1_plain_ms"],
         "bound_ms": v0["pass1_bound_ms"],
         "bound_by": v0["pass1_bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "pairs_suffix",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/pairs_backward.cu",
+        "replaces": "dge_tpu/ops/pallas_backward.py:287",
+        "launches": fit["launches"]["pairs_suffix"],
+        "max_abs_err": max(errs["pairs_suffix"]),
+        "max_rel_err": max(rels["pairs_suffix"]),  # of the field's max
+        "ms": v0["suffix_ms"],
+        "device_ms": v0["suffix_device_ms"],
+        "plain_ms": v0["suffix_plain_ms"],
+        "bound_ms": v0["suffix_bound_ms"],
+        "bound_by": v0["suffix_bound_by"],
+        # a flipped cumsum works on a dense [T, rows, P], not on compact rows
+        "library_ms": None,
     }, {
         "name": "pairs_pass2",
         "route": "cuda",
@@ -1314,6 +1551,7 @@ def main(argv=None) -> int:
         "max_abs_err": max(errs["pairs_pass2"]),
         "max_rel_err": max(rels["pairs_pass2"]),  # of the row's max |grad|
         "ms": v0["pass2_ms"],
+        "device_ms": v0["pass2_device_ms"],
         "plain_ms": v0["pass2_plain_ms"],
         "bound_ms": v0["pass2_bound_ms"],
         "bound_by": v0["pass2_bound_by"],

@@ -1,8 +1,10 @@
-// Backward of the pair-stream compositing for NVIDIA Hopper (sm_90a): two
-// kernels, pass 1 and pass 2.
+// Backward of the pair-stream compositing for NVIDIA Hopper (sm_90a): the
+// row kernel in its two forms (pass 1 and pass 2) and the small suffix
+// kernel between them.
 //
 // Replaces the TPU kernels `_pass1_kernel` and `_pass2_kernel`
-// (dge_tpu/ops/pallas_backward.py, called from `_stream_backward`). Python side:
+// (dge_tpu/ops/pallas_backward.py, called from `_stream_backward`) and the
+// flipped cumsum between them. Python side:
 // dge_tpu_torch/ops/pairs_backward.py, which builds this file with nvcc at
 // first use, loads it with ctypes and keeps a plain PyTorch version of each
 // kernel beside it. The forward is csrc/pairs_composite.cu; its source note
@@ -12,7 +14,7 @@
 // What the pair computes. Per tile, pixel and stream block: Tb is the
 // committed transmittance entering the block, cp the running product of
 // 1-eff, a kept pair (power <= 0, alpha >= 1/255) is applied iff
-// Tb*cp >= 1e-4, T_prev = Tb*cp/(1-eff) is the transmittance in front of it
+// Tb*cp >= 1e-4, T_prev = Tb*cp_before is the transmittance in front of it
 // and w = eff*T_prev its weight. With the cotangent cot[t, 0..4, pixel] of
 // (r, g, b, depth, final T):
 //     g_i    = r_i cot_r + g_i cot_g + b_i cot_b + d_i cot_d
@@ -24,30 +26,74 @@
 //     (-dy^2/2), d_mx = sum dpow (-(a dx + b dy)), d_my = sum dpow
 //     (-(c dy + b dx)),   d_rgbd = sum_px w cot_{r,g,b,d}.
 // Thresholds are constants for the gradient. 1 - alpha is at least 0.01
-// (alpha is clamped to 0.99), so the divisions need no epsilon.
+// (alpha is clamped to 0.99), so the division is an approximate reciprocal
+// (one MUFU instruction) with no epsilon.
 //
-// Pass 1 (one thread block per tile, one thread per pixel: the forward's
-// walk plus g) writes, for every (tile, stream block) row, boundary_T = Tb
-// and the block's total of w*g; when its walk is done each thread turns its
-// own totals, last row first, into the INCLUSIVE suffix over this and all
-// later blocks of the tile. Rows are indexed compactly: row = blk_off[tile]
-// + k, blk_off the exclusive prefix sum of each tile's block count, so the
-// two buffers hold at most ceil(Pc/chunk) + T rows of P floats (the TPU
-// kernels use a dense [T, bpt8, P]).
+// Rows. A (tile, stream block) pair is a row: row = blk_off[tile] + k,
+// blk_off the exclusive prefix sum of each tile's block count, so the
+// per-row buffers hold at most ceil(Pc/chunk) + T rows of P floats (the TPU
+// kernels use a dense [T, bpt8, P]). boundary_T[row] = Tb makes every row
+// independent of every other. The forward kernel holds Tb in a register at
+// the top of each block and stores it on request, so no backward kernel
+// walks a tile's whole range: the serial walk of the fullest tile happens
+// once a step, in the forward.
 //
-// Pass 2 (one thread block per ROW): boundary_T and the suffix make every
-// (tile, stream block) independent of every other, so the serial walk of
-// the fullest tile does not bound this kernel. Each thread walks its
-// block's pairs forward from boundary_T with the running inclusive prefix
-// of w*g; S_i = suffix - prefix_i. (The difference cancels: its absolute
-// error is about 1e-7 of the tile's sum of |w g|, far below the 2e-3
-// max|g| gradient tolerance.) The sum over the tile's pixels is a warp
-// shuffle reduction followed by a shared-memory atomic add per warp, per
-// pair and per feature, skipped for warps in which a __ballot_sync shows no
-// contributing pixel. Every stream position belongs to one row, so the ten
-// per-pair gradients are written once to the stream-ordered [10, Pc]
-// buffer with no global atomics; the fold to per-Gaussian space is an
-// index_add_ over pair_ids outside the kernels, as in the TPU version.
+// One kernel body, `pairs_rows_kernel`, one thread block per row:
+//   pass 1 (kPass2 = false): per pixel the row's total of w*g;
+//   suffix (`rows_suffix_kernel`, one thread per four pixels of a tile):
+//           the totals, last row first, become the INCLUSIVE suffix over
+//           this and all later blocks of the tile;
+//   pass 2 (kPass2 = true): each thread walks its row's pairs forward from
+//           boundary_T with the running inclusive prefix of w*g; S_i =
+//           suffix - prefix_i. (The difference cancels: its absolute error
+//           is about 1e-7 of the tile's sum of |w g|, far below the 2e-3
+//           max|g| gradient tolerance.) Every stream position belongs to
+//           one row, so the ten per-pair gradients are written once to the
+//           stream-ordered [10, Pc] buffer with no global atomics; the fold
+//           to per-Gaussian space is an index_add_ over pair_ids outside
+//           the kernels, as in the TPU version.
+//
+// What bounds it on this card, and what the design does about it. Both
+// passes are bound by operations (about 35 and 70 per (pair, pixel) against
+// 40 bytes a pair). One thread per pixel with one shuffle reduction per
+// feature would make pass 2 wait for the shuffle unit instead: 50 shuffle
+// instructions per (pair, warp) at one a clock per SM beside 70 arithmetic
+// instructions at four a clock. So
+// - a thread owns four neighbouring pixels (ids 4*tid .. 4*tid+3: cot,
+//   forward output, boundary_T and suffix are one 16-byte load each), walks
+//   their four independent chains together, and adds their ten
+//   contributions in registers before any cross-lane step: a 32x32 tile is
+//   256 threads;
+// - the ten per-lane sums go through ONE halving butterfly (5 + 3 + 2 + 1 +
+//   1 = 12 shuffles: at each step a lane sends the half of its values it
+//   does not keep), which leaves feature f's warp total on the lanes whose
+//   bits 1..4 spell f;
+// - each warp stores its totals for pair j in its own shared-memory slot,
+//   and after the walk the block adds the slots in warp order: no atomics,
+//   so the per-pair gradients are bit-identical from launch to launch (the
+//   fold's index_add_ is still unordered);
+// - a staged pair is three float4 (ten features, a reject radius, a pad),
+//   read by broadcast once for four pixels;
+// - a warp whose pixel patch (128 consecutive pixel ids: 32x4 at tile 32)
+//   lies wholly outside the pair's reach skips it before any exp: per pair
+//   the staging computes r2 with op*exp(-lambda_min r2 / 2) = 1/255, made
+//   conservative by 1% of lambda_min, 1e-5 of the conic's magnitude (f32
+//   rounding of the forward's power), 0.05 in the exponent and 0.01 pixel,
+//   so it never skips a pixel the forward kept; no comparison with a NaN
+//   holds, so a pair with a non-finite feature is never rejected and goes
+//   through the chain as every other (a NaN colour reaches the gradients
+//   as it does in the plain version);
+// - a warp with no kept pixel for a pair skips the chain and the butterfly
+//   (__any_sync), and leaves the row once all its pixels are blocked;
+// - a row is staged once, pair j by thread j (ten coalesced loads, three
+//   float4 stores). A persistent grid that copies the next row with
+//   cp.async under the current row's walk measured slower at one, two and
+//   four blocks an SM (rows differ in cost; PERF.md) and is not kept.
+// The pixel sum is formally three products [chunk, P] x [P, 6 | 1 | 4], but
+// their left factors are made one pixel a thread, serially over pairs, and
+// would reach wgmma only through three shared-memory stores per (pair,
+// pixel), the traffic the butterfly avoids, in TF32's 10 mantissa bits:
+// tensor cores are not used.
 //
 // The alpha path is the forward's, with the same explicitly rounded
 // intrinsics, and every keep/refuse decision is taken on the same
@@ -56,131 +102,150 @@
 // Bound on this card (pairs = sum of counts, P = tile pixels, R = rows):
 //   pass 1: reads pairs*40 + T*P*20 bytes, writes R*P*8 bytes; about 35
 //           operations per (pair, pixel);
+//   suffix: reads and writes R*P*4 bytes; bound by bytes;
 //   pass 2: reads pairs*40 + T*P*24 + R*P*8 bytes, writes pairs*40 bytes;
 //           about 70 operations per (pair, pixel).
-// Both are bound by operations at every operating point of the repo.
+// Pass 1 and pass 2 are bound by operations at every operating point of the
+// repo.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int kFeat = 10;  // mx, my, conic a, b, c, opacity, r, g, b, depth
+constexpr int kFeat = 10;    // mx, my, conic a, b, c, opacity, r, g, b, depth
+constexpr int kStride = 12;  // floats a staged pair: kFeat, reject r2, pad
+constexpr int kPix = 4;      // pixels a thread
+constexpr int kMaxThreads = 256;  // a 32x32 tile at kPix pixels a thread
+constexpr int kMaxDevices = 64;
 constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 constexpr unsigned kFullWarp = 0xffffffffu;
 
-// Stage the n in-range pairs [lo, lo + n) of one stream block into shared
-// memory, row-major [kFeat, chunk].
-__device__ __forceinline__ void stage_block(const float* __restrict__ data,
-                                            int pc, int lo, int n, int chunk,
-                                            float* stage) {
-  for (int i = threadIdx.x; i < kFeat * n; i += blockDim.x) {
-    const int row = i / n;
-    const int j = i - row * n;
-    stage[row * chunk + j] = data[static_cast<size_t>(row) * pc + lo + j];
-  }
+// The stream positions [lo, lo + n) of one row; n <= 0 for a row not in use.
+struct Row {
+  int t, lo, n;
+};
+
+__device__ __forceinline__ Row row_range(int row,
+                                         const int* __restrict__ row_tile,
+                                         const int* __restrict__ starts,
+                                         const int* __restrict__ counts,
+                                         const int* __restrict__ blk_off,
+                                         int num_tiles, int chunk) {
+  Row r = {row_tile[row], 0, 0};
+  if (r.t >= num_tiles) return r;
+  const int start = starts[r.t];
+  const int end = start + counts[r.t];
+  const int base = (start / chunk + (row - blk_off[r.t])) * chunk;
+  r.lo = max(start, base);
+  r.n = min(end, base + chunk) - r.lo;
+  return r;
 }
 
-// power, exp(power), op*exp(power) and the clamped alpha of staged pair j at
-// pixel (px, py); the forward's arithmetic to the bit. Returns `keep`.
-__device__ __forceinline__ bool pair_alpha(const float* stage, int chunk,
-                                           int j, float px, float py,
-                                           float& dx, float& dy, float& ex,
-                                           float& raw, float& alpha) {
-  const float a = stage[2 * chunk + j];
-  const float b = stage[3 * chunk + j];
-  const float c = stage[4 * chunk + j];
-  dx = __fsub_rn(stage[0 * chunk + j], px);
-  dy = __fsub_rn(stage[1 * chunk + j], py);
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                               __fmul_rn(__fmul_rn(c, dy), dy));
-  const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                __fmul_rn(__fmul_rn(b, dx), dy));
-  ex = expf(power);
-  raw = __fmul_rn(stage[5 * chunk + j], ex);
-  alpha = fminf(kAlphaMax, raw);
-  return (power <= 0.0f) && (alpha >= kAlphaEps);
+// Squared distance from a pair's mean beyond which no pixel keeps it (see
+// the source note): -1 (skip everywhere) for a pair without opacity, +inf
+// where no safe radius exists, NaN (never skips) from a NaN opacity.
+__device__ __forceinline__ float reject_radius2(float a, float b, float c,
+                                                float op) {
+  if (op <= 0.0f) return isinf(op) ? CUDART_INF_F : -1.0f;
+  const float half_diff = 0.5f * (a - c);
+  const float lam_min =
+      0.5f * (a + c) - sqrtf(half_diff * half_diff + b * b);
+  const float lam_safe =
+      0.99f * lam_min - 1e-5f * (fabsf(a) + fabsf(b) + fabsf(c));
+  if (!(lam_safe > 0.0f)) return CUDART_INF_F;
+  return 2.0f * (logf(255.0f * op) + 0.05f) / lam_safe;
 }
 
-__device__ __forceinline__ float pair_g(const float* stage, int chunk, int j,
-                                        float cr, float cg, float cb,
-                                        float cd) {
-  return stage[6 * chunk + j] * cr + stage[7 * chunk + j] * cg +
-         stage[8 * chunk + j] * cb + stage[9 * chunk + j] * cd;
-}
-
-// __launch_bounds__(1024): a 32x32 tile is one 1024-thread block, which
-// leaves 64 registers a thread.
-__global__ void __launch_bounds__(1024) pairs_pass1_kernel(
-    const float* __restrict__ data,    // [kFeat, pc]
-    int pc,
-    const int* __restrict__ starts,    // [T]
-    const int* __restrict__ counts,    // [T]
-    const int* __restrict__ blk_off,   // [T] first row of each tile
-    const float* __restrict__ cot,     // [T, 5, P]
-    int tiles_x, int tile_px, int chunk,
-    float* __restrict__ boundary_t,    // [R, P]
-    float* __restrict__ suffix) {      // [R, P]
-  extern __shared__ float stage[];     // [kFeat, chunk]
-  const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int p = tile_px * tile_px;
-  const int start = starts[t];
-  const int end = start + counts[t];
-  const float px = static_cast<float>((t % tiles_x) * tile_px + pid % tile_px);
-  const float py = static_cast<float>((t / tiles_x) * tile_px + pid / tile_px);
-  const float* c = cot + static_cast<size_t>(t) * 5 * p + pid;
-  const float cr = c[0 * p], cg = c[1 * p], cb = c[2 * p], cd = c[3 * p];
-
-  const int row0 = blk_off[t];
-  int row = row0;
-  float trans = 1.0f;
-  for (int base = (start / chunk) * chunk; base < end; base += chunk, ++row) {
-    const int lo = max(start, base);
-    const int n = min(end, base + chunk) - lo;
-    __syncthreads();  // every thread is done with the previous block
-    stage_block(data, pc, lo, n, chunk, stage);
-    __syncthreads();
-
-    const float tb = trans;
-    float cp = 1.0f;
-    float total = 0.0f;
-    for (int j = 0; j < n; ++j) {
-      float dx, dy, ex, raw, alpha;
-      if (!pair_alpha(stage, chunk, j, px, py, dx, dy, ex, raw, alpha))
-        continue;
-      const float one_minus = 1.0f - alpha;
-      const float cp_next = cp * one_minus;
-      const float t_hyp = tb * cp_next;
-      if (!(t_hyp >= kTEps)) break;  // refused: the rest of this block too
-      const float w = alpha * (tb * (cp_next / one_minus));
-      total += w * pair_g(stage, chunk, j, cr, cg, cb, cd);
-      cp = cp_next;
-      trans = t_hyp;
-    }
-    const size_t at = static_cast<size_t>(row) * p + pid;
-    boundary_t[at] = tb;
-    suffix[at] = total;
-  }
-  // block totals -> inclusive suffix over this and all later blocks; each
-  // thread re-reads only what it wrote itself
-  float run = 0.0f;
-  for (int r = row - 1; r >= row0; --r) {
-    const size_t at = static_cast<size_t>(r) * p + pid;
-    run += suffix[at];
-    suffix[at] = run;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// Stage a row's pairs, [n, kStride] pair-major: the ten features, the
+// reject radius, a pad.
+__device__ __forceinline__ void stage_row(const float* __restrict__ data,
+                                          int pc, Row r, float4* stage4) {
+  for (int j = threadIdx.x; j < r.n; j += blockDim.x) {
+    float f[kFeat];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(kFullWarp, v, off);
-  return v;
+    for (int k = 0; k < kFeat; ++k)
+      f[k] = data[static_cast<size_t>(k) * pc + r.lo + j];
+    stage4[3 * j + 0] = make_float4(f[0], f[1], f[2], f[3]);
+    stage4[3 * j + 1] = make_float4(f[4], f[5], f[6], f[7]);
+    stage4[3 * j + 2] = make_float4(
+        f[8], f[9], reject_radius2(f[2], f[3], f[4], f[5]), 0.0f);
+  }
 }
 
-__global__ void __launch_bounds__(1024) pairs_pass2_kernel(
+// 1/x in one MUFU instruction, for x in [0.01, 1] (about 1 ulp).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// Four neighbouring floats of a [.., P] row starting at pixel q0: one
+// 16-byte access where the layout allows it, else scalar with 0 past P.
+__device__ __forceinline__ void load4(const float* __restrict__ base, int q0,
+                                      int p, int vec, float (&v)[kPix]) {
+  if (vec) {
+    const float4 x = *reinterpret_cast<const float4*>(base + q0);
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) v[i] = q0 + i < p ? base[q0 + i] : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void store4(float* __restrict__ base, int q0, int p,
+                                       int vec, const float (&v)[kPix]) {
+  if (vec) {
+    *reinterpret_cast<float4*>(base + q0) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kPix; ++i)
+      if (q0 + i < p) base[q0 + i] = v[i];
+  }
+}
+
+// One step of the halving butterfly: the lane keeps `lo` (upper = false) or
+// `hi`, sends the other to its partner across `mask`, and returns the kept
+// value plus the partner's.
+__device__ __forceinline__ float halve(float lo, float hi, bool upper,
+                                       int mask) {
+  const float got = __shfl_xor_sync(kFullWarp, upper ? lo : hi, mask);
+  return (upper ? hi : lo) + got;
+}
+
+// The warp totals of v[0..9]: feature 5*b4 + 3*b3 + 2*b2 + b1 ends on the
+// lanes with those bits (see `butterfly_feature`); other lanes end with
+// sums of padding.
+__device__ __forceinline__ float butterfly10(const float (&v)[kFeat],
+                                             int lane) {
+  float u[5];
+#pragma unroll
+  for (int i = 0; i < 5; ++i) u[i] = halve(v[i], v[i + 5], lane & 16, 16);
+  const bool b3 = lane & 8;
+  const float w0 = halve(u[0], u[3], b3, 8);
+  const float w1 = halve(u[1], u[4], b3, 8);
+  const float w2 = halve(u[2], 0.0f, b3, 8);
+  const bool b2 = lane & 4;
+  const float x0 = halve(w0, w2, b2, 4);
+  const float x1 = halve(w1, 0.0f, b2, 4);
+  const float y = halve(x0, x1, lane & 2, 2);
+  return y + __shfl_xor_sync(kFullWarp, y, 1);
+}
+
+// The feature whose total `butterfly10` leaves on this lane, or -1.
+__device__ __forceinline__ int butterfly_feature(int lane) {
+  const int wi = ((lane >> 1) & 1) + 2 * ((lane >> 2) & 1);
+  const int ui = wi + 3 * ((lane >> 3) & 1);
+  if ((lane & 1) || wi >= 3 || ui >= 5) return -1;
+  return ui + 5 * ((lane >> 4) & 1);
+}
+
+template <bool kPass2>
+__global__ void __launch_bounds__(kMaxThreads, 2) pairs_rows_kernel(
     const float* __restrict__ data,        // [kFeat, pc]
     int pc,
     const int* __restrict__ starts,        // [T]
@@ -188,128 +253,273 @@ __global__ void __launch_bounds__(1024) pairs_pass2_kernel(
     const int* __restrict__ blk_off,       // [T]
     const int* __restrict__ row_tile,      // [R] tile of each row, T = unused
     const float* __restrict__ cot,         // [T, 5, P]
-    const float* __restrict__ fwd_out,     // [T, 5, P] forward; row 4 = T_fin
+    const float* __restrict__ fwd_out,     // [T, 5, P], row 4 = T_fin (pass 2)
     const float* __restrict__ boundary_t,  // [R, P]
-    const float* __restrict__ suffix,      // [R, P]
-    int num_tiles, int tiles_x, int tile_px, int chunk,
-    float* __restrict__ grads) {           // [kFeat, pc]
-  extern __shared__ float smem[];
-  float* stage = smem;                     // [kFeat, chunk]
-  float* sgrad = smem + kFeat * chunk;     // [kFeat, chunk]
-  const int row = blockIdx.x;
-  const int t = row_tile[row];
-  if (t >= num_tiles) return;              // the whole block leaves
-  const int pid = threadIdx.x;
-  const int lane = pid & 31;
+    const float* __restrict__ suffix,      // [R, P] (pass 2)
+    int num_tiles, int tiles_x, int tile_px, int chunk, int vec,
+    float* __restrict__ out) {  // pass 1: totals [R, P]; pass 2: [kFeat, pc]
+  extern __shared__ float4 stage4[];
+  // the staged row [chunk, kStride], then pass 2's [warps, chunk, kFeat]
+  float* const partial = reinterpret_cast<float*>(stage4) + chunk * kStride;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int p = tile_px * tile_px;
-  const int start = starts[t];
-  const int end = start + counts[t];
-  const int base = (start / chunk + (row - blk_off[t])) * chunk;
-  const int lo = max(start, base);
-  const int n = min(end, base + chunk) - lo;
+  const int q0 = kPix * tid;
+  const int row = blockIdx.x;
+  const Row cur = row_range(row, row_tile, starts, counts, blk_off, num_tiles,
+                            chunk);
+  if (cur.n <= 0) return;  // a row not in use
+  const int t = cur.t, n = cur.n;
 
-  stage_block(data, pc, lo, n, chunk, stage);
-  for (int i = pid; i < kFeat * chunk; i += blockDim.x) sgrad[i] = 0.0f;
+  stage_row(data, pc, cur, stage4);
+  float* const my_partial = partial + warp * chunk * kFeat;
+  if (kPass2) {
+    for (int i = lane; i < kFeat * n; i += 32) my_partial[i] = 0.0f;
+  }
   __syncthreads();
 
-  // threads past the tile's pixels (blockDim is P rounded up to a warp) only
-  // take part in the warp votes
-  const bool has_pixel = pid < p;
-  float px = 0.0f, py = 0.0f, tb = 0.0f, suf = 0.0f, tfin_term = 0.0f;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f, cd = 0.0f;
-  if (has_pixel) {
-    px = static_cast<float>((t % tiles_x) * tile_px + pid % tile_px);
-    py = static_cast<float>((t / tiles_x) * tile_px + pid / tile_px);
-    const size_t tp = static_cast<size_t>(t) * 5 * p + pid;
-    cr = cot[tp + 0 * p];
-    cg = cot[tp + 1 * p];
-    cb = cot[tp + 2 * p];
-    cd = cot[tp + 3 * p];
-    tfin_term = cot[tp + 4 * p] * fwd_out[tp + 4 * p];
-    const size_t at = static_cast<size_t>(row) * p + pid;
-    tb = boundary_t[at];
-    suf = suffix[at];
+  // this warp's pixel patch within the tile: the bounding box of the pixel
+  // ids 128*warp .. 128*warp + 127, grown by 0.01 pixel
+  const int q_first = 32 * kPix * warp;
+  const int q_last = min(q_first + 32 * kPix, p) - 1;
+  const int y_first = q_first / tile_px, y_last = q_last / tile_px;
+  const bool one_line = y_first == y_last;
+  const int x_first = one_line ? q_first - y_first * tile_px : 0;
+  const int x_last = one_line ? q_last - y_last * tile_px : tile_px - 1;
+  const float ox = static_cast<float>((t % tiles_x) * tile_px);
+  const float oy = static_cast<float>((t / tiles_x) * tile_px);
+  const float wcx = ox + 0.5f * (x_first + x_last);
+  const float wcy = oy + 0.5f * (y_first + y_last);
+  const float patch_hx = 0.5f * (x_last - x_first) + 0.01f;
+  const float patch_hy = 0.5f * (y_last - y_first) + 0.01f;
+
+  // a pixel blocked to the end of the row carries tb = 0 (a committed
+  // T is at least 1e-4), and so do the lanes past the tile's pixels,
+  // which only take part in the warp votes
+  float px[kPix], py[kPix], tb[kPix], cr[kPix], cg[kPix], cb[kPix],
+      cd[kPix], c0[kPix], cp[kPix], acc[kPix];
+#pragma unroll
+  for (int i = 0; i < kPix; ++i) {
+    const int q = q0 + i;
+    px[i] = ox + static_cast<float>(q % tile_px);
+    py[i] = oy + static_cast<float>(q / tile_px);
+    tb[i] = cr[i] = cg[i] = cb[i] = cd[i] = c0[i] = acc[i] = 0.0f;
+    cp[i] = 1.0f;
+  }
+  if (q0 < p) {
+    const float* c = cot + static_cast<size_t>(t) * 5 * p;
+    load4(c + 0 * p, q0, p, vec, cr);
+    load4(c + 1 * p, q0, p, vec, cg);
+    load4(c + 2 * p, q0, p, vec, cb);
+    load4(c + 3 * p, q0, p, vec, cd);
+    load4(boundary_t + static_cast<size_t>(row) * p, q0, p, vec, tb);
+    if (kPass2) {
+      float ct[kPix], tfin[kPix];
+      load4(c + 4 * p, q0, p, vec, ct);
+      load4(fwd_out + (static_cast<size_t>(t) * 5 + 4) * p, q0, p, vec,
+            tfin);
+      load4(suffix + static_cast<size_t>(row) * p, q0, p, vec, c0);
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) c0[i] += ct[i] * tfin[i];
+    }
   }
 
-  bool blocked = !has_pixel;
-  float cp = 1.0f;
-  float prefix = 0.0f;
+  const int my_feature = butterfly_feature(lane);
   for (int j = 0; j < n; ++j) {
+    const float4 f0 = stage4[3 * j + 0];  // mx, my, a, b
+    const float4 f1 = stage4[3 * j + 1];  // c, op, r, g
+    const float4 f2 = stage4[3 * j + 2];  // b, d, reject r2, pad
+    const float far_x = fmaxf(fabsf(f0.x - wcx) - patch_hx, 0.0f);
+    const float far_y = fmaxf(fabsf(f0.y - wcy) - patch_hy, 0.0f);
+    if (far_x * far_x + far_y * far_y > f2.z) continue;  // warp-uniform
+
+    const float a = f0.z, b = f0.w, c = f1.x;
+    float dx[kPix], dy[kPix], ex[kPix], raw[kPix], alpha[kPix];
+    bool keep[kPix];
+    bool any_keep = false;
+#pragma unroll
+    for (int i = 0; i < kPix; ++i) {
+      // the forward's arithmetic to the bit
+      dx[i] = __fsub_rn(f0.x, px[i]);
+      dy[i] = __fsub_rn(f0.y, py[i]);
+      const float quad =
+          __fadd_rn(__fmul_rn(__fmul_rn(a, dx[i]), dx[i]),
+                    __fmul_rn(__fmul_rn(c, dy[i]), dy[i]));
+      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
+                                    __fmul_rn(__fmul_rn(b, dx[i]), dy[i]));
+      ex[i] = expf(power);
+      raw[i] = __fmul_rn(f1.y, ex[i]);
+      alpha[i] = fminf(kAlphaMax, raw[i]);
+      keep[i] = (tb[i] > 0.0f) && (power <= 0.0f) &&
+                (alpha[i] >= kAlphaEps);
+      any_keep |= keep[i];
+    }
+    if (!__any_sync(kFullWarp, any_keep)) continue;
+
+    // branch-free from here: a pixel that does not apply the pair adds
+    // zeros (selected, never multiplied: exp may have overflowed)
     float v[kFeat];
 #pragma unroll
     for (int f = 0; f < kFeat; ++f) v[f] = 0.0f;
-    bool contrib = false;   // this pixel adds to the pair's colour gradients
-    bool chained = false;   // ... and to its alpha chain
-    if (!blocked) {
-      float dx, dy, ex, raw, alpha;
-      if (pair_alpha(stage, chunk, j, px, py, dx, dy, ex, raw, alpha)) {
-        const float one_minus = 1.0f - alpha;
-        const float cp_next = cp * one_minus;
-        if (!(tb * cp_next >= kTEps)) {
-          blocked = true;  // refused: the rest of this block too
-        } else {
-          const float t_prev = tb * (cp_next / one_minus);
-          const float w = alpha * t_prev;
-          const float g = pair_g(stage, chunk, j, cr, cg, cb, cd);
-          prefix += w * g;
-          cp = cp_next;
-          contrib = true;
-          v[6] = w * cr;
-          v[7] = w * cg;
-          v[8] = w * cb;
-          v[9] = w * cd;
-          if (raw < kAlphaMax) {
-            chained = true;
-            const float dalpha =
-                t_prev * g - ((suf - prefix) + tfin_term) / one_minus;
-            const float dpow = dalpha * raw;
-            const float a = stage[2 * chunk + j];
-            const float b = stage[3 * chunk + j];
-            const float c = stage[4 * chunk + j];
-            v[0] = -dpow * (a * dx + b * dy);
-            v[1] = -dpow * (c * dy + b * dx);
-            v[2] = -0.5f * dpow * dx * dx;
-            v[3] = -dpow * dx * dy;
-            v[4] = -0.5f * dpow * dy * dy;
-            v[5] = dalpha * ex;
-          }
-        }
-      }
-    }
-    if (__ballot_sync(kFullWarp, contrib)) {
-      const bool any_chain = __ballot_sync(kFullWarp, chained) != 0u;
 #pragma unroll
-      for (int f = 0; f < kFeat; ++f) {
-        if (f < 6 && !any_chain) continue;
-        const float s = warp_sum(v[f]);
-        if (lane == 0) atomicAdd(&sgrad[f * chunk + j], s);
+    for (int i = 0; i < kPix; ++i) {
+      const float one_minus = 1.0f - alpha[i];
+      const float cp_next = cp[i] * one_minus;
+      const bool ok = keep[i] && (tb[i] * cp_next >= kTEps);
+      const float t_prev = tb[i] * cp[i];
+      // refused: the rest of the block too
+      tb[i] = keep[i] && !ok ? 0.0f : tb[i];
+      const float w = ok ? alpha[i] * t_prev : 0.0f;
+      const float g = f1.z * cr[i] + f1.w * cg[i] + f2.x * cb[i] +
+                      f2.y * cd[i];
+      acc[i] += w * g;  // pass 1: the row's total; pass 2: the prefix
+      cp[i] = ok ? cp_next : cp[i];
+      if (kPass2) {
+        v[6] += w * cr[i];
+        v[7] += w * cg[i];
+        v[8] += w * cb[i];
+        v[9] += w * cd[i];
+        const bool chained = ok && raw[i] < kAlphaMax;
+        const float dalpha_applied =
+            t_prev * g - (c0[i] - acc[i]) * rcp_approx(one_minus);
+        const float dalpha = chained ? dalpha_applied : 0.0f;
+        const float dpow = chained ? dalpha * raw[i] : 0.0f;
+        const float dpx = dpow * dx[i], dpy = dpow * dy[i];
+        v[0] -= a * dpx + b * dpy;
+        v[1] -= c * dpy + b * dpx;
+        v[2] -= 0.5f * dpx * dx[i];
+        v[3] -= dpx * dy[i];
+        v[4] -= 0.5f * dpy * dy[i];
+        v[5] += chained ? dalpha * ex[i] : 0.0f;
       }
     }
-    if (__all_sync(kFullWarp, blocked)) break;
+    if (kPass2) {
+      const float total = butterfly10(v, lane);
+      if (my_feature >= 0) my_partial[j * kFeat + my_feature] = total;
+    }
+    const bool all_blocked =
+        fmaxf(fmaxf(tb[0], tb[1]), fmaxf(tb[2], tb[3])) <= 0.0f;
+    if (__all_sync(kFullWarp, all_blocked)) break;
   }
-  __syncthreads();
-  for (int i = pid; i < kFeat * n; i += blockDim.x) {
-    const int f = i / n;
-    const int j = i - f * n;
-    grads[static_cast<size_t>(f) * pc + lo + j] = sgrad[f * chunk + j];
+
+  if (kPass2) {
+    __syncthreads();
+    const int warps = blockDim.x >> 5;
+    for (int i = tid; i < kFeat * n; i += blockDim.x) {
+      const int f = i / n;
+      const int j = i - f * n;
+      float sum = 0.0f;
+      for (int w = 0; w < warps; ++w)  // fixed order: reproducible
+        sum += partial[(w * chunk + j) * kFeat + f];
+      out[static_cast<size_t>(f) * pc + cur.lo + j] = sum;
+    }
+  } else if (q0 < p) {
+    store4(out + static_cast<size_t>(row) * p, q0, p, vec, acc);
   }
+}
+
+// Per tile and pixel: the rows' totals, last row first, become the
+// inclusive suffix over this and all later rows of the tile.
+__global__ void __launch_bounds__(kMaxThreads) rows_suffix_kernel(
+    const float* __restrict__ totals,  // [R, P]
+    const int* __restrict__ starts,    // [T]
+    const int* __restrict__ counts,    // [T]
+    const int* __restrict__ blk_off,   // [T]
+    int p, int chunk, int vec,
+    float* __restrict__ suffix) {      // [R, P]
+  const int t = blockIdx.x;
+  const int count = counts[t];
+  if (count <= 0) return;
+  const int start = starts[t];
+  const int rows = (start + count - 1) / chunk - start / chunk + 1;
+  const int row0 = blk_off[t];
+  for (int q0 = kPix * threadIdx.x; q0 < p; q0 += kPix * blockDim.x) {
+    float run[kPix] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = row0 + rows - 1; r >= row0; --r) {
+      float v[kPix];
+      load4(totals + static_cast<size_t>(r) * p, q0, p, vec, v);
+#pragma unroll
+      for (int i = 0; i < kPix; ++i) run[i] += v[i];
+      store4(suffix + static_cast<size_t>(r) * p, q0, p, vec, run);
+    }
+  }
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+int threads_for(int p) { return ((p + kPix - 1) / kPix + 31) / 32 * 32; }
+
+// Launch the row kernel, one block per row. Dynamic shared memory above the
+// 48 KB default (pass 2 beyond chunk 128) is asked for once per device and
+// size.
+template <bool kPass2>
+int launch_rows(const float* data, int pc, const int* starts,
+                const int* counts, const int* blk_off, const int* row_tile,
+                int num_rows, const float* cot, const float* fwd_out,
+                const float* boundary_t, const float* suffix, int num_tiles,
+                int tiles_x, int tile_px, int chunk, float* out,
+                cudaStream_t stream) {
+  if (num_rows <= 0) return 0;
+  static size_t granted[kMaxDevices] = {};
+  const int p = tile_px * tile_px;
+  const int threads = threads_for(p);
+  const size_t smem =
+      sizeof(float) * (static_cast<size_t>(chunk) * kStride +
+                       (kPass2 ? static_cast<size_t>(threads / 32) * chunk *
+                                     kFeat
+                               : 0));
+  if (smem > 48 * 1024) {
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess && (device >= kMaxDevices || smem > granted[device])) {
+      err = cudaFuncSetAttribute(pairs_rows_kernel<kPass2>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err == cudaSuccess && device < kMaxDevices) granted[device] = smem;
+    }
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reported here; leave no error behind
+      return static_cast<int>(err);
+    }
+  }
+  const int vec = p % kPix == 0 && aligned16(cot) && aligned16(boundary_t) &&
+                  (kPass2 ? aligned16(fwd_out) && aligned16(suffix)
+                          : aligned16(out));
+  pairs_rows_kernel<kPass2><<<num_rows, threads, smem, stream>>>(
+      data, pc, starts, counts, blk_off, row_tile, cot, fwd_out, boundary_t,
+      suffix, num_tiles, tiles_x, tile_px, chunk, vec, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entries for ctypes. Each returns cudaGetLastError() after its
-// launch (0 = success); the caller raises on anything else.
-extern "C" int pairs_pass1(const float* data, int pc, const int* starts,
-                           const int* counts, const int* blk_off,
-                           const float* cot, int num_tiles, int tiles_x,
-                           int tile_px, int chunk, float* boundary_t,
-                           float* suffix, void* stream) {
+// Plain C entries for ctypes. Each returns the CUDA error of its launch
+// (0 = success); the caller raises on anything else.
+extern "C" int pairs_row_totals(const float* data, int pc, const int* starts,
+                                const int* counts, const int* blk_off,
+                                const int* row_tile, int num_rows,
+                                const float* cot, const float* boundary_t,
+                                int num_tiles, int tiles_x, int tile_px,
+                                int chunk, float* totals, void* stream) {
+  return launch_rows<false>(data, pc, starts, counts, blk_off, row_tile,
+                            num_rows, cot, nullptr, boundary_t, nullptr,
+                            num_tiles, tiles_x, tile_px, chunk, totals,
+                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pairs_rows_suffix(const float* totals, const int* starts,
+                                 const int* counts, const int* blk_off,
+                                 int num_tiles, int tile_px, int chunk,
+                                 float* suffix, void* stream) {
   if (num_tiles <= 0) return 0;
-  const size_t smem = sizeof(float) * kFeat * static_cast<size_t>(chunk);
-  pairs_pass1_kernel<<<num_tiles, tile_px * tile_px, smem,
+  const int p = tile_px * tile_px;
+  const int vec = p % kPix == 0 && aligned16(totals) && aligned16(suffix);
+  rows_suffix_kernel<<<num_tiles, min(threads_for(p), kMaxThreads), 0,
                        static_cast<cudaStream_t>(stream)>>>(
-      data, pc, starts, counts, blk_off, cot, tiles_x, tile_px, chunk,
-      boundary_t, suffix);
+      totals, starts, counts, blk_off, p, chunk, vec, suffix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -320,12 +530,8 @@ extern "C" int pairs_pass2(const float* data, int pc, const int* starts,
                            const float* suffix, int num_tiles, int tiles_x,
                            int tile_px, int chunk, float* grads,
                            void* stream) {
-  if (num_rows <= 0) return 0;
-  const size_t smem = sizeof(float) * 2 * kFeat * static_cast<size_t>(chunk);
-  const int threads = (tile_px * tile_px + 31) / 32 * 32;
-  pairs_pass2_kernel<<<num_rows, threads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      data, pc, starts, counts, blk_off, row_tile, cot, fwd_out, boundary_t,
-      suffix, num_tiles, tiles_x, tile_px, chunk, grads);
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<true>(data, pc, starts, counts, blk_off, row_tile,
+                           num_rows, cot, fwd_out, boundary_t, suffix,
+                           num_tiles, tiles_x, tile_px, chunk, grads,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -37,6 +37,12 @@
 // power <= 0 decisions, round exactly as in the unfused PyTorch version.
 // The kernel allocates nothing and launches on the caller's stream.
 //
+// For the backward (csrc/pairs_backward.cu) the walk can hand over what it
+// holds anyway: with `boundary_t` given, the committed T entering each
+// stream block is stored to row blk_off[t] + k of a [R, P] buffer (k counts
+// the tile's blocks), so that no backward kernel repeats this serial walk.
+// With a null pointer nothing is stored and nothing else changes.
+//
 // Bound on this card (per frame, with `pairs` = sum of counts):
 //   bytes: pairs x 10 x 4 read + tiles x tile_px^2 x 5 x 4 written;
 //   work:  one exp and about 12 FMAs per (pair, pixel).
@@ -62,7 +68,9 @@ __global__ void pairs_composite_kernel(
     const int* __restrict__ starts,  // [T]
     const int* __restrict__ counts,  // [T]
     int tiles_x, int tile_px, int chunk,
-    float* __restrict__ out) {       // [T, 5, P]: r, g, b, depth, final T
+    float* __restrict__ out,         // [T, 5, P]: r, g, b, depth, final T
+    const int* __restrict__ blk_off,   // [T] first row of each tile, or null
+    float* __restrict__ boundary_t) {  // [R, P] entering T per row, or null
   extern __shared__ float stage[];   // [kFeat, chunk]
   const int t = blockIdx.x;
   const int pid = threadIdx.x;
@@ -74,6 +82,8 @@ __global__ void pairs_composite_kernel(
 
   float trans = 1.0f;
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
+  float* boundary = boundary_t;
+  if (boundary) boundary += static_cast<size_t>(blk_off[t]) * p + pid;
 
   for (int base = (start / chunk) * chunk; base < end; base += chunk) {
     const int lo = max(start, base);
@@ -87,6 +97,10 @@ __global__ void pairs_composite_kernel(
     __syncthreads();
 
     const float tb = trans;
+    if (boundary) {
+      *boundary = tb;
+      boundary += p;
+    }
     float cp = 1.0f;
     for (int j = 0; j < n; ++j) {
       const float a = stage[2 * chunk + j];
@@ -132,11 +146,13 @@ __global__ void pairs_composite_kernel(
 extern "C" int pairs_composite(const float* data, int pc, const int* starts,
                                const int* counts, int num_tiles, int tiles_x,
                                int tile_px, int chunk, float* out,
+                               const int* blk_off, float* boundary_t,
                                void* stream) {
   if (num_tiles <= 0) return 0;
   const size_t smem = sizeof(float) * kFeat * static_cast<size_t>(chunk);
   pairs_composite_kernel<<<num_tiles, tile_px * tile_px, smem,
                            static_cast<cudaStream_t>(stream)>>>(
-      data, pc, starts, counts, tiles_x, tile_px, chunk, out);
+      data, pc, starts, counts, tiles_x, tile_px, chunk, out, blk_off,
+      boundary_t);
   return static_cast<int>(cudaGetLastError());
 }

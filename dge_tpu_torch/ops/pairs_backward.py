@@ -1,4 +1,4 @@
-"""Differentiable pair-stream compositing: the forward kernel plus two
+"""Differentiable pair-stream compositing: the forward kernel plus the
 hand-written backward kernels behind one ``torch.autograd.Function``.
 
 JAX counterpart: ``dge_tpu/ops/pallas_backward.py`` (``_pass1_kernel``,
@@ -7,18 +7,31 @@ are ``dge_tpu_torch/csrc/pairs_backward.cu``; its source note states what
 they compute, the design and the bounds.
 
 - ``block_rows`` lays the (tile, stream block) rows out compactly.
-- ``pairs_pass1`` / ``pairs_pass2`` are the kernels' wrappers: CUDA tensors
-  launch the kernel or raise, CPU tensors take the plain version; nothing
-  falls back.
-- ``pass1_reference`` / ``pass2_reference`` are the plain PyTorch versions
-  (``torch.cumprod`` and a flipped ``cumsum`` per block), same inputs and
-  outputs as the kernels.
+- ``boundary_T`` ``[R, P]``, the transmittance entering each row, is handed
+  over by the forward (``composite_pairs_stream(boundary_rows=...)``): the
+  forward's walk holds it anyway, so the package walks a tile's whole range
+  once a step and every backward kernel runs one thread block per row.
+- ``pairs_row_totals`` (pass 1: each row's total of ``w·g`` from its
+  ``boundary_T``), ``pairs_suffix`` (the totals become the inclusive suffix
+  over a tile's later rows) and ``pairs_pass2`` are the kernels' wrappers:
+  CUDA tensors launch the kernel or raise, CPU tensors take the plain
+  version; nothing falls back. ``pairs_pass1`` joins the first two and
+  returns ``(boundary_T, suffix)``; without a handed-over ``boundary_T`` it
+  gets one from the forward kernel's walk.
+- ``pass1_reference`` (the whole of pass 1 by a serial walk),
+  ``row_totals_reference``, ``suffix_reference`` and ``pass2_reference`` are
+  the plain PyTorch versions (``torch.cumprod`` and a flipped ``cumsum`` per
+  block), same inputs and outputs as the kernels.
 - ``stream_backward`` runs pass 1, pass 2 and the fold to per-Gaussian
-  gradients ``[10, N]`` (one ``index_add_`` over ``pair_ids``).
+  gradients ``[10, N]`` (one ``index_add_`` over ``pair_ids``). Pass 2's
+  per-pair gradients are bit-identical from launch to launch; the fold's
+  ``index_add_`` adds in no fixed order, so the per-Gaussian gradients are
+  not.
 - ``stream_composite`` is the Function: forward = stream assembly + the
-  forward kernel (``pairs_composite.composite_pairs_stream``), backward =
-  ``stream_backward``. It returns (color, depth, final_T) with a zero
-  background; the caller adds ``bg·T``, so that autograd supplies dL/dT_fin.
+  forward kernel (``pairs_composite.composite_pairs_stream``, which also
+  stores ``boundary_T``), backward = ``stream_backward``. It returns (color,
+  depth, final_T) with a zero background; the caller adds ``bg·T``, so that
+  autograd supplies dL/dT_fin.
 
 Every block of a tile's range is visited once. The TPU wrapper clamps its
 block index to the stream's last block, so a tile whose range reaches that
@@ -29,7 +42,7 @@ not copy that (ROADMAP.md §3).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,7 +51,13 @@ from dge_tpu_torch.ops import pairs_composite as PC
 from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
                                                T_EPS, launch_counts)
 
-MAX_CHUNK = 512  # pass 2 keeps 2 x [10, chunk] floats in static-size smem
+# The row kernel keeps, in dynamic shared memory, the staged row ([chunk, 12]
+# floats) and, in pass 2, one slot of [chunk, 10] partial sums per warp (8
+# warps for a 32x32 tile): 46 KB at chunk 128, 184 KB at 512, of the 227 KB a
+# block may have. Above 48 KB the launcher asks for the size with
+# cudaFuncSetAttribute (once per device and size) and returns its error; a
+# chunk above MAX_CHUNK is refused here.
+MAX_CHUNK = 512
 _lib = None
 
 
@@ -47,9 +66,13 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(cuda_build.build_library("pairs_backward"))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pairs_pass1.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr, ptr, ptr]
-        lib.pairs_pass1.restype = i32
+        lib.pairs_row_totals.argtypes = [
+            ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32,
+            ptr, ptr]
+        lib.pairs_row_totals.restype = i32
+        lib.pairs_rows_suffix.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
+        lib.pairs_rows_suffix.restype = i32
         lib.pairs_pass2.argtypes = [
             ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
             i32, i32, ptr, ptr]
@@ -164,6 +187,69 @@ def pass1_reference(data, starts, counts, blk_off, n_rows: int, cot, *,
     return boundary_t, suffix
 
 
+def _row_state(data, starts, ends, blk_off, row_tile, rows, boundary_t, *,
+               tiles_x: int, tile_px: int, chunk: int):
+    """``_block_state`` of the rows ``rows`` [G], each entered at its
+    ``boundary_t``; also the rows' tiles, stream positions and range mask."""
+    tiles = row_tile[rows].long()
+    k = rows - blk_off[tiles].long()
+    px, py = _pixel_coords(tiles, tiles_x, tile_px, data.device)
+    slot = torch.arange(chunk, device=data.device)
+    idx = (starts[tiles] // chunk + k)[:, None] * chunk + slot[None, :]
+    in_range = (idx >= starts[tiles][:, None]) & (idx < ends[tiles][:, None])
+    st = _block_state(data, idx, in_range, px, py,
+                      boundary_t[rows][:, None, :])
+    return st, tiles, idx, in_range
+
+
+def row_totals_reference(data, starts, counts, blk_off, row_tile, cot,
+                         boundary_t, *, tiles_x: int, tile_px: int,
+                         chunk: int):
+    """Plain PyTorch version of the pass-1 row kernel → totals [R, P]: per
+    (tile, stream block) row, entered at ``boundary_t``, the sum of ``w·g``
+    over the row's pairs. Unused rows are 0."""
+    num_tiles = starts.shape[0]
+    p = tile_px * tile_px
+    totals = torch.zeros(row_tile.shape[0], p, dtype=torch.float32,
+                         device=data.device)
+    rows = torch.nonzero(row_tile < num_tiles).flatten()
+    if data.shape[1] == 0 or rows.numel() == 0:
+        return totals
+    starts = starts.long()
+    ends = starts + counts.long()
+    group = max(1, (1 << 22) // (chunk * p))
+    for g0 in range(0, rows.numel(), group):
+        r = rows[g0:g0 + group]
+        st, tiles, _, _ = _row_state(data, starts, ends, blk_off, row_tile, r,
+                                     boundary_t, tiles_x=tiles_x,
+                                     tile_px=tile_px, chunk=chunk)
+        totals[r] = (st["w"] * _pair_g(st["f"], cot[tiles])).sum(dim=1)
+    return totals
+
+
+def suffix_reference(totals, starts, counts, blk_off, *, chunk: int):
+    """Plain PyTorch version of the suffix kernel → [R, P]: per tile the
+    rows' totals summed over this and all later rows of the tile (last row
+    first, as the kernel adds them). Unused rows are 0."""
+    suffix = torch.zeros_like(totals)
+    s = starts.long()
+    e = s + counts.long()
+    nblk = torch.where(counts > 0, (e - 1) // chunk - s // chunk + 1,
+                       torch.zeros_like(s))
+    live = torch.nonzero(nblk > 0).flatten()
+    if live.numel() == 0:
+        return suffix
+    row0, nb = blk_off[live].long(), nblk[live]
+    run = torch.zeros(live.numel(), totals.shape[1], dtype=totals.dtype,
+                      device=totals.device)
+    for k in reversed(range(int(nb.max()))):
+        has = k < nb
+        at = (row0 + k)[has]
+        run[has] = run[has] + totals[at]
+        suffix[at] = run[has]
+    return suffix
+
+
 def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
                     boundary_t, suffix, *, tiles_x: int, tile_px: int,
                     chunk: int):
@@ -182,16 +268,12 @@ def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
         return grads
     starts = starts.long()
     ends = starts + counts.long()
-    slot = torch.arange(chunk, device=dev)
     group = max(1, (1 << 22) // (chunk * p))
     for g0 in range(0, rows.numel(), group):
         r = rows[g0:g0 + group]
-        tiles = row_tile[r].long()
-        k = r - blk_off[tiles].long()
-        px, py = _pixel_coords(tiles, tiles_x, tile_px, dev)
-        idx = (starts[tiles] // chunk + k)[:, None] * chunk + slot[None, :]
-        in_range = (idx >= starts[tiles][:, None]) & (idx < ends[tiles][:, None])
-        st = _block_state(data, idx, in_range, px, py, boundary_t[r][:, None, :])
+        st, tiles, idx, in_range = _row_state(
+            data, starts, ends, blk_off, row_tile, r, boundary_t,
+            tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
         f, w, dx, dy = st["f"], st["w"], st["dx"], st["dy"]
         cot_g = cot[tiles]  # [G, 5, P]
         g = _pair_g(f, cot_g)
@@ -238,44 +320,109 @@ def _check(name: str, tensors, chunk: int, tile_px: int):
         raise ValueError(f"{name}: all tensors must share one CUDA device, "
                          f"got {devices}")
     if not 1 <= tile_px <= 32:
-        raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
-                         "tile_px**2 <= 1024")
+        raise ValueError(f"tile_px {tile_px}: four pixels a thread, 256 "
+                         "threads a block need tile_px**2 <= 1024")
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
     return False
 
 
-def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
-                tiles_x: int, tile_px: int, chunk: int):
-    """Pass 1's wrapper → (boundary_T, suffix), each [n_rows, P]. On CUDA
+def pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
+                     boundary_t, *, tiles_x: int, tile_px: int, chunk: int):
+    """The pass-1 row kernel's wrapper → totals [R, P] of ``w·g`` per (tile,
+    stream block) row, each row walked from its ``boundary_t``. On CUDA
     tensors it launches the kernel (rows not in use are left unwritten), or
     raises; on CPU tensors it takes the plain version."""
     num_tiles = starts.shape[0]
+    n_rows = row_tile.shape[0]
     p = tile_px * tile_px
     f32, i32 = torch.float32, torch.int32
-    on_cpu = _check("pairs_pass1", (
+    on_cpu = _check("pairs_row_totals", (
         ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
-        ("blk_off", blk_off, i32), ("cot", cot, f32)), chunk, tile_px)
+        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32),
+        ("cot", cot, f32), ("boundary_t", boundary_t, f32)), chunk, tile_px)
     if data.dim() != 2 or data.shape[0] != FEAT:
         raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
     if cot.shape != (num_tiles, 5, p) or blk_off.shape != (num_tiles,):
         raise ValueError("cot must be [T, 5, P] and blk_off [T]")
-    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    if boundary_t.shape != (n_rows, p):
+        raise ValueError("boundary_t must be [R, P], R = rows")
     if on_cpu:
-        return pass1_reference(data, starts, counts, blk_off, n_rows, cot, **kw)
+        return row_totals_reference(data, starts, counts, blk_off, row_tile,
+                                    cot, boundary_t, tiles_x=tiles_x,
+                                    tile_px=tile_px, chunk=chunk)
     lib = _load()
-    boundary_t = torch.empty(n_rows, p, dtype=f32, device=data.device)
-    suffix = torch.empty(n_rows, p, dtype=f32, device=data.device)
+    totals = torch.empty(n_rows, p, dtype=f32, device=data.device)
     with torch.cuda.device(data.device):
-        err = lib.pairs_pass1(
+        err = lib.pairs_row_totals(
             data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), blk_off.data_ptr(), cot.data_ptr(), num_tiles,
-            tiles_x, tile_px, chunk, boundary_t.data_ptr(), suffix.data_ptr(),
+            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
+            n_rows, cot.data_ptr(), boundary_t.data_ptr(), num_tiles, tiles_x,
+            tile_px, chunk, totals.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError(f"pairs_pass1 launch failed: cudaError {err}")
+        raise RuntimeError(f"pairs_row_totals launch failed: cudaError {err}")
     launch_counts["pairs_pass1"] += 1
-    return boundary_t, suffix
+    return totals
+
+
+def pairs_suffix(totals, starts, counts, blk_off, *, tile_px: int,
+                 chunk: int):
+    """The suffix kernel's wrapper → [R, P]: per tile the inclusive sum of
+    ``totals`` over this and all later rows. On CUDA tensors it launches the
+    kernel (rows not in use are left unwritten), or raises; on CPU tensors
+    it takes the plain version."""
+    num_tiles = starts.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    on_cpu = _check("pairs_suffix", (
+        ("totals", totals, f32), ("starts", starts, i32),
+        ("counts", counts, i32), ("blk_off", blk_off, i32)), chunk, tile_px)
+    if totals.dim() != 2 or totals.shape[1] != tile_px * tile_px:
+        raise ValueError("totals must be [R, P]")
+    if on_cpu:
+        return suffix_reference(totals, starts, counts, blk_off, chunk=chunk)
+    lib = _load()
+    suffix = torch.empty_like(totals)
+    with torch.cuda.device(totals.device):
+        err = lib.pairs_rows_suffix(
+            totals.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            blk_off.data_ptr(), num_tiles, tile_px, chunk, suffix.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_rows_suffix launch failed: cudaError {err}")
+    launch_counts["pairs_suffix"] += 1
+    return suffix
+
+
+def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
+                tiles_x: int, tile_px: int, chunk: int,
+                boundary_t: Optional[torch.Tensor] = None,
+                row_tile: Optional[torch.Tensor] = None):
+    """Pass 1 → (boundary_T, suffix), each [n_rows, P] (on CUDA tensors rows
+    not in use are left unwritten). With ``boundary_t`` handed over by the
+    forward only the row kernel and the suffix kernel run. Without, it comes
+    from the forward kernel's walk (the one serial walk of the package); on
+    CPU tensors that route is ``pass1_reference``."""
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    if boundary_t is None and data.device.type == "cpu":
+        f32, i32 = torch.float32, torch.int32
+        _check("pairs_pass1", (
+            ("data", data, f32), ("starts", starts, i32),
+            ("counts", counts, i32), ("blk_off", blk_off, i32),
+            ("cot", cot, f32)), chunk, tile_px)
+        if cot.shape != (starts.shape[0], 5, tile_px * tile_px):
+            raise ValueError("cot must be [T, 5, P] and blk_off [T]")
+        return pass1_reference(data, starts, counts, blk_off, n_rows, cot,
+                               **kw)
+    if row_tile is None:
+        _, row_tile, _ = block_rows(starts, counts, chunk, data.shape[1])
+    if boundary_t is None:
+        _, boundary_t = PC.composite_pairs_stream(
+            data, starts, counts, boundary_rows=(blk_off, n_rows), **kw)
+    totals = pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
+                              boundary_t, **kw)
+    return boundary_t, pairs_suffix(totals, starts, counts, blk_off,
+                                    tile_px=tile_px, chunk=chunk)
 
 
 def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
@@ -327,14 +474,20 @@ def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int):
 
 def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
                     num_gaussians: int, *, tiles_x: int, tile_px: int,
-                    chunk: int):
+                    chunk: int, rows=None):
     """Pass 1 → pass 2 → fold; returns the per-Gaussian cotangents [10, N]
-    of (mean2d x, y, conic a, b, c, opacity, r, g, b, depth)."""
-    blk_off, row_tile, n_rows = block_rows(starts, counts, chunk,
-                                           data.shape[1])
+    of (mean2d x, y, conic a, b, c, opacity, r, g, b, depth). ``rows`` is
+    what the forward handed over: ``(blk_off, row_tile, boundary_t)``."""
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
-    boundary_t, suffix = pairs_pass1(data, starts, counts, blk_off, n_rows,
-                                     cot, **kw)
+    if rows is None:
+        blk_off, row_tile, _ = block_rows(starts, counts, chunk,
+                                          data.shape[1])
+        boundary_t = None
+    else:
+        blk_off, row_tile, boundary_t = rows
+    boundary_t, suffix = pairs_pass1(
+        data, starts, counts, blk_off, row_tile.shape[0], cot,
+        boundary_t=boundary_t, row_tile=row_tile, **kw)
     pair_grads = pairs_pass2(data, starts, counts, blk_off, row_tile, cot,
                              fwd_out, boundary_t, suffix, **kw)
     return fold_to_gaussians(pair_grads, pair_ids, num_gaussians)
@@ -359,9 +512,13 @@ class _StreamComposite(torch.autograd.Function):
         height, width, tiles_x, tiles_y, tile_px, chunk = geom
         data = PC.assemble_stream_data(pair_ids, mean2d, conic, rgb, depth,
                                        opac)
-        out = PC.composite_pairs_stream(data, starts, counts, tiles_x=tiles_x,
-                                        tile_px=tile_px, chunk=chunk)
-        ctx.save_for_backward(data, pair_ids, starts, counts, out)
+        blk_off, row_tile, n_rows = block_rows(starts, counts, chunk,
+                                               data.shape[1])
+        out, boundary_t = PC.composite_pairs_stream(
+            data, starts, counts, tiles_x=tiles_x, tile_px=tile_px,
+            chunk=chunk, boundary_rows=(blk_off, n_rows))
+        ctx.save_for_backward(data, pair_ids, starts, counts, out, blk_off,
+                              row_tile, boundary_t)
         ctx.geom = geom
         ctx.num_gaussians = mean2d.shape[0]
         g = (tiles_x, tiles_y, tile_px, height, width)
@@ -370,7 +527,8 @@ class _StreamComposite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_color, d_depth, d_tfin):
-        data, pair_ids, starts, counts, out = ctx.saved_tensors
+        (data, pair_ids, starts, counts, out, blk_off, row_tile,
+         boundary_t) = ctx.saved_tensors
         height, width, tiles_x, tiles_y, tile_px, chunk = ctx.geom
         cot_img = torch.cat([d_color, d_depth[..., None], d_tfin[..., None]],
                             dim=-1).float()  # [H, W, 5]
@@ -378,7 +536,8 @@ class _StreamComposite(torch.autograd.Function):
             1, 2).contiguous()  # [T, 5, P]
         g = stream_backward(data, pair_ids, starts, counts, cot, out,
                             ctx.num_gaussians, tiles_x=tiles_x,
-                            tile_px=tile_px, chunk=chunk)
+                            tile_px=tile_px, chunk=chunk,
+                            rows=(blk_off, row_tile, boundary_t))
         return (g[0:2].T, g[2:5].T, g[6:9].T, g[9], g[5],
                 None, None, None, None)
 

@@ -14,7 +14,10 @@ computes, the block rule it shares with the TPU kernel, and its bound.
   groups of tiles to bound memory.
 - ``composite_pairs_stream`` is the kernel's wrapper: it launches the
   kernel on CUDA tensors, or raises; on CPU tensors it takes the plain
-  version.
+  version. With ``boundary_rows=(blk_off, n_rows)`` both also return
+  ``boundary_T`` ``[n_rows, P]``, the committed transmittance entering each
+  (tile, stream block) row of ``pairs_backward.block_rows``: the walk holds
+  it anyway, and the backward starts every row from it.
 - ``composite_pairs`` is the image-level function: assemble, composite
   through the wrapper or the plain version, add ``bg·T``, untile.
 
@@ -27,7 +30,7 @@ block re-runs it; the port does not copy that (ROADMAP.md §3).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,12 +45,12 @@ _SRC = cuda_build.source_path("pairs_composite")
 BUILD_DIR = cuda_build.BUILD_DIR
 
 # kernel launches since the last reset (one per launch, counted where the
-# kernel is launched and nowhere else); pairs_pass1 and pairs_pass2 are the
-# backward kernels of ops/pairs_backward.py, tiles_composite the per-tile-list
-# kernel of ops/tiles_composite.py, pairs_logdot the log-space arm of
-# tools/proto_logdot.py
-launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_pass2": 0,
-                 "tiles_composite": 0, "pairs_logdot": 0}
+# kernel is launched and nowhere else); pairs_pass1, pairs_suffix and
+# pairs_pass2 are the backward kernels of ops/pairs_backward.py,
+# tiles_composite the per-tile-list kernel of ops/tiles_composite.py,
+# pairs_logdot the log-space arm of tools/proto_logdot.py
+launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_suffix": 0,
+                 "pairs_pass2": 0, "tiles_composite": 0, "pairs_logdot": 0}
 _lib = None
 
 
@@ -74,8 +77,12 @@ def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac
 
 def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                               tile_px: int, chunk: int,
-                              log_prefix: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device → [T, 5, P].
+                              log_prefix: bool = False,
+                              boundary_rows: Optional[Tuple[torch.Tensor,
+                                                            int]] = None):
+    """Plain PyTorch version of the kernel, on any device → [T, 5, P], or
+    (that, boundary_T [n_rows, P]) with ``boundary_rows=(blk_off, n_rows)``
+    (rows not in use are 0).
 
     Follows the block rule literally: blocks at absolute stream offsets
     ``k·chunk``; inside a block an inclusive ``torch.cumprod`` of ``1-eff``,
@@ -89,8 +96,16 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
     pc = data.shape[1]
     out = torch.zeros(num_tiles, 5, p, dtype=torch.float32, device=dev)
     out[:, 4] = 1.0
+    boundary_t = None
+    if boundary_rows is not None:
+        blk_off, n_rows = boundary_rows
+        boundary_t = torch.zeros(n_rows, p, dtype=torch.float32, device=dev)
+
+    def result():
+        return out if boundary_t is None else (out, boundary_t)
+
     if pc == 0:
-        return out
+        return result()
     starts = starts.long()
     ends = starts + counts.long()
     first = starts // chunk
@@ -98,7 +113,7 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                        torch.zeros_like(first))
     live = torch.nonzero(counts > 0).flatten()
     if live.numel() == 0:
-        return out
+        return result()
     pid = torch.arange(p, device=dev)
     slot = torch.arange(chunk, device=dev)
     # tiles per group: keep each [G, chunk, P] temporary near 2^23 floats
@@ -109,10 +124,14 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
         py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
         px = px.float()[:, None, :]  # [G, 1, P]
         py = py.float()[:, None, :]
-        s, e, fb = starts[tiles], ends[tiles], first[tiles]
+        s, e, fb, nb = starts[tiles], ends[tiles], first[tiles], nblk[tiles]
         trans = torch.ones(tiles.numel(), 1, p, device=dev)
         acc = 0.0
-        for k in range(int(nblk[tiles].max())):
+        for k in range(int(nb.max())):
+            if boundary_t is not None:
+                has = k < nb
+                boundary_t[(blk_off[tiles].long() + k)[has]] = \
+                    trans[has, 0].detach()
             idx = (fb + k)[:, None] * chunk + slot[None, :]  # [G, C]
             in_range = (idx >= s[:, None]) & (idx < e[:, None])
             f = data[:, idx.clamp(max=pc - 1)][..., None]  # [FEAT, G, C, 1]
@@ -136,7 +155,7 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                 dim=1, keepdim=True)
         out[tiles, 0:4] = acc
         out[tiles, 4] = trans[:, 0]
-    return out
+    return result()
 
 
 def _load():
@@ -146,7 +165,7 @@ def _load():
         lib.pairs_composite.argtypes = [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.pairs_composite.restype = ctypes.c_int
         _lib = lib
@@ -154,14 +173,22 @@ def _load():
 
 
 def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
-                           tile_px: int, chunk: int) -> torch.Tensor:
-    """The kernel's wrapper → [T, 5, P]. On CUDA tensors it launches the
-    kernel, or raises on anything the kernel does not take; it never falls
-    back. On CPU tensors, where no kernel runs, it takes the plain version."""
+                           tile_px: int, chunk: int,
+                           boundary_rows: Optional[Tuple[torch.Tensor,
+                                                         int]] = None):
+    """The kernel's wrapper → [T, 5, P], or (that, boundary_T [n_rows, P])
+    with ``boundary_rows=(blk_off, n_rows)`` (the kernel leaves rows not in
+    use unwritten). On CUDA tensors it launches the kernel, or raises on
+    anything the kernel does not take; it never falls back. On CPU tensors,
+    where no kernel runs, it takes the plain version."""
     num_tiles = starts.shape[0]
-    for name, t, dtype in (("data", data, torch.float32),
-                           ("starts", starts, torch.int32),
-                           ("counts", counts, torch.int32)):
+    checked = [("data", data, torch.float32), ("starts", starts, torch.int32),
+               ("counts", counts, torch.int32)]
+    if boundary_rows is not None:
+        checked.append(("blk_off", boundary_rows[0], torch.int32))
+        if boundary_rows[0].shape != (num_tiles,):
+            raise ValueError("blk_off must be [T]")
+    for name, t, dtype in checked:
         if t.dtype != dtype or not t.is_contiguous():
             raise ValueError(f"composite_pairs_stream: {name} must be a "
                              f"contiguous {dtype} tensor, got {t.dtype}")
@@ -169,13 +196,14 @@ def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
         raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
     if counts.shape != (num_tiles,) or starts.dim() != 1:
         raise ValueError("starts and counts must be [T] each")
-    devices = {data.device, starts.device, counts.device}
+    devices = {t.device for _, t, _ in checked}
     if devices == {torch.device("cpu")}:
         return composite_pairs_reference(data, starts, counts, tiles_x=tiles_x,
-                                         tile_px=tile_px, chunk=chunk)
+                                         tile_px=tile_px, chunk=chunk,
+                                         boundary_rows=boundary_rows)
     if len(devices) != 1 or data.device.type != "cuda":
-        raise ValueError("composite_pairs_stream: data, starts and counts "
-                         f"must share one CUDA device, got {devices}")
+        raise ValueError("composite_pairs_stream: all tensors must share "
+                         f"one CUDA device, got {devices}")
     if not 1 <= tile_px <= 32:
         raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
                          "tile_px**2 <= 1024")
@@ -186,16 +214,23 @@ def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
     lib = _load()
     out = torch.empty(num_tiles, 5, tile_px * tile_px, dtype=torch.float32,
                       device=data.device)
+    blk_off = boundary_t = None
+    if boundary_rows is not None:
+        blk_off = boundary_rows[0]
+        boundary_t = torch.empty(boundary_rows[1], tile_px * tile_px,
+                                 dtype=torch.float32, device=data.device)
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.pairs_composite(
             data.data_ptr(), data.shape[1], starts.data_ptr(),
             counts.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
-            out.data_ptr(), stream)
+            out.data_ptr(),
+            None if blk_off is None else blk_off.data_ptr(),
+            None if boundary_t is None else boundary_t.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"pairs_composite launch failed: cudaError {err}")
     launch_counts["pairs_composite"] += 1
-    return out
+    return out if boundary_t is None else (out, boundary_t)
 
 
 def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, tile_px: int,

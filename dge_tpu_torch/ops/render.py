@@ -10,9 +10,12 @@ gaussian_renderer/__init__.py:45-150. Backends:
   (ops/pairs_composite.py, the counterpart of JAX ``"pallas_stream"``),
   through its wrapper, which takes the plain version for CPU tensors. Not
   differentiable through the kernel: for evaluation;
-- ``"cuda_train"``: the same forward kernel with the two hand-written
-  backward kernels behind one ``torch.autograd.Function``
-  (ops/pairs_backward.py, the counterpart of JAX ``"pallas_train"``);
+- ``"cuda_train"``: the same forward kernel with the hand-written backward
+  kernels behind one ``torch.autograd.Function`` (ops/pairs_backward.py, the
+  counterpart of JAX ``"pallas_train"``). Its forward also stores
+  ``boundary_T``, the transmittance entering each (tile, stream block) row,
+  and hands it to the backward, whose kernels then run one thread block per
+  row and never walk a tile's whole range again;
 - ``"torch"``: pair binning + the forward kernel's plain PyTorch version,
   differentiable by plain autograd: the CPU twin and the gradient oracle;
 - ``"cuda_tiles"``: per-tile-list binning (``bin_gaussians``) + the
@@ -179,8 +182,8 @@ def render(
                 tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
     if backend == "cuda_train":
-        # kernel forward and kernel backward; bg·T stays outside the
-        # Function so that autograd supplies dL/dT_fin
+        # kernel forward (which hands boundary_T over) and kernel backward;
+        # bg·T stays outside the Function so that autograd supplies dL/dT_fin
         color, depth, final_t = pairs_backward.stream_composite(
             *feats, pb.pair_ids, pb.starts.to(torch.int32).contiguous(),
             pb.counts.to(torch.int32).contiguous(), **geom)

@@ -3,15 +3,22 @@ analytic two-pass plain versions (``pass1_reference`` / ``pass2_reference`` +
 fold, the CPU twins of the CUDA kernels) against the JAX package's Pallas
 backward in interpret mode and against torch autograd through the plain
 forward; ``render`` gradients against ``jax.grad`` of the JAX ``"jnp"``
-backend. The port runs on the CPU; the same numpy inputs go through both
-packages. Gradient tolerance: 2e-3·max|g| + 1e-7 per field, the tolerance
-the JAX package sets for its own backward (tests/test_pallas.py:95-100)."""
+backend; the ``boundary_T`` that the forward hands to the backward against
+pass 1's own and the Pallas pass-1 kernel's. The port runs on the CPU; the
+same numpy inputs go through both packages. Gradient tolerance:
+2e-3·max|g| + 1e-7 per field (the pixel sums run in another order), the
+tolerance the JAX package sets for its own backward
+(tests/test_pallas.py:95-100); boundary T 2e-4, as final T."""
+
+import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 from dge_tpu.ops import pallas_backward as JPB
 from dge_tpu.ops import pallas_composite as JPC
@@ -263,8 +270,8 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
     ts = to_port(make_random_scene(rng, n=24))
     cam, _ = make_test_camera(height=32, width=32)
     before = dict(TPC.launch_counts)
-    assert set(before) == {"pairs_composite", "pairs_pass1", "pairs_pass2",
-                           "tiles_composite", "pairs_logdot"}
+    assert set(before) == {"pairs_composite", "pairs_pass1", "pairs_suffix",
+                           "pairs_pass2", "tiles_composite", "pairs_logdot"}
     xyz = ts.xyz.clone().requires_grad_(True)
     out = TR.render(ts.replace(xyz=xyz), CameraArrays.from_camera(cam, "cpu"),
                     tile_px=16, backend="cuda_train")
@@ -287,3 +294,145 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
     with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
         TPB.pairs_pass1(data, t["starts"].long(), t["counts"], blk_off,
                         n_rows, t["cot"], **kw)
+
+
+def port_stream(case, tile_px, chunk):
+    """The port's stream tensors and row layout of a ``stream_case``."""
+    t = {k: torch.from_numpy(case[k]) for k in ("ids", "starts", "counts",
+                                                "cot")}
+    feats = [torch.from_numpy(x) for x in case["feats"]]
+    data = TPC.assemble_stream_data(t["ids"], *feats)
+    blk_off, row_tile, n_rows = TPB.block_rows(t["starts"], t["counts"],
+                                               chunk, data.shape[1])
+    kw = dict(tiles_x=case["tiles_x"], tile_px=tile_px, chunk=chunk)
+    return t, feats, data, blk_off, row_tile, n_rows, kw
+
+
+def jax_pass1_boundary_t(case, chunk=128, max_per_tile=384):
+    """`_pass1_kernel` in interpret mode, called as `_stream_backward` calls
+    it (pallas_backward.py:246-281) → boundary T [T, bpt, P]."""
+    m, c, r, d, o = case["feats"]
+    feat = np.zeros((JPC.FEAT, case["n"]), np.float32)
+    feat[:10] = np.stack([m[:, 0], m[:, 1], c[:, 0], c[:, 1], c[:, 2], o,
+                          r[:, 0], r[:, 1], r[:, 2], d])
+    p, num_tiles = 256, 4
+    max_blk = case["pc"] // chunk - 1
+    bpt = -(-max_per_tile // chunk) + 1
+    bpt8 = -(-bpt // 8) * 8
+    starts = jnp.asarray(case["starts"])
+    data = jnp.asarray(feat)[:, jnp.asarray(case["ids"])]
+    startblk = (starts // chunk).astype(jnp.int32)
+    grid_spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=3, grid=(num_tiles, bpt),
+        in_specs=[
+            pl.BlockSpec((JPC.FEAT, chunk),
+                         lambda t, k, s, c, sb: (0, jnp.minimum(sb[t] + k,
+                                                                max_blk))),
+            pl.BlockSpec((1, 5, p), lambda t, k, *_: (t, 0, 0))],
+        out_specs=(pl.BlockSpec((1, 8, p), lambda t, k, *_: (t, k // 8, 0)),
+                   pl.BlockSpec((1, 8, p), lambda t, k, *_: (t, k // 8, 0))),
+        scratch_shapes=[pltpu.VMEM((1, p), jnp.float32)])
+    boundary_t, _ = pl.pallas_call(
+        functools.partial(JPB._pass1_kernel, tile_px=16,
+                          tiles_x=case["tiles_x"], chunk=chunk,
+                          max_blk=max_blk),
+        grid_spec=grid_spec,
+        out_shape=(jax.ShapeDtypeStruct((num_tiles, bpt8, p), jnp.float32),
+                   jax.ShapeDtypeStruct((num_tiles, bpt8, p), jnp.float32)),
+        interpret=True,
+    )(starts, jnp.asarray(case["counts"]), startblk, data,
+      jnp.asarray(case["cot"]))
+    return np.asarray(boundary_t)[:, :bpt]
+
+
+def test_forward_boundary_t_matches_pass1_and_pallas():
+    """The boundary T that the plain forward stores for the backward equals
+    pass1_reference's and, within 2e-4, the JAX `_pass1_kernel`'s, on a
+    stream that runs one block past the last tile (on a shorter one the JAX
+    kernel re-runs the last block, ROADMAP.md §3)."""
+    case = pad_to_blocks(stream_case(np.random.default_rng(5), 0), 128, 1)
+    t, _, data, blk_off, row_tile, n_rows, kw = port_stream(case, 16, 128)
+    out, bt = TPC.composite_pairs_stream(
+        data, t["starts"], t["counts"], boundary_rows=(blk_off, n_rows), **kw)
+    assert torch.equal(out, TPC.composite_pairs_stream(
+        data, t["starts"], t["counts"], **kw))
+    bt_p1, _ = TPB.pass1_reference(data, t["starts"], t["counts"], blk_off,
+                                   n_rows, t["cot"], **kw)
+    assert torch.equal(bt, bt_p1)
+    assert float(bt[row_tile == 4].abs().max()) == 0.0  # rows not in use
+    bt_jax = jax_pass1_boundary_t(case)
+    nblk = np.bincount(row_tile.numpy(), minlength=5)[:4]
+    assert nblk.max() >= 2 and float(bt.min()) < 0.5  # real boundaries
+    for tile in range(4):
+        for k in range(nblk[tile]):
+            np.testing.assert_allclose(
+                bt[int(blk_off[tile]) + k].numpy(), bt_jax[tile, k],
+                atol=2e-4, rtol=0, err_msg=f"tile {tile} block {k}")
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("tile_px", [8, 16])
+def test_pass1_routes_agree(tile_px, chunk):
+    """pairs_pass1 with the forward's boundary T handed over (row totals
+    from each row's boundary T, then the suffix over a tile's rows) against
+    the route without (pass1_reference's serial walk)."""
+    case = stream_case(np.random.default_rng(7), 3)
+    t, _, data, blk_off, row_tile, n_rows, kw = port_stream(case, tile_px,
+                                                            chunk)
+    cot = t["cot"][:, :, :tile_px * tile_px].contiguous()
+    base = (data, t["starts"], t["counts"], blk_off, n_rows, cot)
+    bt_walk, suf_walk = TPB.pairs_pass1(*base, **kw)
+    _, bt = TPC.composite_pairs_stream(
+        data, t["starts"], t["counts"], boundary_rows=(blk_off, n_rows), **kw)
+    before = dict(TPC.launch_counts)
+    bt_rows, suf_rows = TPB.pairs_pass1(*base, boundary_t=bt,
+                                        row_tile=row_tile, **kw)
+    assert TPC.launch_counts == before
+    assert bt_rows is bt and torch.equal(bt, bt_walk)
+    scale = float(suf_walk.abs().max())
+    assert scale > 1e-2
+    np.testing.assert_allclose(suf_rows.numpy(), suf_walk.numpy(),
+                               atol=2e-3 * scale + 1e-7, rtol=0)
+    # the suffix of a tile's last row is that row's total
+    totals = TPB.pairs_row_totals(data, t["starts"], t["counts"], blk_off,
+                                  row_tile, cot, bt, **kw)
+    last = int(blk_off[3]) + int((row_tile == 3).sum()) - 1
+    assert torch.equal(suf_rows[last], totals[last])
+    with pytest.raises(ValueError, match=r"boundary_t must be \[R, P\]"):
+        TPB.pairs_row_totals(data, t["starts"], t["counts"], blk_off,
+                             row_tile, cot, bt[:-1], **kw)
+
+
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("tile_px", [8, 16])
+def test_stream_composite_matches_autograd_of_plain_forward(tile_px, chunk):
+    """The Function (forward hands boundary T over, backward = row totals,
+    suffix, pass 2, fold) against torch autograd through the plain forward,
+    for every input field, with a cotangent on colour, depth and final T."""
+    rng = np.random.default_rng(8)
+    case = stream_case(rng, 3)
+    t, feats, _, _, _, _, _ = port_stream(case, tile_px, chunk)
+    side = 2 * tile_px
+    geom = dict(height=side, width=side, tiles_x=2, tiles_y=2,
+                tile_px=tile_px, chunk=chunk)
+    # means drawn for a 32-pixel image: keep them on the smaller one too
+    feats[0] = feats[0] * (side / 32.0)
+    wt = torch.from_numpy(rng.normal(size=(side, side, 5)).astype(np.float32))
+    res = []
+    for through_function in (True, False):
+        leaves = [x.clone().requires_grad_(True) for x in feats]
+        if through_function:
+            col, dep, tfin = TPB.stream_composite(
+                *leaves, t["ids"], t["starts"], t["counts"], **geom)
+        else:
+            col, dep, tfin = TPC.composite_pairs(
+                t["ids"], t["starts"], t["counts"], *leaves,
+                bg=torch.zeros(3), use_kernel=False, **geom)
+        loss = ((col * wt[..., :3]).sum() + (dep * wt[..., 3]).sum()
+                + (tfin * wt[..., 4]).sum())
+        res.append(torch.autograd.grad(loss, leaves))
+    assert float(res[1][0].abs().max()) > 1e-3  # a real gradient
+    assert_grads_close([g.numpy() for g in res[0]],
+                       [g.numpy() for g in res[1]],
+                       ("mean2d", "conic", "rgb", "depth", "opacity"),
+                       f"tile {tile_px} chunk {chunk}")

@@ -1,6 +1,6 @@
 """The CUDA kernels of the PyTorch port (forward compositing over the pair
-stream, backward pass 1 and pass 2, forward compositing over per-tile lists,
-the log-space arm of the stream kernel): their wrappers' checks on the CPU,
+stream, backward pass 1, suffix and pass 2, forward compositing over
+per-tile lists, the log-space arm of the stream kernel): their wrappers' checks on the CPU,
 and each kernel against its plain version on a card (marked ``gpu``; skips
 without a card). This file imports neither JAX nor the JAX package, so the
 card's machine runs it without them:
@@ -9,8 +9,9 @@ card's machine runs it without them:
 
 Tolerances: colour 1e-4, depth 1e-3, final T and boundary T 2e-4 (f32
 rounding: the kernels walk pairs one by one, the plain versions use
-torch.cumprod); suffix sums and gradients 2e-3·max + 1e-7 per field (the
-pixel sums run in another order, and with shared-memory atomics)."""
+torch.cumprod); row totals, suffix sums and gradients 2e-3·max + 1e-7 per
+field (the pixel sums run in another order: four pixels a thread, a warp
+butterfly, then the warps' partial sums in warp order)."""
 
 import os
 
@@ -123,9 +124,6 @@ def test_backward_kernels_match_plain_on_card(chunk):
     used = row_tile < 8
     assert float((bt[used] - bt_p[used]).abs().max()) <= 2e-4
 
-    def close(a, b):
-        return float((a - b).abs().max()) <= 2e-3 * float(b.abs().max()) + 1e-7
-
     assert close(suf[used], suf_p[used])
     for f in range(10):
         assert close(grads[f], grads_p[f]), f
@@ -149,6 +147,188 @@ def test_backward_kernels_match_plain_on_card(chunk):
         res.append(torch.autograd.grad(loss, leaves))
     for got, want in zip(*res):
         assert close(got, want)
+
+
+def card_backward_case(seed, tile_px, chunk, num_tiles=8):
+    """A random stream on the card with its row layout, a random cotangent
+    and the forward kernel's output with the boundary T it stores."""
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    rng = np.random.default_rng(seed)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(
+        rng, num_tiles, tile_px, tail=3)
+    dev = torch.device("cuda")
+    data = TPC.assemble_stream_data(*(torch.from_numpy(x).to(dev)
+                                      for x in (ids, m, c, r, d, o)))
+    st = torch.from_numpy(starts).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    cot = torch.from_numpy(rng.normal(size=(
+        num_tiles, 5, tile_px * tile_px)).astype(np.float32)).to(dev)
+    blk_off, row_tile, n_rows = TPB.block_rows(st, ct, chunk, data.shape[1])
+    fwd, bt = TPC.composite_pairs_stream(
+        data, st, ct, boundary_rows=(blk_off, n_rows), **kw)
+    return dict(data=data, st=st, ct=ct, kw=kw, cot=cot, blk_off=blk_off,
+                row_tile=row_tile, n_rows=n_rows, fwd=fwd, bt=bt,
+                used=row_tile < num_tiles)
+
+
+def close(a, b):
+    return float((a - b).abs().max()) <= 2e-3 * float(b.abs().max()) + 1e-7
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [128, 256])
+@pytest.mark.parametrize("tile_px", [8, 16, 32])
+def test_row_kernels_match_plain_on_card(tile_px, chunk):
+    """K1's stored boundary T, the pass-1 row kernel (boundary T handed
+    over, and from K1's walk), the suffix kernel and pass 2 against their
+    plain versions, at tiles of 2, 8 and 32 warps' worth of pixels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    k = card_backward_case(11, tile_px, chunk)
+    base = (k["data"], k["st"], k["ct"], k["blk_off"])
+    used, kw = k["used"], k["kw"]
+    before = dict(TPC.launch_counts)
+    bt, suf = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], boundary_t=k["bt"],
+                              row_tile=k["row_tile"], **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
+    assert TPC.launch_counts["pairs_suffix"] == before["pairs_suffix"] + 1
+    assert TPC.launch_counts["pairs_composite"] == before["pairs_composite"]
+    bt_w, suf_w = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], **kw)
+    assert TPC.launch_counts["pairs_composite"] == \
+        before["pairs_composite"] + 1
+    assert torch.equal(bt_w[used], bt[used])
+    assert torch.equal(suf_w[used], suf[used])
+    bt_p, suf_p = TPB.pass1_reference(*base, k["n_rows"], k["cot"], **kw)
+    assert float((bt[used] - bt_p[used]).abs().max()) <= 2e-4
+    assert close(suf[used], suf_p[used])
+    totals = TPB.pairs_row_totals(*base, k["row_tile"], k["cot"], bt, **kw)
+    assert close(totals[used], TPB.row_totals_reference(
+        *base, k["row_tile"], k["cot"], bt, **kw)[used])
+    assert close(suf[used], TPB.suffix_reference(
+        totals, k["st"], k["ct"], k["blk_off"], chunk=chunk)[used])
+    grads = TPB.pairs_pass2(*base, k["row_tile"], k["cot"], k["fwd"], bt, suf,
+                            **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
+    grads_p = TPB.pass2_reference(*base, k["row_tile"], k["cot"], k["fwd"],
+                                  bt, suf, **kw)
+    for f in range(10):
+        assert close(grads[f], grads_p[f]), f
+
+
+@pytest.mark.gpu
+def test_pass2_repeats_bit_for_bit_on_card():
+    """Two launches of pass 2 on the same inputs give the same bits (no
+    atomics: each warp's sums go to its own slot, added in warp order), and
+    so do two launches of pass 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    k = card_backward_case(12, 32, 128)
+    base = (k["data"], k["st"], k["ct"], k["blk_off"])
+    _, suf = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], boundary_t=k["bt"],
+                             row_tile=k["row_tile"], **k["kw"])
+    args = base + (k["row_tile"], k["cot"], k["fwd"], k["bt"], suf)
+    first = TPB.pairs_pass2(*args, **k["kw"])
+    again = TPB.pairs_pass2(*args, **k["kw"])
+    assert float(first.abs().max()) > 0
+    assert torch.equal(first, again)
+    _, suf_again = TPB.pairs_pass1(*base, k["n_rows"], k["cot"],
+                                   boundary_t=k["bt"], row_tile=k["row_tile"],
+                                   **k["kw"])
+    assert torch.equal(suf_again[k["used"]], suf[k["used"]])
+
+
+def nan_colour_case(dev):
+    """One 16x16 tile under five wide pairs (alpha 0.28-0.3 at every pixel),
+    the third with a NaN colour; pass 1 and pass 2 through the wrappers and
+    through the plain versions."""
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    feat = torch.zeros(10, 8)
+    feat[0:2] = 8.0
+    feat[2] = feat[4] = 1e-3
+    feat[5] = 0.3
+    feat[6:9] = 0.5
+    feat[9] = 1.0
+    feat[6, 2] = float("nan")
+    data = feat.to(dev).contiguous()
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ct = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    kw = dict(tiles_x=1, tile_px=16, chunk=128)
+    cot = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(1, 5, 256)).astype(np.float32)).to(dev)
+    blk_off, row_tile, n_rows = TPB.block_rows(st, ct, 128, 8)
+    fwd, bt = TPC.composite_pairs_stream(
+        data, st, ct, boundary_rows=(blk_off, n_rows), **kw)
+    base = (data, st, ct, blk_off)
+    _, suf = TPB.pairs_pass1(*base, n_rows, cot, boundary_t=bt,
+                             row_tile=row_tile, **kw)
+    grads = TPB.pairs_pass2(*base, row_tile, cot, fwd, bt, suf, **kw)
+    totals_p = TPB.row_totals_reference(*base, row_tile, cot, bt, **kw)
+    grads_p = TPB.pass2_reference(*base, row_tile, cot, fwd, bt, suf, **kw)
+    return suf[:1], grads[:, :5], totals_p[:1], grads_p[:, :5]
+
+
+def test_plain_backward_carries_a_nan_colour():
+    """A NaN colour is no reason to drop a pair: the plain versions carry it
+    into the row's total at every pixel and into the mean, conic and opacity
+    gradients of every pair of the row, and leave the colour and depth
+    gradients (weights times cotangent) finite."""
+    _, _, totals_p, grads_p = nan_colour_case(torch.device("cpu"))
+    assert bool(totals_p.isnan().all())
+    assert bool(grads_p[:6].isnan().all())
+    assert bool(grads_p[6:].isfinite().all())
+    assert float(grads_p[6:].abs().min()) > 0
+
+
+@pytest.mark.gpu
+def test_row_kernels_carry_a_nan_colour_on_card():
+    """The kernels give NaN exactly where the plain versions do (the warp
+    reject compares against a radius, and no comparison with a NaN holds, so
+    it drops no such pair) and agree on the finite rest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    suf, grads, totals_p, grads_p = nan_colour_case(torch.device("cuda"))
+    assert torch.equal(suf.isnan(), totals_p.isnan())
+    assert torch.equal(grads.isnan(), grads_p.isnan())
+    assert bool(grads[:6].isnan().all())
+    assert close(grads[6:], grads_p[6:])
+
+
+@pytest.mark.gpu
+def test_refused_launch_raises_on_card(monkeypatch):
+    """Chunk 512 needs 184 KB of dynamic shared memory and runs; a chunk
+    whose slots exceed what an SM has is refused by the card, and the
+    wrapper raises instead of returning unwritten gradients; the next
+    launch is unharmed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    k = card_backward_case(13, 32, 512)
+    base = (k["data"], k["st"], k["ct"], k["blk_off"])
+    _, suf = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], boundary_t=k["bt"],
+                             row_tile=k["row_tile"], **k["kw"])
+    args = base + (k["row_tile"], k["cot"], k["fwd"], k["bt"], suf)
+    grads = TPB.pairs_pass2(*args, **k["kw"])
+    want = TPB.pass2_reference(*args, **k["kw"])
+    for f in range(10):
+        assert close(grads[f], want[f]), f
+    with pytest.raises(ValueError, match="chunk 1024 outside"):
+        TPB.pairs_pass2(*args, **dict(k["kw"], chunk=1024))
+    monkeypatch.setattr(TPB, "MAX_CHUNK", 1024)
+    before = TPC.launch_counts["pairs_pass2"]
+    with pytest.raises(RuntimeError, match="pairs_pass2 launch failed"):
+        TPB.pairs_pass2(*args, **dict(k["kw"], chunk=1024))
+    assert TPC.launch_counts["pairs_pass2"] == before
+    assert torch.equal(TPB.pairs_pass2(*args, **k["kw"]), grads)
 
 
 def random_lists(rng, num_tiles, k):
