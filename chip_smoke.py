@@ -6,40 +6,45 @@
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
 
-1. kernels vs plain: the pair-stream compositing kernel (K1, with the
-   ``boundary_T`` it stores for the backward) and the backward kernels (pass
-   1 = K3: row totals from a handed-over ``boundary_T`` and without one; the
-   suffix kernel; pass 2 = K4) against their plain PyTorch versions on the
-   block-boundary fixture and on a seeded random scene at tile 8, 16 and 32
-   and chunk 128 and 256, and at chunk 512 (tolerances: colour 1e-4, depth
-   1e-3, final T and boundary T 2e-4; totals, suffix and per-pair gradients
-   2e-3·max + 1e-7: the pixel sums run in another order); two launches of
-   pass 2 give bit-identical gradients; a pair with a NaN colour gives NaN
-   where the plain versions give NaN; a launch the card refuses raises;
+1. kernels vs plain: K1, the pair-stream compositing as a row kernel and
+   a combine kernel (with the ``boundary_T`` the combine stores for the
+   backward), and its log-space arm K5 in the same two forms, each kernel
+   alone against its plain PyTorch version (``rows_forward_reference``,
+   ``rows_combine_reference``) and the two together against the plain
+   forward, on the block-boundary fixture, on a saturation fixture where
+   every case of the combine fires (the counts are printed) and on a seeded
+   random scene at tile 8, 16 and 32 and chunk 128, 256 and 512; a NaN
+   colour, and a forward launch the card refuses; the backward kernels
+   (pass 1 = K3: row totals from a handed-over ``boundary_T`` and without
+   one; the suffix kernel; pass 2 = K4) against their plain versions on the
+   same streams (tolerances: colour 1e-4, depth 1e-3, final T, boundary T
+   and the row kernel's prefixes 2e-4; totals, suffix and per-pair
+   gradients 2e-3·max + 1e-7: the pixel sums run in another order); two
+   launches of every row and combine kernel and of pass 2 give
+   bit-identical results; a pair with a NaN colour gives NaN where the
+   plain versions give NaN; a launch the card refuses raises;
    the whole ``stream_composite`` backward against autograd through the
    plain forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per
    field) at the same tiles and chunks;
    the per-tile-list kernel (K2) on the list form of the fixture and on the
-   random scene's lists at chunk 128 and 256, with and without ``order``,
-   and the log-space arm of the stream kernel (K5) on the same streams as
-   K1, against its plain version and against K1 (colour 1e-4, depth 1e-3,
-   final T 2e-4); the later phases hold the kernels against the plain
-   versions on their streams too;
+   random scene's lists at chunk 128 and 256, with and without ``order``;
+   the later phases hold the kernels against the plain versions on their
+   streams too;
 2. the render path: ``dge_tpu_torch.launch --render`` of the quality-gate
    scene over the committed 16-view capture at 256^2, in-process, with the
    launch counters set to 0 just before and read just after; spill must be
    0 after the cap ladder and the mean PSNR of the float renders against
    the capture at least 41.5 dB;
 3. full width, forward: the trained bench scene spill-free at 512^2 and at
-   1920x1080, timed with CUDA events (whole render, its stages, kernel
-   alone, plain version);
+   1920x1080, timed with CUDA events (whole render, its stages, K1, each
+   of its two kernels alone, plain versions) and a profiler trace (the
+   kernels' device times);
 4. the training path: ``dge_tpu_torch.launch --fit`` on the same capture at
    256^2 (SH degree 3, 1,200 steps, seed 0), counters set to 0 just before
    and read just after, then the saved PLY rendered spill-free over the 16
-   views; every loss finite, at least one K1, K3, suffix and K4 launch per
-   step,
-   more than 8,000 Gaussians alive, train PSNR (last 100 steps) and
-   evaluation PSNR at least 30 dB;
+   views; every loss finite, at least one launch per step of each of K1's
+   two kernels and of K3, suffix and K4, more than 8,000 Gaussians alive,
+   train PSNR (last 100 steps) and evaluation PSNR at least 30 dB;
 5. full width, training: on the bench scene at 512^2 with a seeded random
    target and ``lambda_dssim=0``: K3 and K4 against their plain versions,
    CUDA-event times of K1 (with and without the ``boundary_T`` store), K3
@@ -60,9 +65,9 @@ process per source, started together) and runs:
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all six ran. It prints one JSON line with every
-kernel, the card's name and power limit, and as
-its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
+gate's own recipe); the result lines are printed only when all six ran.
+It prints one JSON line with every kernel, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
 device, or outside the repository, it fails. Imports nothing of JAX.
 """
@@ -117,8 +122,17 @@ STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
 ALL_PHASES = {1, 2, 3, 4, 5, 6}
-KERNEL_NAMES = ("pairs_composite", "pairs_pass1", "pairs_suffix",
-                "pairs_pass2", "tiles_composite", "pairs_logdot")
+KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
+                "pairs_suffix", "pairs_pass2", "tiles_composite",
+                "pairs_logdot", "pairs_logdot_combine")
+# the forward's two kernels per form (csrc/pair_rows_forward.cuh): counter
+# keys and the profiler's kernel names
+FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
+                         "rows_forward_kernel<false>",
+                         "rows_combine_kernel<false>"),
+                 True: ("pairs_logdot", "pairs_logdot_combine",
+                        "rows_forward_kernel<true>",
+                        "rows_combine_kernel<true>")}
 BACKWARD_KERNELS = ("pairs_pass1", "pairs_suffix", "pairs_pass2")
 
 
@@ -157,6 +171,163 @@ def bound_ms(pairs: int, num_tiles: int, tile_px: int,
     t_ops = pairs * p * flops / F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def forward_bounds(pairs: int, num_tiles: int, rows: int, tile_px: int,
+                   chunk: int, log_space: bool = False,
+                   boundary: bool = False):
+    """Least times of the forward's row kernel and combine kernel on this
+    card, as ``bound_ms``, each with its terms written out: the row kernel
+    reads each pair's 40 bytes and writes the scratch R·P·28 (32 in log
+    space) and the keep mask R·G·W·4, against 25 (27) operations per (pair,
+    pixel); the combine reads the scratch and writes [T, 5, P] (T·P·20) and,
+    with ``boundary``, boundary_T (R·P·4), against one multiply-add per
+    field, row and pixel (its walks depend on the data and are not
+    counted)."""
+    p = tile_px * tile_px
+    fields = 8 if log_space else 7
+    flops = FLOPS_LOGDOT if log_space else FLOPS_PER_PAIR_PIXEL
+    mask_bytes = rows * 4 * -(-p // 128) * -(-chunk // 32) * 4
+    out = []
+    for ops, nbytes, terms in (
+            (pairs * p * flops, pairs * 40 + rows * p * fields * 4
+             + mask_bytes,
+             f"max(({pairs}*40 + {rows}*{p}*{fields * 4} + {mask_bytes}) B "
+             f"/ 3.35 TB/s, {pairs}*{p}*{flops} op / 67 TFLOP/s)"),
+            (rows * p * 8, rows * p * fields * 4 + num_tiles * p * 20
+             + boundary * rows * p * 4,
+             f"max(({rows}*{p}*{fields * 4} + {num_tiles}*{p}*20"
+             + (f" + {rows}*{p}*4" if boundary else "") + ") B / 3.35 TB/s, "
+             f"{rows}*{p}*8 op / 67 TFLOP/s)")):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops / F32_FLOPS
+        out.append((max(t_bytes, t_ops) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations", terms))
+    return out
+
+
+def forward_vs_plain(inp, what: str, log_space: bool = False) -> dict:
+    """The forward's row kernel and combine kernel (K1's, or K5's with
+    ``log_space``) each against its plain version on one stream: the
+    scratch field by field (the prefixes and T within 2e-4, the first kept
+    pair and the keep mask's words equal in all but one in a thousand, L
+    within the colour and depth tolerances where the combine reads it: a
+    prefix of at least 1e-4 in both), the combine on the kernel's scratch and its boundary T; two
+    launches of each bit-identical. Returns per kernel its max abs error and
+    how often each combine case fired."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    row_key, comb_key = FORWARD_FORMS[log_space][:2]
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"], log_space=log_space)
+    args = (inp["data"], inp["starts"], inp["counts"])
+    blk_off, row_tile, _ = PC.block_rows(inp["starts"], inp["counts"],
+                                         inp["chunk"], inp["data"].shape[1])
+    used = row_tile < inp["starts"].shape[0]
+    before = dict(PC.launch_counts)
+    scratch, mask = PC.rows_forward(*args, blk_off, row_tile, **kw)
+    out, bt = PC.rows_combine(scratch, mask, *args, blk_off, boundary=True,
+                              **kw)
+    torch.cuda.synchronize()
+    for k in PC.launch_counts:
+        want = before[k] + (k in (row_key, comb_key))
+        if PC.launch_counts[k] != want:
+            raise AssertionError(f"{what}: launch counter {k} advanced by "
+                                 f"{PC.launch_counts[k] - before[k]}")
+    scratch2, mask2 = PC.rows_forward(*args, blk_off, row_tile, **kw)
+    same = {
+        "row kernel again": torch.equal(scratch2[used], scratch[used])
+        and torch.equal(mask2[used], mask[used]),
+        "combine again": all(torch.equal(x[sel], y[sel]) for x, y, sel in zip(
+            PC.rows_combine(scratch, mask, *args, blk_off, boundary=True,
+                            **kw), (out, bt), (slice(None), used)))}
+    if not all(same.values()):
+        raise AssertionError(f"{what}: not bit-identical: {same}")
+    want_s, want_m = PC.rows_forward_reference(*args, blk_off, row_tile, **kw)
+    want_s, got_s = want_s[used], scratch[used]
+    mask_off = float((mask[used] != want_m[used]).float().mean()) \
+        if got_s.numel() else 0.0
+    read = (got_s[:, 0] >= 1e-4) & (want_s[:, 0] >= 1e-4)
+    e_cp = float((got_s[:, 0:2] - want_s[:, 0:2]).abs().max()) \
+        if got_s.numel() else 0.0
+    if log_space and got_s.numel():
+        e_cp = max(e_cp, float((got_s[:, 7] - want_s[:, 7]).abs().max()))
+    j0_off = float((got_s[:, 2] != want_s[:, 2]).float().mean()) \
+        if got_s.numel() else 0.0
+    e_l = [float((got_s[:, f] - want_s[:, f])[read].abs().max())
+           if bool(read.any()) else 0.0 for f in range(3, 7)]
+    if not (e_cp <= TOL["trans"] and j0_off <= 1e-3 and mask_off <= 1e-3
+            and max(e_l[:3]) <= TOL["color"] and e_l[3] <= TOL["depth"]):
+        raise AssertionError(f"{what}: row kernel disagrees with its plain "
+                             f"version: prefixes {e_cp}, j0 {j0_off}, mask "
+                             f"{mask_off}, L {e_l}")
+    out_p, bt_p = PC.rows_combine_reference(scratch, mask, *args, blk_off,
+                                            boundary=True, **kw)
+    e_out = compare(out, out_p, f"{what} {comb_key} vs plain")
+    e_bt = float((bt[used] - bt_p[used]).abs().max()) if bool(used.any()) \
+        else 0.0
+    if e_bt > TOL["trans"]:
+        raise AssertionError(f"{what}: combine boundary T {e_bt}")
+    cases = PC.combine_cases(scratch, bt, row_tile, inp["starts"].shape[0],
+                             log_space=log_space)
+    log(f"  {what} {row_key}: prefixes max|err| {e_cp:.3e}, j0 differs in "
+        f"{j0_off:.2e} of visits, mask in {mask_off:.2e} of words, L "
+        f"max|err| {max(e_l):.3e}; combine cases "
+        f"{cases}; bit-identical {sorted(same)}")
+    return {row_key: max([e_cp] + e_l), comb_key: max(e_out, e_bt),
+            "cases": cases}
+
+
+def forward_times(inp, log_space: bool = False, plain_reps: int = 3,
+                  boundary: bool = False) -> dict:
+    """At one stream's shapes: CUDA-event times of the forward's row kernel
+    and combine kernel alone and of the whole wrapper (with the boundary_T
+    store where ``boundary``, as the fit path calls it), their device times
+    from a profiler trace, their plain versions' times, their bounds and
+    how often each combine case fired."""
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    row_key, comb_key, row_name, comb_name = FORWARD_FORMS[log_space]
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"], log_space=log_space)
+    args = (inp["data"], inp["starts"], inp["counts"])
+    num_tiles = inp["starts"].shape[0]
+    blk_off, row_tile, n_rows = PC.block_rows(
+        inp["starts"], inp["counts"], inp["chunk"], inp["data"].shape[1])
+    scratch, mask = PC.rows_forward(*args, blk_off, row_tile, **kw)
+    _, bt = PC.rows_combine(scratch, mask, *args, blk_off, boundary=True,
+                            **kw)
+    cases = PC.combine_cases(scratch, bt, row_tile, num_tiles,
+                             log_space=log_space)
+    rows = int((row_tile < num_tiles).sum())
+    bounds = forward_bounds(inp["pairs"], num_tiles, rows, inp["tile_px"],
+                            inp["chunk"], log_space, boundary)
+
+    def whole():
+        return PC.composite_rows(
+            *args, boundary_rows=(blk_off, n_rows) if boundary else None,
+            row_tile=row_tile, **kw)
+
+    dev = kernel_device_ms(whole, {row_key: row_name, comb_key: comb_name})
+    res = {}
+    for key, fn, plain, (b_ms, b_by, terms) in (
+            (row_key, lambda: PC.rows_forward(*args, blk_off, row_tile, **kw),
+             lambda: PC.rows_forward_reference(*args, blk_off, row_tile,
+                                               **kw), bounds[0]),
+            (comb_key, lambda: PC.rows_combine(scratch, mask, *args, blk_off,
+                                               boundary=boundary, **kw),
+             lambda: PC.rows_combine_reference(scratch, mask, *args, blk_off,
+                                               boundary=boundary, **kw),
+             bounds[1])):
+        res[key] = dict(ms=cuda_ms(fn, reps=20), device_ms=dev[key],
+                        plain_ms=cuda_ms(plain, reps=plain_reps, warmup=1),
+                        bound_ms=b_ms, bound_by=b_by, bound_terms=terms)
+    res["whole_ms"] = cuda_ms(whole, reps=20)
+    res["rows"] = rows
+    res["cases"] = cases
+    return res
 
 
 def compare(got, want, what: str) -> float:
@@ -340,7 +511,8 @@ def backward_vs_plain(inp, what: str, seed: int = 0):
         totals, a["starts"], a["counts"], a["blk_off"],
         tile_px=inp["tile_px"], chunk=inp["chunk"]), pairs_suffix=1)
     bt, suf = counted(lambda: pass1(**handed), pairs_pass1=1, pairs_suffix=1)
-    bt_w, suf_w = counted(pass1, pairs_composite=1, pairs_pass1=1,
+    bt_w, suf_w = counted(pass1, pairs_composite=1,
+                          pairs_composite_combine=1, pairs_pass1=1,
                           pairs_suffix=1)
     grads = counted(lambda: pass2(bt, suf), pairs_pass2=1)
     same = {"suffix alone": torch.equal(suf_alone[used], suf[used]),
@@ -429,9 +601,9 @@ def nan_colour_vs_plain(dev):
 
 
 def backward_times(a, plain_reps: int = 2):
-    """CUDA-event times of K1 with and without the boundary-T store, of the
-    pass-1 row kernel, the suffix kernel, pass 1 as a whole on both routes
-    and pass 2; of the plain versions; and, from a profiler trace, the
+    """CUDA-event times of K1 (row + combine kernel) with and without the
+    boundary-T store, of the pass-1 row kernel, the suffix kernel, pass 1 as
+    a whole on both routes and pass 2; of the plain versions; and, from a profiler trace, the
     device time of each hand-written kernel of a training step."""
     from dge_tpu_torch.ops import pairs_backward as PB
     from dge_tpu_torch.ops import pairs_composite as PC
@@ -481,7 +653,8 @@ def backward_times(a, plain_reps: int = 2):
         pass2()
 
     out.update(kernel_device_ms(step, dict(
-        k1_store_device_ms="pairs_composite_kernel",
+        k1_row_device_ms=FORWARD_FORMS[False][2],
+        k1_combine_device_ms=FORWARD_FORMS[False][3],
         pass1_device_ms="pairs_rows_kernel<false>",
         suffix_device_ms="rows_suffix_kernel",
         pass2_device_ms="pairs_rows_kernel<true>")))
@@ -730,12 +903,13 @@ def kernel_vs_plain(inp, what: str) -> float:
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
-    before = PC.launch_counts["pairs_composite"]
+    before = dict(PC.launch_counts)
     got = PC.composite_pairs_stream(inp["data"], inp["starts"], inp["counts"],
                                     **kw)
     torch.cuda.synchronize()
-    if PC.launch_counts["pairs_composite"] != before + 1:
-        raise AssertionError("launch counter did not advance")
+    for k in ("pairs_composite", "pairs_composite_combine"):
+        if PC.launch_counts[k] != before[k] + 1:
+            raise AssertionError(f"launch counter {k} did not advance")
     want = PC.composite_pairs_reference(inp["data"], inp["starts"],
                                         inp["counts"], **kw)
     return compare(got, want, what)
@@ -825,11 +999,12 @@ def logdot_vs_plain(inp, what: str) -> float:
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
     args = (inp["data"], inp["starts"], inp["counts"])
-    before = PC.launch_counts["pairs_logdot"]
+    before = dict(PC.launch_counts)
     got = LD.composite_pairs_logdot(*args, **kw)
     torch.cuda.synchronize()
-    if PC.launch_counts["pairs_logdot"] != before + 1:
-        raise AssertionError("pairs_logdot launch counter did not advance")
+    for k in ("pairs_logdot", "pairs_logdot_combine"):
+        if PC.launch_counts[k] != before[k] + 1:
+            raise AssertionError(f"{k} launch counter did not advance")
     err = compare(got, LD.composite_pairs_logdot_reference(*args, **kw),
                   f"{what} K5 vs plain")
     compare(got, PC.composite_pairs_stream(*args, **kw), f"{what} K5 vs K1")
@@ -931,6 +1106,91 @@ def boundary_fixture(dev):
                 tiles_x=1, tiles_y=1, pairs=129, chunk=128, tile_px=16)
 
 
+def saturation_fixture(dev):
+    """One 16x16 tile, chunk 128, every pair covering the tile with one
+    alpha (conic 0): row 0 one pair 0.5 (every kept pair applied), row 1
+    five pairs 0.9 (entered at T = 0.5: three applied, then refused: the
+    combine walks the row), row 2 one pair 0.99 (entered at 5e-4: refused at
+    once), row 3 two transparent pairs and one 0.5 (applied), row 4 only
+    pairs without opacity."""
+    import torch
+
+    rows = [[0.5], [0.9] * 5, [0.99], [0.0, 0.0, 0.5], [0.0]]
+    feat = torch.zeros(10, 128 * len(rows))
+    feat[0:2] = 8.0
+    feat[6] = 1.0
+    feat[9] = 2.0
+    for r, ops in enumerate(rows):
+        feat[5, 128 * r:128 * r + len(ops)] = torch.tensor(ops)
+        feat[7, 128 * r:128 * r + len(ops)] = 0.1 * (r + 1)
+    return dict(data=feat.to(dev).contiguous(),
+                starts=torch.zeros(1, dtype=torch.int32, device=dev),
+                counts=torch.full((1,), feat.shape[1], dtype=torch.int32,
+                                  device=dev),
+                tiles_x=1, tiles_y=1, pairs=feat.shape[1], chunk=128,
+                tile_px=16)
+
+
+def nan_colour_forward(dev):
+    """Five pairs every pixel applies, the third with a NaN red: K1's and
+    K5's kernels give NaN red at every pixel, as the plain versions do, and
+    agree with them on the rest."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.tools import proto_logdot as LD
+
+    feat = torch.zeros(10, 8)
+    feat[0:2] = 8.0
+    feat[5] = 0.3
+    feat[6:9] = 0.5
+    feat[9] = 1.0
+    feat[6, 2] = float("nan")
+    args = (feat.to(dev).contiguous(),
+            torch.zeros(1, dtype=torch.int32, device=dev),
+            torch.full((1,), 5, dtype=torch.int32, device=dev))
+    kw = dict(tiles_x=1, tile_px=16, chunk=128)
+    for got, want in (
+            (PC.composite_pairs_stream(*args, **kw),
+             PC.composite_pairs_reference(*args, **kw)),
+            (LD.composite_pairs_logdot(*args, **kw),
+             LD.composite_pairs_logdot_reference(*args, **kw))):
+        if not (torch.equal(got.isnan(), want.isnan())
+                and bool(got[0, 0].isnan().all())):
+            raise AssertionError("forward NaN colour: the kernels' NaNs are "
+                                 "not the plain versions'")
+        compare(got.nan_to_num(), want.nan_to_num(), "forward NaN colour")
+    log("  forward NaN colour: red NaN at every pixel in K1 and K5 as in "
+        "the plain versions; the rest equal")
+
+
+def refused_forward_launch(inp):
+    """A chunk whose row stage exceeds what a block may have (96 KB at
+    2048) is refused by the card: the wrapper raises and counts nothing,
+    and the next launch is unharmed."""
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    args = (inp["data"], inp["starts"], inp["counts"])
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"])
+    good = PC.composite_pairs_stream(*args, chunk=inp["chunk"], **kw)
+    old = PC.MAX_CHUNK
+    PC.MAX_CHUNK = 4096
+    before = dict(PC.launch_counts)
+    try:
+        PC.composite_pairs_stream(*args, chunk=2048, **kw)
+    except RuntimeError as e:
+        log(f"  refused forward launch raises: {e}")
+    else:
+        raise AssertionError("a refused forward launch did not raise")
+    finally:
+        PC.MAX_CHUNK = old
+    if PC.launch_counts != before:
+        raise AssertionError("a refused launch was counted")
+    if not bool((PC.composite_pairs_stream(*args, chunk=inp["chunk"], **kw)
+                 == good).all()):
+        raise AssertionError("the launch after the refusal differs")
+
+
 def random_scene(rng, n, device):
     """A seeded random Gaussian cloud around the origin (numpy seed)."""
     import numpy as np
@@ -982,18 +1242,21 @@ def full_width_cell(name, scene, cam, bg, *, chunk=64, **start):
     render_ms = cuda_ms(lambda: r.render(cam), reps=10)
     kernel_ms = cuda_ms(lambda: PC.composite_pairs_stream(*args, **kw),
                         reps=20)
+    k1 = forward_times(inp, plain_reps=1)
     plain_ms = cuda_ms(lambda: PC.composite_pairs_reference(*args, **kw),
                        reps=3, warmup=1)
     stages = stage_ms(scene, cam, r.caps, r.tight_cull, 32)
     b_ms, b_by = bound_ms(inp["pairs"], inp["starts"].shape[0], 32)
     cell = dict(cell=name, render_ms=render_ms, **stages, ms=kernel_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, k1=k1,
                 pairs=inp["pairs"], tiles=int(inp["starts"].shape[0]),
                 chunk=inp["chunk"], caps=r.caps, tight_cull=r.tight_cull,
                 max_abs_err=err)
-    log(f"  {name}: render {render_ms:.3f} ms/frame, kernel {kernel_ms:.3f} "
+    log(f"  {name}: render {render_ms:.3f} ms/frame, K1 {kernel_ms:.3f} "
         f"ms, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
         f"pairs {inp['pairs']}, caps {r.caps}, tight_cull {r.tight_cull}")
+    log(f"  {name} K1's kernels: " + "; ".join(
+        f"{k} {v}" for k, v in k1.items() if isinstance(v, dict)))
     log(f"  {name} stages: " + ", ".join(f"{k} {v:.3f}"
                                          for k, v in stages.items()))
     return cell
@@ -1052,9 +1315,15 @@ def main(argv=None) -> int:
     rels = {k: [] for k in BACKWARD_KERNELS}
 
     def hold(inp, what, seed=0, forward=True):
-        """The stream kernels (K1, its log-space arm K5, and the backward
-        kernels K3, suffix, K4) against their plain versions on one
-        stream."""
+        """The stream kernels (K1's and K5's row and combine kernels, each
+        alone and, with ``forward``, the two together; the backward kernels
+        K3, suffix, K4) against their plain versions on one stream."""
+        cases = {}
+        for log_space in (False, True):
+            found = forward_vs_plain(inp, what, log_space)
+            cases[log_space] = found.pop("cases")
+            for k, e in found.items():
+                errs[k].append(e)
         if forward:
             errs["pairs_composite"].append(kernel_vs_plain(inp, f"{what} K1"))
             errs["pairs_logdot"].append(logdot_vs_plain(inp, what))
@@ -1062,6 +1331,7 @@ def main(argv=None) -> int:
         for k, (e_abs, e_rel) in found.items():
             errs[k].append(e_abs)
             rels[k].append(e_rel)
+        a["cases"] = cases[False]
         return a
 
     bench = bg = None
@@ -1085,6 +1355,26 @@ def main(argv=None) -> int:
             raise AssertionError("block-boundary fixture: wrong block "
                                  "semantics")
 
+        # every case of the combine fires on the saturation fixture, in both
+        # forms; a NaN colour gives NaN where the plain version has it
+        sat = saturation_fixture(dev)
+        for log_space in (False, True):
+            found = forward_vs_plain(sat, "saturation fixture", log_space)
+            errs[FORWARD_FORMS[log_space][0]].append(
+                found[FORWARD_FORMS[log_space][0]])
+            errs[FORWARD_FORMS[log_space][1]].append(
+                found[FORWARD_FORMS[log_space][1]])
+            fired = found["cases"]
+            log(f"  saturation fixture, log_space {log_space}: the combine "
+                f"took all {fired['all']}, none {fired['none']}, walk "
+                f"{fired['walk']} (and {fired['empty']} visits with no kept "
+                "pair)")
+            if min(fired["all"], fired["none"], fired["walk"]) <= 0:
+                raise AssertionError(f"saturation fixture: a combine case "
+                                     f"never fired: {fired}")
+        nan_colour_forward(dev)
+        refused_forward_launch(sat)
+
         rng = np.random.default_rng(0)
         rscene = random_scene(rng, 4000, dev)
         rcam = bench_camera(256, 256, dev)
@@ -1094,6 +1384,11 @@ def main(argv=None) -> int:
                      f"random scene tile {tile_px} chunk {chunk}",
                      seed=chunk + tile_px, forward=tile_px == 32)
         # chunk 512: the most shared memory the row kernel asks for
+        for tile_px in (16, 8):
+            for log_space in (False, True):
+                forward_vs_plain(
+                    stream_inputs(rscene, rcam, {}, False, tile_px, 512),
+                    f"random scene tile {tile_px} chunk 512", log_space)
         inp512 = stream_inputs(rscene, rcam, {}, False, 32, 512)
         hold(inp512, "random scene tile 32 chunk 512", seed=512,
              forward=False)
@@ -1114,13 +1409,14 @@ def main(argv=None) -> int:
                 raise AssertionError("a refused launch did not raise")
         hold(inp512, "random scene tile 32 chunk 512 after the refusal",
              seed=512, forward=False)
-        before = PC.launch_counts["pairs_composite"]
+        before = dict(PC.launch_counts)
         ko = R.render(rscene, rcam, tile_px=32, max_per_tile=4096)
         po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       backend="torch")
-        if PC.launch_counts["pairs_composite"] != before + 1:
-            raise AssertionError("cuda_stream render did not launch the "
-                                 "kernel")
+        if any(PC.launch_counts[k] != before[k] + 1
+               for k in FORWARD_FORMS[False][:2]):
+            raise AssertionError("cuda_stream render did not launch K1's "
+                                 "two kernels once each")
         for a, b, tol, what in ((ko.color, po.color, TOL["color"], "colour"),
                                 (ko.depth, po.depth, TOL["depth"], "depth"),
                                 (ko.alpha, po.alpha, TOL["trans"], "alpha")):
@@ -1184,8 +1480,8 @@ def main(argv=None) -> int:
                       chunk=128)
         if (PC.launch_counts["tiles_composite"]
                 != before["tiles_composite"] + 1
-                or PC.launch_counts["pairs_composite"]
-                != before["pairs_composite"]):
+                or any(PC.launch_counts[k] != before[k]
+                       for k in FORWARD_FORMS[False][:2])):
             raise AssertionError("cuda_tiles render did not launch K2 alone")
         for a, b, tol, what in ((lo.color, po.color, TOL["color"], "colour"),
                                 (lo.depth, po.depth, TOL["depth"], "depth"),
@@ -1230,19 +1526,11 @@ def main(argv=None) -> int:
         inp = stream_inputs(qscene, qcam, run.caps, run.tight_cull, 32, 64)
         errs["pairs_composite"].append(
             kernel_vs_plain(inp, "render path view 0"))
-        kw = dict(tiles_x=inp["tiles_x"], tile_px=32, chunk=inp["chunk"])
-        margs = (inp["data"], inp["starts"], inp["counts"])
-        main_k1 = dict(
-            ms=cuda_ms(lambda: PC.composite_pairs_stream(*margs, **kw),
-                       reps=20),
-            plain_ms=cuda_ms(lambda: PC.composite_pairs_reference(*margs,
-                                                                  **kw),
-                             reps=5, warmup=1))
-        main_k1["bound_ms"], main_k1["bound_by"] = bound_ms(
-            inp["pairs"], inp["starts"].shape[0], 32)
-        log(f"  render path view 0: kernel {main_k1['ms']:.4f} ms, plain "
-            f"{main_k1['plain_ms']:.4f} ms, bound {main_k1['bound_ms']:.5f} "
-            f"ms ({main_k1['bound_by']}), pairs {inp['pairs']}")
+        main_k1 = forward_times(inp, plain_reps=5)
+        log(f"  render path view 0 ({inp['pairs']} pairs, "
+            f"{main_k1['rows']} rows): K1 {main_k1['whole_ms']:.4f} ms; "
+            + "; ".join(f"{k} {v}" for k, v in main_k1.items()
+                        if isinstance(v, dict)))
 
     # ---- phase 3: full width, forward ----------------------------------
     cells = []
@@ -1274,7 +1562,7 @@ def main(argv=None) -> int:
                 f"train PSNR {frun.last_psnr:.3f} dB, caps {frun.caps}")
             if not frun.losses_finite:
                 raise AssertionError("fit: a loss was not finite")
-            for k in ("pairs_composite",) + BACKWARD_KERNELS:
+            for k in FORWARD_FORMS[False][:2] + BACKWARD_KERNELS:
                 v = fit_launches[k]
                 if v < fit_steps:
                     raise AssertionError(f"fit: {k} launched {v} times in "
@@ -1313,6 +1601,7 @@ def main(argv=None) -> int:
             train_psnr_db=frun.last_psnr, eval_psnr_db=eval_psnr,
             eval_views_db=eval_views, caps=frun.caps, launches=fit_launches,
             view0=dict(pairs=inp["pairs"], rows=a["rows"],
+                       cases=a["cases"], k1=forward_times(inp, boundary=True),
                        **backward_times(a, plain_reps=3),
                        pass1_bound_ms=fb[0][0], pass1_bound_by=fb[0][1],
                        pass2_bound_ms=fb[1][0], pass2_bound_by=fb[1][1],
@@ -1378,11 +1667,13 @@ def main(argv=None) -> int:
                                          f"{res['psnr']} < {PSNR_MIN}")
                 if not math.isfinite(res["ssim"]) or res["lpips"] is not None:
                     raise AssertionError(f"validate {backend}: bad SSIM/LPIPS")
-            if (runs["cuda_stream"]["launches"]["pairs_composite"] < 16
+            k1_keys = FORWARD_FORMS[False][:2]
+            if (min(runs["cuda_stream"]["launches"][k] for k in k1_keys) < 16
                     or runs["cuda_stream"]["launches"]["tiles_composite"]):
                 raise AssertionError("default validate did not go through K1")
             if (runs["cuda_tiles"]["launches"]["tiles_composite"] < 16
-                    or runs["cuda_tiles"]["launches"]["pairs_composite"]):
+                    or any(runs["cuda_tiles"]["launches"][k]
+                           for k in k1_keys)):
                 raise AssertionError("cuda_tiles validate did not go through "
                                      "K2 alone")
             gap = abs(runs["cuda_stream"]["psnr"] - runs["cuda_tiles"]["psnr"])
@@ -1467,7 +1758,8 @@ def main(argv=None) -> int:
         PC.reset_launch_counts()
         tool = LD.main([])
         tool_launches = dict(PC.launch_counts)
-        if tool_launches["pairs_logdot"] < 1 or tool["k5_ms"] is None:
+        if (min(tool_launches[k] for k in FORWARD_FORMS[True][:2]) < 1
+                or tool["k5_ms"] is None):
             raise AssertionError("proto_logdot did not launch K5")
         r5 = R.SpillFreeRenderer(bench, bg, tile_px=32, chunk=128)
         if r5.probe(bench_camera(512, 512, dev)) != 0:
@@ -1477,15 +1769,15 @@ def main(argv=None) -> int:
         if inp5["pairs"] != tool["pairs"]:
             raise AssertionError("the tool's stream is not the 512x512 cell's")
         errs["pairs_logdot"].append(logdot_vs_plain(inp5, "512x512"))
-        kw5 = dict(tiles_x=inp5["tiles_x"], tile_px=32, chunk=inp5["chunk"])
-        args5 = (inp5["data"], inp5["starts"], inp5["counts"])
-        b5 = bound_ms(inp5["pairs"], inp5["starts"].shape[0], 32,
-                      flops=FLOPS_LOGDOT)
+        for log_space in (False, True):
+            found = forward_vs_plain(inp5, "512x512", log_space)
+            for k in FORWARD_FORMS[log_space][:2]:
+                errs[k].append(found[k])
         main_k5 = dict(
-            ms=tool["k5_ms"], k1_ms=tool["k1_ms"],
-            plain_ms=cuda_ms(lambda: LD.composite_pairs_logdot_reference(
-                *args5, **kw5), reps=3, warmup=1),
-            bound_ms=b5[0], bound_by=b5[1], pairs=tool["pairs"],
+            **forward_times(inp5, log_space=True, plain_reps=1),
+            k1=forward_times(inp5, plain_reps=1),
+            tool_k5_ms=tool["k5_ms"], tool_k1_ms=tool["k1_ms"],
+            pairs=tool["pairs"],
             max_dcolor_vs_k1=tool["max_dcolor"],
             max_ddepth_vs_k1=tool["max_ddepth"],
             max_dtrans_vs_k1=tool["max_dtrans"])
@@ -1500,18 +1792,43 @@ def main(argv=None) -> int:
         return 0
 
     v0 = fit["view0"]
-    kernels = [{
-        "name": "pairs_composite",
-        "route": "cuda",
-        "source": "dge_tpu_torch/csrc/pairs_composite.cu",
-        "replaces": "dge_tpu/ops/pallas_composite.py:232",
-        "launches": render_launches["pairs_composite"],
-        "launches_fit": fit["launches"]["pairs_composite"],
-        "max_abs_err": max(errs["pairs_composite"]),
-        **main_k1,
-        "library_ms": None,  # no single PyTorch call computes this function
-        "cells": cells,
-    }, {
+    # K1 and K5 are each a row kernel and a combine kernel: the row kernel
+    # carries the TPU kernel's name, times at the main path's shapes (render
+    # path view 0; K5: the tool's 512^2 stream), with the cells beside them
+    forward = []
+    for log_space, times, launches, cells_of in (
+            (False, main_k1, render_launches, [
+                dict(cell=c["cell"], **{k: c["k1"][k] for k in
+                                        FORWARD_FORMS[False][:2]})
+                for c in cells] + [dict(cell="fit view 0", **{
+                    k: v0["k1"][k] for k in FORWARD_FORMS[False][:2]})]),
+            (True, ev["logdot"], ev["logdot_launches"], [])):
+        row_key, comb_key = FORWARD_FORMS[log_space][:2]
+        for key, source_note in ((row_key, "row kernel"),
+                                 (comb_key, "combine kernel")):
+            entry = {
+                "name": key,
+                "route": "cuda",
+                "source": ("dge_tpu_torch/csrc/pairs_logdot.cu" if log_space
+                           else "dge_tpu_torch/csrc/pairs_composite.cu"),
+                "replaces": ("tools/proto_logdot.py:86" if log_space
+                             else "dge_tpu/ops/pallas_composite.py:232"),
+                "part": source_note,
+                "launches": launches[key],
+                "max_abs_err": max(errs[key]),
+                **{k: times[key][k] for k in ("ms", "device_ms", "plain_ms",
+                                              "bound_ms", "bound_by",
+                                              "bound_terms")},
+                # no single PyTorch call walks a depth-ordered list with a
+                # carried transmittance and a data-dependent stop
+                "library_ms": None,
+                "whole_ms": times["whole_ms"],
+                "cells": [dict(cell=c["cell"], **c[key]) for c in cells_of],
+            }
+            if not log_space:
+                entry["launches_fit"] = fit["launches"][key]
+            forward.append(entry)
+    kernels = forward + [{
         "name": "pairs_pass1",
         "route": "cuda",
         "source": "dge_tpu_torch/csrc/pairs_backward.cu",
@@ -1568,16 +1885,6 @@ def main(argv=None) -> int:
                                        "bound_by")},
         "library_ms": None,  # no single PyTorch call computes this function
         "cells": ev["list_cells"],
-    }, {
-        "name": "pairs_logdot",
-        "route": "cuda",
-        "source": "dge_tpu_torch/csrc/pairs_logdot.cu",
-        "replaces": "tools/proto_logdot.py:86",
-        "launches": ev["logdot_launches"]["pairs_logdot"],
-        "max_abs_err": max(errs["pairs_logdot"]),
-        **{k: ev["logdot"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by")},
-        "library_ms": None,  # no single PyTorch call computes this function
     }]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

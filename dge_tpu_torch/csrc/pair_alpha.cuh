@@ -1,6 +1,7 @@
-// The alpha of one (Gaussian, pixel) pair, shared by the forward compositing
-// kernels tiles_composite.cu and pairs_logdot.cu (pairs_composite.cu and
-// pairs_backward.cu carry the same arithmetic inline).
+// The alpha of one (Gaussian, pixel) pair, shared by every compositing
+// kernel: tiles_composite.cu through `pair_alpha`, the row kernels of
+// pair_rows.cuh (pairs_composite.cu, pairs_logdot.cu, pairs_backward.cu)
+// through `alpha_at`.
 //
 // Every operation on the alpha path is an explicitly rounded intrinsic
 // (__fmul_rn / __fadd_rn / __fsub_rn), so nvcc contracts none of it into
@@ -18,23 +19,37 @@ constexpr float kAlphaEps = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
-// `stage` holds a chunk's features as [kFeat, chunk] in shared memory. Returns
-// whether pair j takes part at pixel (px, py) (power <= 0 and alpha >= 1/255);
-// `alpha` is min(0.99, opacity * exp(power)).
-__device__ __forceinline__ bool pair_alpha(const float* stage, int chunk,
-                                           int j, float px, float py,
-                                           float& alpha) {
-  const float a = stage[2 * chunk + j];
-  const float b = stage[3 * chunk + j];
-  const float c = stage[4 * chunk + j];
-  const float dx = __fsub_rn(stage[0 * chunk + j], px);
-  const float dy = __fsub_rn(stage[1 * chunk + j], py);
+// Pair (mean mx, my; conic a, b, c; opacity op) at pixel (px, py): the
+// offsets dx, dy, ex = exp(power), raw = op * ex, and alpha = min(0.99, raw).
+// Returns whether the pair takes part there (power <= 0, alpha >= 1/255).
+__device__ __forceinline__ bool alpha_at(float mx, float my, float a, float b,
+                                         float c, float op, float px,
+                                         float py, float& dx, float& dy,
+                                         float& ex, float& raw,
+                                         float& alpha) {
+  dx = __fsub_rn(mx, px);
+  dy = __fsub_rn(my, py);
   const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
                                __fmul_rn(__fmul_rn(c, dy), dy));
   const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
                                 __fmul_rn(__fmul_rn(b, dx), dy));
-  alpha = fminf(kAlphaMax, __fmul_rn(stage[5 * chunk + j], expf(power)));
+  ex = expf(power);
+  raw = __fmul_rn(op, ex);
+  alpha = fminf(kAlphaMax, raw);
   return (power <= 0.0f) && (alpha >= kAlphaEps);
+}
+
+// `stage` holds a chunk's features as [kFeat, chunk] in shared memory. Returns
+// whether pair j takes part at pixel (px, py); `alpha` is
+// min(0.99, opacity * exp(power)).
+__device__ __forceinline__ bool pair_alpha(const float* stage, int chunk,
+                                           int j, float px, float py,
+                                           float& alpha) {
+  float dx, dy, ex, raw;
+  return alpha_at(stage[0 * chunk + j], stage[1 * chunk + j],
+                  stage[2 * chunk + j], stage[3 * chunk + j],
+                  stage[4 * chunk + j], stage[5 * chunk + j], px, py, dx, dy,
+                  ex, raw, alpha);
 }
 
 }  // namespace dge

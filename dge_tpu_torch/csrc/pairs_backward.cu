@@ -33,10 +33,11 @@
 // blk_off the exclusive prefix sum of each tile's block count, so the
 // per-row buffers hold at most ceil(Pc/chunk) + T rows of P floats (the TPU
 // kernels use a dense [T, bpt8, P]). boundary_T[row] = Tb makes every row
-// independent of every other. The forward kernel holds Tb in a register at
-// the top of each block and stores it on request, so no backward kernel
-// walks a tile's whole range: the serial walk of the fullest tile happens
-// once a step, in the forward.
+// independent of every other. The forward's combine kernel (pair_rows_
+// forward.cuh) holds Tb as it goes over a tile's rows and stores it on
+// request, so no backward kernel walks a tile's whole range. The row layout,
+// row_range, the staging, the reject radius and load4 / store4 are shared
+// with the forward in pair_rows.cuh, the alpha path in pair_alpha.cuh.
 //
 // One kernel body, `pairs_rows_kernel`, one thread block per row:
 //   pass 1 (kPass2 = false): per pixel the row's total of w*g;
@@ -108,104 +109,19 @@
 // Pass 1 and pass 2 are bound by operations at every operating point of the
 // repo.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include <cstdint>
+#include "pair_rows.cuh"
 
 namespace {
 
-constexpr int kFeat = 10;    // mx, my, conic a, b, c, opacity, r, g, b, depth
-constexpr int kStride = 12;  // floats a staged pair: kFeat, reject r2, pad
-constexpr int kPix = 4;      // pixels a thread
-constexpr int kMaxThreads = 256;  // a 32x32 tile at kPix pixels a thread
+using namespace dge;
+
 constexpr int kMaxDevices = 64;
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-constexpr unsigned kFullWarp = 0xffffffffu;
-
-// The stream positions [lo, lo + n) of one row; n <= 0 for a row not in use.
-struct Row {
-  int t, lo, n;
-};
-
-__device__ __forceinline__ Row row_range(int row,
-                                         const int* __restrict__ row_tile,
-                                         const int* __restrict__ starts,
-                                         const int* __restrict__ counts,
-                                         const int* __restrict__ blk_off,
-                                         int num_tiles, int chunk) {
-  Row r = {row_tile[row], 0, 0};
-  if (r.t >= num_tiles) return r;
-  const int start = starts[r.t];
-  const int end = start + counts[r.t];
-  const int base = (start / chunk + (row - blk_off[r.t])) * chunk;
-  r.lo = max(start, base);
-  r.n = min(end, base + chunk) - r.lo;
-  return r;
-}
-
-// Squared distance from a pair's mean beyond which no pixel keeps it (see
-// the source note): -1 (skip everywhere) for a pair without opacity, +inf
-// where no safe radius exists, NaN (never skips) from a NaN opacity.
-__device__ __forceinline__ float reject_radius2(float a, float b, float c,
-                                                float op) {
-  if (op <= 0.0f) return isinf(op) ? CUDART_INF_F : -1.0f;
-  const float half_diff = 0.5f * (a - c);
-  const float lam_min =
-      0.5f * (a + c) - sqrtf(half_diff * half_diff + b * b);
-  const float lam_safe =
-      0.99f * lam_min - 1e-5f * (fabsf(a) + fabsf(b) + fabsf(c));
-  if (!(lam_safe > 0.0f)) return CUDART_INF_F;
-  return 2.0f * (logf(255.0f * op) + 0.05f) / lam_safe;
-}
-
-// Stage a row's pairs, [n, kStride] pair-major: the ten features, the
-// reject radius, a pad.
-__device__ __forceinline__ void stage_row(const float* __restrict__ data,
-                                          int pc, Row r, float4* stage4) {
-  for (int j = threadIdx.x; j < r.n; j += blockDim.x) {
-    float f[kFeat];
-#pragma unroll
-    for (int k = 0; k < kFeat; ++k)
-      f[k] = data[static_cast<size_t>(k) * pc + r.lo + j];
-    stage4[3 * j + 0] = make_float4(f[0], f[1], f[2], f[3]);
-    stage4[3 * j + 1] = make_float4(f[4], f[5], f[6], f[7]);
-    stage4[3 * j + 2] = make_float4(
-        f[8], f[9], reject_radius2(f[2], f[3], f[4], f[5]), 0.0f);
-  }
-}
 
 // 1/x in one MUFU instruction, for x in [0.01, 1] (about 1 ulp).
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
-}
-
-// Four neighbouring floats of a [.., P] row starting at pixel q0: one
-// 16-byte access where the layout allows it, else scalar with 0 past P.
-__device__ __forceinline__ void load4(const float* __restrict__ base, int q0,
-                                      int p, int vec, float (&v)[kPix]) {
-  if (vec) {
-    const float4 x = *reinterpret_cast<const float4*>(base + q0);
-    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kPix; ++i) v[i] = q0 + i < p ? base[q0 + i] : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void store4(float* __restrict__ base, int q0, int p,
-                                       int vec, const float (&v)[kPix]) {
-  if (vec) {
-    *reinterpret_cast<float4*>(base + q0) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < kPix; ++i)
-      if (q0 + i < p) base[q0 + i] = v[i];
-  }
 }
 
 // One step of the halving butterfly: the lane keeps `lo` (upper = false) or
@@ -279,20 +195,12 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pairs_rows_kernel(
   }
   __syncthreads();
 
-  // this warp's pixel patch within the tile: the bounding box of the pixel
-  // ids 128*warp .. 128*warp + 127, grown by 0.01 pixel
-  const int q_first = 32 * kPix * warp;
-  const int q_last = min(q_first + 32 * kPix, p) - 1;
-  const int y_first = q_first / tile_px, y_last = q_last / tile_px;
-  const bool one_line = y_first == y_last;
-  const int x_first = one_line ? q_first - y_first * tile_px : 0;
-  const int x_last = one_line ? q_last - y_last * tile_px : tile_px - 1;
   const float ox = static_cast<float>((t % tiles_x) * tile_px);
   const float oy = static_cast<float>((t / tiles_x) * tile_px);
-  const float wcx = ox + 0.5f * (x_first + x_last);
-  const float wcy = oy + 0.5f * (y_first + y_last);
-  const float patch_hx = 0.5f * (x_last - x_first) + 0.01f;
-  const float patch_hy = 0.5f * (y_last - y_first) + 0.01f;
+  // this warp's pixel patch: the pixel ids 128*warp .. 128*warp + 127
+  const int q_first = 32 * kPix * warp;
+  const WarpPatch patch(q_first, min(q_first + 32 * kPix, p) - 1, tile_px,
+                        ox, oy);
 
   // a pixel blocked to the end of the row carries tb = 0 (a committed
   // T is at least 1e-4), and so do the lanes past the tile's pixels,
@@ -330,9 +238,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pairs_rows_kernel(
     const float4 f0 = stage4[3 * j + 0];  // mx, my, a, b
     const float4 f1 = stage4[3 * j + 1];  // c, op, r, g
     const float4 f2 = stage4[3 * j + 2];  // b, d, reject r2, pad
-    const float far_x = fmaxf(fabsf(f0.x - wcx) - patch_hx, 0.0f);
-    const float far_y = fmaxf(fabsf(f0.y - wcy) - patch_hy, 0.0f);
-    if (far_x * far_x + far_y * far_y > f2.z) continue;  // warp-uniform
+    if (patch.far(f0, f2)) continue;  // warp-uniform
 
     const float a = f0.z, b = f0.w, c = f1.x;
     float dx[kPix], dy[kPix], ex[kPix], raw[kPix], alpha[kPix];
@@ -341,18 +247,9 @@ __global__ void __launch_bounds__(kMaxThreads, 2) pairs_rows_kernel(
 #pragma unroll
     for (int i = 0; i < kPix; ++i) {
       // the forward's arithmetic to the bit
-      dx[i] = __fsub_rn(f0.x, px[i]);
-      dy[i] = __fsub_rn(f0.y, py[i]);
-      const float quad =
-          __fadd_rn(__fmul_rn(__fmul_rn(a, dx[i]), dx[i]),
-                    __fmul_rn(__fmul_rn(c, dy[i]), dy[i]));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(b, dx[i]), dy[i]));
-      ex[i] = expf(power);
-      raw[i] = __fmul_rn(f1.y, ex[i]);
-      alpha[i] = fminf(kAlphaMax, raw[i]);
-      keep[i] = (tb[i] > 0.0f) && (power <= 0.0f) &&
-                (alpha[i] >= kAlphaEps);
+      keep[i] = alpha_at(f0.x, f0.y, a, b, c, f1.y, px[i], py[i], dx[i],
+                         dy[i], ex[i], raw[i], alpha[i]) &&
+                (tb[i] > 0.0f);
       any_keep |= keep[i];
     }
     if (!__any_sync(kFullWarp, any_keep)) continue;
@@ -445,12 +342,6 @@ __global__ void __launch_bounds__(kMaxThreads) rows_suffix_kernel(
     }
   }
 }
-
-bool aligned16(const void* ptr) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-}
-
-int threads_for(int p) { return ((p + kPix - 1) / kPix + 31) / 32 * 32; }
 
 // Launch the row kernel, one block per row. Dynamic shared memory above the
 // 48 KB default (pass 2 beyond chunk 128) is asked for once per device and

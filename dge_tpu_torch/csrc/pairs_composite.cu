@@ -1,9 +1,10 @@
-// Pair-stream front-to-back compositing for NVIDIA Hopper (sm_90a).
+// Pair-stream front-to-back compositing for NVIDIA Hopper (sm_90a): a row
+// kernel and a combine kernel (pair_rows_forward.cuh, form kLog = false).
 //
 // Replaces the TPU kernel `_pairs_kernel` (dge_tpu/ops/pallas_composite.py,
 // wrapper `composite_pairs_pallas`). Python side: dge_tpu_torch/ops/
 // pairs_composite.py, which builds this file with nvcc at first use, loads
-// it with ctypes and keeps the plain PyTorch version beside it.
+// it with ctypes and keeps the plain PyTorch versions beside it.
 //
 // What it computes, per tile t and pixel (px, py) = (ox + pid % tile_px,
 // oy + pid / tile_px) (no +0.5): the pairs [starts[t], starts[t]+counts[t])
@@ -12,147 +13,91 @@
 // transmittance T (initially 1), at the start of each block Tb = T, cp = 1;
 // for each pair
 //     power = -0.5 (a dx^2 + c dy^2) - b dx dy,  dx = mx - px, dy = my - py
-//     alpha = min(0.99, op exp(power)); eff = alpha if power <= 0 and
-//     alpha >= 1/255, else 0 (the pair then changes nothing)
-//     cp *= 1 - eff;  if Tb cp >= 1e-4: w = eff Tb cp / (1 - eff),
+//     alpha = min(0.99, op exp(power)); the pair is kept if power <= 0 and
+//     alpha >= 1/255 (else it changes nothing)
+//     cp *= 1 - alpha;  if Tb cp >= 1e-4: w = alpha Tb cp / (1 - alpha),
 //     rgbd += w (r, g, b, d), T = Tb cp.
-// A refused pair blocks the rest of ITS BLOCK only: cp never rises inside a
-// block, so every later pair of the block is refused too, and the loop
-// leaves the block; the next block starts again from the committed T. This
-// is what `_pairs_kernel` computes (its carried transmittance is the product
-// of the applied factors only), and it differs from the CUDA reference's
-// hard per-pixel break. There is deliberately NO early exit of the tile:
-// committed T never falls below 1e-4, so the TPU kernel's tile exit
-// (`max(trans) >= T_EPS`) never fires either.
+// A refused pair blocks the rest of ITS BLOCK only (cp never rises inside a
+// block); the next block starts again from the committed T. This is what
+// `_pairs_kernel` computes, and it differs from the CUDA reference's hard
+// per-pixel break. There is no tile exit: committed T never falls below
+// 1e-4, so the TPU kernel's (`max(trans) >= T_EPS`) never fires either.
 //
-// Design. One thread block per tile, one thread per pixel (tile_px^2 <= 1024
-// threads). The block walks the tile's chunk-aligned blocks; for each it
-// stages the block's in-range pairs (10 f32 features each) from the
-// assembled [10, Pc] stream into shared memory (coalesced row reads), then
-// every thread walks them from shared memory (broadcast reads). The input is
-// the assembled stream rather than pair ids + a feature table so that the
-// kernel and its plain version take the very same tensor. The alpha path
-// uses explicitly rounded intrinsics (__fmul_rn/__fadd_rn/__fsub_rn), so
-// nvcc contracts none of it into FMAs: alpha, and with it the 1/255 and
-// power <= 0 decisions, round exactly as in the unfused PyTorch version.
-// The kernel allocates nothing and launches on the caller's stream.
+// Why the walk splits exactly. A (tile, stream block) pair is a row
+// (pair_rows.cuh). Inside a row every decision is taken on Tb * cp_i, cp_i
+// the running product over kept pairs: cp never rises under f32 rounding
+// (round(cp x) <= cp for x < 1) and x -> round(Tb x) is monotone, so
+//   every kept pair is applied  iff  Tb * cp_last  >= 1e-4,
+//   no pair is applied          iff  Tb * cp_first <  1e-4,
+// with the very operands and the single multiplication the walk evaluates.
 //
-// For the backward (csrc/pairs_backward.cu) the walk can hand over what it
-// holds anyway: with `boundary_t` given, the committed T entering each
-// stream block is stored to row blk_off[t] + k of a [R, P] buffer (k counts
-// the tile's blocks), so that no backward kernel repeats this serial walk.
-// With a null pointer nothing is stored and nothing else changes.
+// Design. The old form ran one block per tile and walked the tile's range
+// serially, so its time was the walk of the fullest tile (18-26x its bound).
+// 1. Row kernel, one thread block per row, four pixels a thread (the body of
+//    the backward's row kernels: pair j staged by thread j as three float4,
+//    the warp's conservative reject before any expf, __any_sync to skip a
+//    pair no pixel of the warp keeps). It does not know Tb; per pixel it
+//    writes [R, 7, P]: cp_last, cp_first, j0 and L = sum of alpha cp_before
+//    (r, g, b, d) as if every kept pair were applied from Tb = 1. A pixel
+//    stops at its first kept pair with cp < 1e-4 (no Tb <= 1 applies all of
+//    the row then: cp_last keeps that value), a warp once all its pixels
+//    have stopped. Per group of 32 pixels (an 8x4 patch of a 32-wide tile)
+//    it also writes a keep mask, one bit a pair: some pixel of the group
+//    keeps it before it stops.
+// 2. Combine kernel, one thread a pixel, one warp a mask group, each warp on
+//    its own: over the tile's rows in order from T = 1 (the next row's
+//    scratch loaded ahead), store boundary_T[row] = T on request, then
+//      T cp_last >= 1e-4:   rgbd += T L,  T = T cp_last      (all applied)
+//      T cp_first < 1e-4:   nothing                          (none applied)
+//      else:                the lanes in this case walk the row together
+//                           from the least of their j0 over the pairs of
+//                           their group's mask, with the one-block-per-tile
+//                           walk's arithmetic, until every such lane is
+//                           refused: a mask word (32 pairs) staged in the
+//                           warp's shared slot in one round trip, four
+//                           pairs' alphas at a time.
+//    The third case is NOT rare: on the trained bench scene it is 11% of the
+//    (row, pixel) visits at 512^2 and 38% at 1080p (a pixel saturates inside
+//    a row, then hovers just above 1e-4). So the combine spreads a tile over
+//    8 to 32 warps, not one block, and a walk visits only the pairs some
+//    pixel of its compact patch keeps.
+// Committed T, final T and boundary_T are the walk's f32 products; colour
+// and depth differ only in where T is multiplied in (T sum(..) against
+// sum T (..)), about 1e-6 relative. No atomics: launches repeat bit for bit.
 //
-// Bound on this card (per frame, with `pairs` = sum of counts):
-//   bytes: pairs x 10 x 4 read + tiles x tile_px^2 x 5 x 4 written;
-//   work:  one exp and about 12 FMAs per (pair, pixel).
-// The work term dominates at every operating point of the repo (pairs x
-// 1024 pixels x ~25 flops against ~40 bytes per pair), so the kernel is
-// bound by operations; the simple design leaves the exp and the serial
-// per-thread walk as the limit. Faster staging (cp.async/TMA), a real exit
-// once every pixel is blocked to the tile's end, and occupancy tuning are
-// later work.
+// Bound on this card (pairs = sum of counts, P = tile pixels, R = rows):
+//   row kernel:  reads pairs x 40 bytes, writes R x P x 28 (and the mask,
+//                R x P / 32 x chunk / 8); one exp and
+//                about 12 FMAs per (pair, pixel), 25 operations: bound by
+//                operations;
+//   combine:     reads R x P x 28, writes T x P x 20 (+ R x P x 4 with
+//                boundary_T) plus its walks (not counted: they depend on
+//                the data): bound by bytes.
 
-#include <cuda_runtime.h>
+#include "pair_rows_forward.cuh"
 
-namespace {
-
-constexpr int kFeat = 10;  // mx, my, conic a, b, c, opacity, r, g, b, depth
-constexpr float kAlphaEps = 1.0f / 255.0f;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kTEps = 1e-4f;
-
-__global__ void pairs_composite_kernel(
-    const float* __restrict__ data,  // [kFeat, pc] stream-ordered features
-    int pc,
-    const int* __restrict__ starts,  // [T]
-    const int* __restrict__ counts,  // [T]
-    int tiles_x, int tile_px, int chunk,
-    float* __restrict__ out,         // [T, 5, P]: r, g, b, depth, final T
-    const int* __restrict__ blk_off,   // [T] first row of each tile, or null
-    float* __restrict__ boundary_t) {  // [R, P] entering T per row, or null
-  extern __shared__ float stage[];   // [kFeat, chunk]
-  const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int p = tile_px * tile_px;
-  const int start = starts[t];
-  const int end = start + counts[t];
-  const float px = static_cast<float>((t % tiles_x) * tile_px + pid % tile_px);
-  const float py = static_cast<float>((t / tiles_x) * tile_px + pid / tile_px);
-
-  float trans = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
-  float* boundary = boundary_t;
-  if (boundary) boundary += static_cast<size_t>(blk_off[t]) * p + pid;
-
-  for (int base = (start / chunk) * chunk; base < end; base += chunk) {
-    const int lo = max(start, base);
-    const int n = min(end, base + chunk) - lo;
-    __syncthreads();  // every thread is done with the previous block
-    for (int i = pid; i < kFeat * n; i += blockDim.x) {
-      const int row = i / n;
-      const int j = i - row * n;
-      stage[row * chunk + j] = data[static_cast<size_t>(row) * pc + lo + j];
-    }
-    __syncthreads();
-
-    const float tb = trans;
-    if (boundary) {
-      *boundary = tb;
-      boundary += p;
-    }
-    float cp = 1.0f;
-    for (int j = 0; j < n; ++j) {
-      const float a = stage[2 * chunk + j];
-      const float b = stage[3 * chunk + j];
-      const float c = stage[4 * chunk + j];
-      const float dx = __fsub_rn(stage[0 * chunk + j], px);
-      const float dy = __fsub_rn(stage[1 * chunk + j], py);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a, dx), dx),
-                                   __fmul_rn(__fmul_rn(c, dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(b, dx), dy));
-      const float alpha =
-          fminf(kAlphaMax, __fmul_rn(stage[5 * chunk + j], expf(power)));
-      if (!(power <= 0.0f) || !(alpha >= kAlphaEps)) continue;
-      const float one_minus = 1.0f - alpha;
-      const float cp_next = cp * one_minus;
-      const float t_hyp = tb * cp_next;
-      if (!(t_hyp >= kTEps)) break;  // refused: the rest of this block too
-      const float w = alpha * tb * (cp_next / one_minus);
-      acc_r += w * stage[6 * chunk + j];
-      acc_g += w * stage[7 * chunk + j];
-      acc_b += w * stage[8 * chunk + j];
-      acc_d += w * stage[9 * chunk + j];
-      cp = cp_next;
-      trans = t_hyp;
-    }
-  }
-
-  if (pid < p) {
-    float* o = out + static_cast<size_t>(t) * 5 * p + pid;
-    o[0 * p] = acc_r;
-    o[1 * p] = acc_g;
-    o[2 * p] = acc_b;
-    o[3 * p] = acc_d;
-    o[4 * p] = trans;
-  }
+// Plain C entries for ctypes. Each returns the CUDA error of its launch
+// (0 = success); the caller raises on anything else.
+extern "C" int pairs_rows_forward(const float* data, int pc,
+                                  const int* starts, const int* counts,
+                                  const int* blk_off, const int* row_tile,
+                                  int num_rows, int num_tiles, int tiles_x,
+                                  int tile_px, int chunk, float* scratch,
+                                  unsigned* mask, void* stream) {
+  return dge::launch_rows_forward<false>(
+      data, pc, starts, counts, blk_off, row_tile, num_rows, num_tiles,
+      tiles_x, tile_px, chunk, scratch, mask,
+      static_cast<cudaStream_t>(stream));
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. Returns cudaGetLastError() after the launch
-// (0 = success); the caller raises on anything else.
-extern "C" int pairs_composite(const float* data, int pc, const int* starts,
-                               const int* counts, int num_tiles, int tiles_x,
-                               int tile_px, int chunk, float* out,
-                               const int* blk_off, float* boundary_t,
-                               void* stream) {
-  if (num_tiles <= 0) return 0;
-  const size_t smem = sizeof(float) * kFeat * static_cast<size_t>(chunk);
-  pairs_composite_kernel<<<num_tiles, tile_px * tile_px, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      data, pc, starts, counts, tiles_x, tile_px, chunk, out, blk_off,
-      boundary_t);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int pairs_rows_combine(const float* scratch,
+                                  const unsigned* mask, const float* data,
+                                  int pc, const int* starts,
+                                  const int* counts, const int* blk_off,
+                                  int num_tiles, int tiles_x, int tile_px,
+                                  int chunk, float* out, float* boundary_t,
+                                  void* stream) {
+  return dge::launch_rows_combine<false>(
+      scratch, mask, data, pc, starts, counts, blk_off, num_tiles, tiles_x,
+      tile_px, chunk, out, boundary_t, static_cast<cudaStream_t>(stream));
 }

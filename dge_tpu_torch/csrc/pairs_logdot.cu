@@ -1,5 +1,6 @@
 // Pair-stream compositing with the in-block transmittance prefix carried in
-// log space, for NVIDIA Hopper (sm_90a).
+// log space, for NVIDIA Hopper (sm_90a): the row and combine kernels of
+// pair_rows_forward.cuh in their form kLog = true.
 //
 // Replaces the TPU kernel `_pairs_kernel_v2` in its `logdot` mode
 // (tools/proto_logdot.py, wrapper `composite_v2`): an A/B arm of the
@@ -8,108 +9,54 @@
 // matrix unit can take where a prefix product cannot. (The tool's `roll` and
 // `two_level` modes are two ways to form the same cumprod on the TPU; on this
 // card pairs_composite.cu already is that function.) Python side:
-// dge_tpu_torch/tools/proto_logdot.py, which builds this file with nvcc at
-// first use, loads it with ctypes, keeps the plain PyTorch version beside it
-// and compares both with pairs_composite.cu on one stream.
+// dge_tpu_torch/tools/proto_logdot.py (wrapper, plain version, the A/B
+// tool) over the generic wrappers of dge_tpu_torch/ops/pairs_composite.py.
 //
 // What it computes: the inputs, the output and the block rule of
-// pairs_composite.cu (blocks at ABSOLUTE stream offsets that are multiples
-// of `chunk`, each block of a tile's range visited once, no tile exit). With
-// committed transmittance T, at the start of each block Tb = T, ls = 0; for
-// each pair with alpha, keep = pair_alpha(...) (!keep: ls unchanged, since
-// log(1 - 0) = 0 exactly):
+// pairs_composite.cu. With committed transmittance T, at the start of each
+// block Tb = T, ls = 0; for each kept pair:
 //     ls += log(1 - alpha);  cp = exp(ls)
 //     if Tb cp >= 1e-4: w = alpha Tb cp / (1 - alpha), rgbd += w (r, g, b, d),
-//     T = Tb cp;  else the rest of the block is refused too (ls only falls).
+//     T = Tb cp;  else the rest of the block is refused.
 // logf and expf are the full-precision ones, not __logf / __expf.
 //
-// Design. One thread block per tile, one thread per pixel, the block's pairs
-// staged in shared memory, as pairs_composite.cu; each thread keeps a running
-// sum of logf and takes one expf per kept pair. The triangular product on the
-// tensor cores (wgmma over a [chunk, chunk] x [chunk, pixels] tile) is what
-// this formulation is for, and is not done here.
+// Design: pairs_composite.cu's row + combine split. expf is not promised to
+// be monotone, so the row kernel also stores cp_min, the least prefix it
+// walked (scratch [R, 8, P]): every kept pair is applied iff T cp_min >=
+// 1e-4, and then the next T is T cp_last; none is applied iff T cp_first <
+// 1e-4 with cp_first = expf(logf(1 - alpha_j0)); else the combine walks the
+// row as pairs_composite.cu does, in log space. The triangular product on
+// the tensor cores (wgmma over a [chunk, chunk] x [chunk, pixels] tile) is
+// what this formulation is for, and is not done here.
 //
-// Bound on this card: pairs_composite.cu's bytes (pairs x 40 read, tiles x
-// tile_px^2 x 20 written) and its operations plus one log and one exp per
-// (pair, pixel), 27 in all; bound by operations at every operating point of
-// the repo.
+// Bound on this card: pairs_composite.cu's, with one more log and exp per
+// (pair, pixel) in the row kernel (27 operations, bound by operations) and
+// R x P x 32 bytes of scratch for the combine (bound by bytes).
 
-#include "pair_alpha.cuh"
+#include "pair_rows_forward.cuh"
 
-namespace {
-
-using dge::kFeat;
-
-__global__ void pairs_logdot_kernel(
-    const float* __restrict__ data,  // [kFeat, pc] stream-ordered features
-    int pc,
-    const int* __restrict__ starts,  // [T]
-    const int* __restrict__ counts,  // [T]
-    int tiles_x, int tile_px, int chunk,
-    float* __restrict__ out) {       // [T, 5, P]: r, g, b, depth, final T
-  extern __shared__ float stage[];   // [kFeat, chunk]
-  const int t = blockIdx.x;
-  const int pid = threadIdx.x;
-  const int p = tile_px * tile_px;
-  const int start = starts[t];
-  const int end = start + counts[t];
-  const float px = static_cast<float>((t % tiles_x) * tile_px + pid % tile_px);
-  const float py = static_cast<float>((t / tiles_x) * tile_px + pid / tile_px);
-
-  float trans = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
-
-  for (int base = (start / chunk) * chunk; base < end; base += chunk) {
-    const int lo = max(start, base);
-    const int n = min(end, base + chunk) - lo;
-    __syncthreads();  // every thread is done with the previous block
-    for (int i = pid; i < kFeat * n; i += blockDim.x) {
-      const int row = i / n;
-      const int j = i - row * n;
-      stage[row * chunk + j] = data[static_cast<size_t>(row) * pc + lo + j];
-    }
-    __syncthreads();
-
-    const float tb = trans;
-    float ls = 0.0f;  // sum of log(1 - alpha) over the block's kept pairs
-    for (int j = 0; j < n; ++j) {
-      float alpha;
-      if (!dge::pair_alpha(stage, chunk, j, px, py, alpha)) continue;
-      const float one_minus = 1.0f - alpha;
-      ls += logf(one_minus);
-      const float cp = expf(ls);
-      const float t_hyp = tb * cp;
-      if (!(t_hyp >= dge::kTEps)) break;  // refused: the rest of this block too
-      const float w = alpha * tb * (cp / one_minus);
-      acc_r += w * stage[6 * chunk + j];
-      acc_g += w * stage[7 * chunk + j];
-      acc_b += w * stage[8 * chunk + j];
-      acc_d += w * stage[9 * chunk + j];
-      trans = t_hyp;
-    }
-  }
-
-  if (pid < p) {
-    float* o = out + static_cast<size_t>(t) * 5 * p + pid;
-    o[0 * p] = acc_r;
-    o[1 * p] = acc_g;
-    o[2 * p] = acc_b;
-    o[3 * p] = acc_d;
-    o[4 * p] = trans;
-  }
+// Plain C entries for ctypes. Each returns the CUDA error of its launch
+// (0 = success); the caller raises on anything else.
+extern "C" int logdot_rows_forward(const float* data, int pc,
+                                   const int* starts, const int* counts,
+                                   const int* blk_off, const int* row_tile,
+                                   int num_rows, int num_tiles, int tiles_x,
+                                   int tile_px, int chunk, float* scratch,
+                                   unsigned* mask, void* stream) {
+  return dge::launch_rows_forward<true>(
+      data, pc, starts, counts, blk_off, row_tile, num_rows, num_tiles,
+      tiles_x, tile_px, chunk, scratch, mask,
+      static_cast<cudaStream_t>(stream));
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. Returns cudaGetLastError() after the launch
-// (0 = success); the caller raises on anything else.
-extern "C" int pairs_logdot(const float* data, int pc, const int* starts,
-                            const int* counts, int num_tiles, int tiles_x,
-                            int tile_px, int chunk, float* out, void* stream) {
-  if (num_tiles <= 0) return 0;
-  const size_t smem = sizeof(float) * kFeat * static_cast<size_t>(chunk);
-  pairs_logdot_kernel<<<num_tiles, tile_px * tile_px, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      data, pc, starts, counts, tiles_x, tile_px, chunk, out);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int logdot_rows_combine(const float* scratch,
+                                   const unsigned* mask, const float* data,
+                                   int pc, const int* starts,
+                                   const int* counts, const int* blk_off,
+                                   int num_tiles, int tiles_x, int tile_px,
+                                   int chunk, float* out, float* boundary_t,
+                                   void* stream) {
+  return dge::launch_rows_combine<true>(
+      scratch, mask, data, pc, starts, counts, blk_off, num_tiles, tiles_x,
+      tile_px, chunk, out, boundary_t, static_cast<cudaStream_t>(stream));
 }

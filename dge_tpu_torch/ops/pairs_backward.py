@@ -6,18 +6,19 @@ JAX counterpart: ``dge_tpu/ops/pallas_backward.py`` (``_pass1_kernel``,
 are ``dge_tpu_torch/csrc/pairs_backward.cu``; its source note states what
 they compute, the design and the bounds.
 
-- ``block_rows`` lays the (tile, stream block) rows out compactly.
+- ``block_rows`` (from ops/pairs_composite.py, which owns the row layout)
+  lays the (tile, stream block) rows out compactly.
 - ``boundary_T`` ``[R, P]``, the transmittance entering each row, is handed
   over by the forward (``composite_pairs_stream(boundary_rows=...)``): the
-  forward's walk holds it anyway, so the package walks a tile's whole range
-  once a step and every backward kernel runs one thread block per row.
+  forward's combine kernel holds it anyway, so every backward kernel runs one
+  thread block per row.
 - ``pairs_row_totals`` (pass 1: each row's total of ``w·g`` from its
   ``boundary_T``), ``pairs_suffix`` (the totals become the inclusive suffix
   over a tile's later rows) and ``pairs_pass2`` are the kernels' wrappers:
   CUDA tensors launch the kernel or raise, CPU tensors take the plain
   version; nothing falls back. ``pairs_pass1`` joins the first two and
   returns ``(boundary_T, suffix)``; without a handed-over ``boundary_T`` it
-  gets one from the forward kernel's walk.
+  gets one from the forward's kernels.
 - ``pass1_reference`` (the whole of pass 1 by a serial walk),
   ``row_totals_reference``, ``suffix_reference`` and ``pass2_reference`` are
   the plain PyTorch versions (``torch.cumprod`` and a flipped ``cumsum`` per
@@ -28,7 +29,7 @@ they compute, the design and the bounds.
   ``index_add_`` adds in no fixed order, so the per-Gaussian gradients are
   not.
 - ``stream_composite`` is the Function: forward = stream assembly + the
-  forward kernel (``pairs_composite.composite_pairs_stream``, which also
+  forward kernels (``pairs_composite.composite_pairs_stream``, which also
   stores ``boundary_T``), backward = ``stream_backward``. It returns (color,
   depth, final_T) with a zero background; the caller adds ``bg·T``, so that
   autograd supplies dL/dT_fin.
@@ -42,14 +43,15 @@ not copy that (ROADMAP.md §3).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
 from dge_tpu_torch.ops import cuda_build
 from dge_tpu_torch.ops import pairs_composite as PC
 from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
-                                               T_EPS, launch_counts)
+                                               T_EPS, block_rows,
+                                               launch_counts)
 
 # The row kernel keeps, in dynamic shared memory, the staged row ([chunk, 12]
 # floats) and, in pass 2, one slot of [chunk, 10] partial sums per warp (8
@@ -79,36 +81,6 @@ def _load():
         lib.pairs_pass2.restype = i32
         _lib = lib
     return _lib
-
-
-def block_rows(starts, counts, chunk: int, pc: int
-               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Compact row layout of the (tile, stream block) pairs.
-
-    A tile with range [start, start + count) touches the chunk-aligned
-    blocks start//chunk .. (end-1)//chunk. Returns ``blk_off`` [T] int32 (the
-    first row of each tile: the exclusive prefix sum of the block counts),
-    ``row_tile`` [R] int32 (the tile of each row; T marks an unused row) and
-    R = ceil(pc/chunk) + T, an upper bound of the rows in use that needs no
-    host sync (the tiles' ranges are disjoint and lie in [0, pc))."""
-    num_tiles = starts.shape[0]
-    s = starts.long()
-    e = s + counts.long()
-    nblk = torch.where(counts > 0, (e - 1) // chunk - s // chunk + 1,
-                       torch.zeros_like(s))
-    cum = torch.cumsum(nblk, 0)
-    n_rows = -(-pc // chunk) + num_tiles
-    row_tile = torch.searchsorted(
-        cum, torch.arange(n_rows, device=starts.device), right=True)
-    return ((cum - nblk).to(torch.int32), row_tile.to(torch.int32), n_rows)
-
-
-def _pixel_coords(tiles, tiles_x: int, tile_px: int, dev):
-    """Pixel coordinates of ``tiles`` [G] -> (px, py), each [G, 1, P]."""
-    pid = torch.arange(tile_px * tile_px, device=dev)
-    px = ((tiles % tiles_x) * tile_px)[:, None] + pid[None, :] % tile_px
-    py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
-    return px.float()[:, None, :], py.float()[:, None, :]
 
 
 def _block_state(data, idx, in_range, px, py, trans):
@@ -162,7 +134,7 @@ def pass1_reference(data, starts, counts, blk_off, n_rows: int, cot, *,
     group = max(1, (1 << 23) // (chunk * p))
     for g0 in range(0, live.numel(), group):
         tiles = live[g0:g0 + group]
-        px, py = _pixel_coords(tiles, tiles_x, tile_px, dev)
+        px, py = PC.pixel_coords(tiles, tiles_x, tile_px, dev)
         s, e, fb, nb = starts[tiles], ends[tiles], first[tiles], nblk[tiles]
         row0 = blk_off[tiles].long()
         cot_g = cot[tiles]
@@ -193,7 +165,7 @@ def _row_state(data, starts, ends, blk_off, row_tile, rows, boundary_t, *,
     ``boundary_t``; also the rows' tiles, stream positions and range mask."""
     tiles = row_tile[rows].long()
     k = rows - blk_off[tiles].long()
-    px, py = _pixel_coords(tiles, tiles_x, tile_px, data.device)
+    px, py = PC.pixel_coords(tiles, tiles_x, tile_px, data.device)
     slot = torch.arange(chunk, device=data.device)
     idx = (starts[tiles] // chunk + k)[:, None] * chunk + slot[None, :]
     in_range = (idx >= starts[tiles][:, None]) & (idx < ends[tiles][:, None])
@@ -401,8 +373,8 @@ def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
     """Pass 1 → (boundary_T, suffix), each [n_rows, P] (on CUDA tensors rows
     not in use are left unwritten). With ``boundary_t`` handed over by the
     forward only the row kernel and the suffix kernel run. Without, it comes
-    from the forward kernel's walk (the one serial walk of the package); on
-    CPU tensors that route is ``pass1_reference``."""
+    from the forward's row and combine kernels; on CPU tensors that route is
+    ``pass1_reference``."""
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
     if boundary_t is None and data.device.type == "cpu":
         f32, i32 = torch.float32, torch.int32
@@ -418,7 +390,8 @@ def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
         _, row_tile, _ = block_rows(starts, counts, chunk, data.shape[1])
     if boundary_t is None:
         _, boundary_t = PC.composite_pairs_stream(
-            data, starts, counts, boundary_rows=(blk_off, n_rows), **kw)
+            data, starts, counts, boundary_rows=(blk_off, n_rows),
+            row_tile=row_tile, **kw)
     totals = pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
                               boundary_t, **kw)
     return boundary_t, pairs_suffix(totals, starts, counts, blk_off,
@@ -516,7 +489,7 @@ class _StreamComposite(torch.autograd.Function):
                                                data.shape[1])
         out, boundary_t = PC.composite_pairs_stream(
             data, starts, counts, tiles_x=tiles_x, tile_px=tile_px,
-            chunk=chunk, boundary_rows=(blk_off, n_rows))
+            chunk=chunk, boundary_rows=(blk_off, n_rows), row_tile=row_tile)
         ctx.save_for_backward(data, pair_ids, starts, counts, out, blk_off,
                               row_tile, boundary_t)
         ctx.geom = geom

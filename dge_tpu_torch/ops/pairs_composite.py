@@ -1,27 +1,37 @@
-"""Pair-stream compositing: the CUDA kernel's wrapper, its build and load,
-its plain PyTorch version, and the stream assembly.
+"""Pair-stream compositing: the CUDA kernels' wrappers, their build and
+load, their plain PyTorch versions, and the stream assembly.
 
 JAX counterpart: ``dge_tpu/ops/pallas_composite.py`` (``_pairs_kernel``,
-``composite_pairs_pallas``, ``assemble_stream_data``). The kernel is
-``dge_tpu_torch/csrc/pairs_composite.cu``; its source note states what it
-computes, the block rule it shares with the TPU kernel, and its bound.
+``composite_pairs_pallas``, ``assemble_stream_data``). The kernels are
+``dge_tpu_torch/csrc/pairs_composite.cu`` (over ``pair_rows_forward.cuh``);
+its source note states what they compute, the block rule they share with
+the TPU kernel, why the walk splits exactly, and their bounds.
 
 - ``assemble_stream_data`` gathers the 10 per-Gaussian features into stream
   order, ``[10, Pc]``. (The JAX version pads to 16 rows for the TPU's
   sublane tiling; nothing on the GPU needs the 6 zero rows.)
-- ``composite_pairs_reference`` is the plain version: a loop over the
-  chunk-aligned stream blocks with ``torch.cumprod`` inside a block, over
-  groups of tiles to bound memory.
-- ``composite_pairs_stream`` is the kernel's wrapper: it launches the
-  kernel on CUDA tensors, or raises; on CPU tensors it takes the plain
-  version. With ``boundary_rows=(blk_off, n_rows)`` both also return
-  ``boundary_T`` ``[n_rows, P]``, the committed transmittance entering each
-  (tile, stream block) row of ``pairs_backward.block_rows``: the walk holds
-  it anyway, and the backward starts every row from it.
+- ``block_rows`` lays the (tile, stream block) rows out compactly; the
+  forward's two kernels and the backward's all work on them.
+- ``composite_pairs_reference`` is the plain version of the whole function:
+  a loop over the chunk-aligned stream blocks with ``torch.cumprod`` inside
+  a block, over groups of tiles to bound memory.
+- ``rows_forward`` (row kernel → scratch ``[R, 7, P]``, each row as if
+  entered with T = 1, and a keep mask, one bit per (row, 32 pixels, pair))
+  and ``rows_combine`` (combine kernel → ``[T, 5, P]`` and optionally
+  ``boundary_T``) are the two kernels' wrappers, with plain
+  versions ``rows_forward_reference`` and ``rows_combine_reference``;
+  ``log_space=True`` selects the log-space arm K5 of tools/proto_logdot.py
+  (scratch ``[R, 8, P]``). ``combine_cases`` counts how often each of the
+  combine's three cases fires.
+- ``composite_pairs_stream`` is K1's wrapper: on CUDA tensors it launches
+  the row kernel and the combine kernel, or raises; on CPU tensors it takes
+  ``composite_pairs_reference``. With ``boundary_rows=(blk_off, n_rows)``
+  both also return ``boundary_T`` ``[n_rows, P]``, the committed
+  transmittance entering each row, from which the backward starts every row.
 - ``composite_pairs`` is the image-level function: assemble, composite
   through the wrapper or the plain version, add ``bg·T``, untile.
 
-Both versions write ``[T, 5, P]`` (rows r, g, b, depth, final T) and visit
+All versions write ``[T, 5, P]`` (rows r, g, b, depth, final T) and visit
 each chunk-aligned block of a tile's range once. The TPU wrapper clamps its
 block index to the stream's last block, so a tile whose range reaches that
 block re-runs it; the port does not copy that (ROADMAP.md §3).
@@ -43,15 +53,29 @@ FEAT = 10  # mx, my, conic a, b, c, opacity, r, g, b, depth
 
 _SRC = cuda_build.source_path("pairs_composite")
 BUILD_DIR = cuda_build.BUILD_DIR
+# the row kernel stages a row in 48 bytes a pair of shared memory: 48 KB,
+# the default a block may have, at chunk 1024
+MAX_CHUNK = 1024
+ROW_FIELDS = 7  # scratch per (row, pixel): cp_last, cp_first, j0, L (4)
 
 # kernel launches since the last reset (one per launch, counted where the
-# kernel is launched and nowhere else); pairs_pass1, pairs_suffix and
-# pairs_pass2 are the backward kernels of ops/pairs_backward.py,
-# tiles_composite the per-tile-list kernel of ops/tiles_composite.py,
-# pairs_logdot the log-space arm of tools/proto_logdot.py
-launch_counts = {"pairs_composite": 0, "pairs_pass1": 0, "pairs_suffix": 0,
-                 "pairs_pass2": 0, "tiles_composite": 0, "pairs_logdot": 0}
-_lib = None
+# kernel is launched and nowhere else): pairs_composite and
+# pairs_composite_combine are K1's row and combine kernels, pairs_logdot and
+# pairs_logdot_combine those of its log-space arm K5 (tools/proto_logdot.py);
+# pairs_pass1, pairs_suffix and pairs_pass2 are the backward kernels of
+# ops/pairs_backward.py, tiles_composite the per-tile-list kernel of
+# ops/tiles_composite.py
+launch_counts = {"pairs_composite": 0, "pairs_composite_combine": 0,
+                 "pairs_pass1": 0, "pairs_suffix": 0, "pairs_pass2": 0,
+                 "tiles_composite": 0, "pairs_logdot": 0,
+                 "pairs_logdot_combine": 0}
+# per form (log_space): library, C entries, launch counter keys
+_FORMS = {False: ("pairs_composite", "pairs_rows_forward",
+                  "pairs_rows_combine", "pairs_composite",
+                  "pairs_composite_combine"),
+          True: ("pairs_logdot", "logdot_rows_forward", "logdot_rows_combine",
+                 "pairs_logdot", "pairs_logdot_combine")}
+_libs = {}
 
 
 def reset_launch_counts() -> None:
@@ -75,14 +99,87 @@ def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac
     return feat.index_select(1, pair_ids.long()).contiguous()
 
 
+def block_rows(starts, counts, chunk: int, pc: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Compact row layout of the (tile, stream block) pairs.
+
+    A tile with range [start, start + count) touches the chunk-aligned
+    blocks start//chunk .. (end-1)//chunk. Returns ``blk_off`` [T] int32 (the
+    first row of each tile: the exclusive prefix sum of the block counts),
+    ``row_tile`` [R] int32 (the tile of each row; T marks an unused row) and
+    R = ceil(pc/chunk) + T, an upper bound of the rows in use that needs no
+    host sync (the tiles' ranges are disjoint and lie in [0, pc))."""
+    num_tiles = starts.shape[0]
+    # in int32 throughout (pc < 2**31): few small launches on the render path
+    nblk = ((starts + counts - 1) // chunk - starts // chunk + 1) * (counts > 0)
+    cum = torch.cumsum(nblk, 0, dtype=torch.int32)
+    n_rows = -(-pc // chunk) + num_tiles
+    row_tile = torch.searchsorted(
+        cum, torch.arange(n_rows, dtype=torch.int32, device=starts.device),
+        right=True, out_int32=True)
+    return cum - nblk, row_tile, n_rows
+
+
+def pixel_coords(tiles, tiles_x: int, tile_px: int, dev):
+    """Pixel coordinates of ``tiles`` [G] -> (px, py), each [G, 1, P]."""
+    pid = torch.arange(tile_px * tile_px, device=dev)
+    px = ((tiles % tiles_x) * tile_px)[:, None] + pid[None, :] % tile_px
+    py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
+    return px.float()[:, None, :], py.float()[:, None, :]
+
+
+def _block_alpha(data, idx, in_range, px, py):
+    """Features of the stream positions ``idx`` [G, C] (``f`` [FEAT, G, C,
+    1]), their alpha at the pixels ``px``/``py`` [G, 1, P] and whether each
+    (pair, pixel) is kept, both [G, C, P]."""
+    f = data[:, idx.clamp(0, data.shape[1] - 1)][..., None]
+    dx = f[0] - px
+    dy = f[1] - py
+    power = -0.5 * (f[2] * dx * dx + f[4] * dy * dy) - f[3] * dx * dy
+    alpha = torch.clamp(f[5] * torch.exp(power), max=ALPHA_MAX)
+    keep = (power <= 0.0) & (alpha >= ALPHA_EPS) & in_range[..., None]
+    return f, alpha, keep
+
+
+def _prefix(one_minus, log_space: bool):
+    """The inclusive in-block prefix of transmittance over dim 1."""
+    if log_space:
+        return torch.exp(torch.cumsum(torch.log(one_minus), dim=1))
+    return torch.cumprod(one_minus, dim=1)
+
+
+def _block_walk(f, alpha, keep, trans, log_space: bool):
+    """One block entered at ``trans`` [G, 1, P] → (rgbd added [G, 4, P],
+    the factor [G, 1, P] that takes ``trans`` to the committed T)."""
+    eff = torch.where(keep, alpha, torch.zeros_like(alpha))
+    one_minus = 1.0 - eff
+    cp = _prefix(one_minus, log_space)  # inclusive, [G, C, P]
+    applied = trans * cp >= T_EPS
+    w = torch.where(applied, eff * trans * (cp / one_minus),
+                    torch.zeros_like(cp))
+    add = torch.stack([(w * f[6 + r]).sum(dim=1) for r in range(4)], dim=1)
+    return add, torch.where(applied, cp, torch.ones_like(cp)).amin(
+        dim=1, keepdim=True)
+
+
+def _tile_blocks(starts, counts, chunk: int):
+    """Per tile: first stream position, end, first block, block count."""
+    s = starts.long()
+    e = s + counts.long()
+    first = s // chunk
+    nblk = torch.where(counts > 0, (e - 1) // chunk - first + 1,
+                       torch.zeros_like(first))
+    return s, e, first, nblk
+
+
 def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                               tile_px: int, chunk: int,
                               log_prefix: bool = False,
                               boundary_rows: Optional[Tuple[torch.Tensor,
                                                             int]] = None):
-    """Plain PyTorch version of the kernel, on any device → [T, 5, P], or
-    (that, boundary_T [n_rows, P]) with ``boundary_rows=(blk_off, n_rows)``
-    (rows not in use are 0).
+    """Plain PyTorch version of the whole forward, on any device → [T, 5, P],
+    or (that, boundary_T [n_rows, P]) with ``boundary_rows=(blk_off,
+    n_rows)`` (rows not in use are 0).
 
     Follows the block rule literally: blocks at absolute stream offsets
     ``k·chunk``; inside a block an inclusive ``torch.cumprod`` of ``1-eff``,
@@ -93,7 +190,6 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
     dev = data.device
     num_tiles = starts.shape[0]
     p = tile_px * tile_px
-    pc = data.shape[1]
     out = torch.zeros(num_tiles, 5, p, dtype=torch.float32, device=dev)
     out[:, 4] = 1.0
     boundary_t = None
@@ -104,26 +200,16 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
     def result():
         return out if boundary_t is None else (out, boundary_t)
 
-    if pc == 0:
-        return result()
-    starts = starts.long()
-    ends = starts + counts.long()
-    first = starts // chunk
-    nblk = torch.where(counts > 0, (ends - 1) // chunk - first + 1,
-                       torch.zeros_like(first))
     live = torch.nonzero(counts > 0).flatten()
-    if live.numel() == 0:
+    if data.shape[1] == 0 or live.numel() == 0:
         return result()
-    pid = torch.arange(p, device=dev)
+    starts, ends, first, nblk = _tile_blocks(starts, counts, chunk)
     slot = torch.arange(chunk, device=dev)
     # tiles per group: keep each [G, chunk, P] temporary near 2^23 floats
     group = max(1, (1 << 23) // (chunk * p))
     for g0 in range(0, live.numel(), group):
         tiles = live[g0:g0 + group]
-        px = ((tiles % tiles_x) * tile_px)[:, None] + pid[None, :] % tile_px
-        py = ((tiles // tiles_x) * tile_px)[:, None] + pid[None, :] // tile_px
-        px = px.float()[:, None, :]  # [G, 1, P]
-        py = py.float()[:, None, :]
+        px, py = pixel_coords(tiles, tiles_x, tile_px, dev)
         s, e, fb, nb = starts[tiles], ends[tiles], first[tiles], nblk[tiles]
         trans = torch.ones(tiles.numel(), 1, p, device=dev)
         acc = 0.0
@@ -134,103 +220,375 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                     trans[has, 0].detach()
             idx = (fb + k)[:, None] * chunk + slot[None, :]  # [G, C]
             in_range = (idx >= s[:, None]) & (idx < e[:, None])
-            f = data[:, idx.clamp(max=pc - 1)][..., None]  # [FEAT, G, C, 1]
-            dx = f[0] - px
-            dy = f[1] - py
-            power = -0.5 * (f[2] * dx * dx + f[4] * dy * dy) - f[3] * dx * dy
-            alpha = torch.clamp(f[5] * torch.exp(power), max=ALPHA_MAX)
-            keep = (power <= 0.0) & (alpha >= ALPHA_EPS) & in_range[..., None]
-            eff = torch.where(keep, alpha, torch.zeros_like(alpha))
-            one_minus = 1.0 - eff
-            if log_prefix:
-                cp = torch.exp(torch.cumsum(torch.log(one_minus), dim=1))
-            else:
-                cp = torch.cumprod(one_minus, dim=1)  # inclusive, [G, C, P]
-            applied = trans * cp >= T_EPS
-            w = torch.where(applied, eff * trans * (cp / one_minus),
-                            torch.zeros_like(cp))
-            acc = acc + torch.stack(
-                [(w * f[6 + r]).sum(dim=1) for r in range(4)], dim=1)
-            trans = trans * torch.where(applied, cp, torch.ones_like(cp)).amin(
-                dim=1, keepdim=True)
+            add, factor = _block_walk(*_block_alpha(data, idx, in_range, px,
+                                                    py), trans, log_prefix)
+            acc = acc + add
+            trans = trans * factor
         out[tiles, 0:4] = acc
         out[tiles, 4] = trans[:, 0]
     return result()
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("pairs_composite"))
-        lib.pairs_composite.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pairs_composite.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def mask_shape(n_rows: int, tile_px: int, chunk: int) -> Tuple[int, int, int]:
+    """[R, G, W]: groups of 32 pixels (four per 128), words of 32 pairs."""
+    return (n_rows, 4 * -(-tile_px * tile_px // 128), -(-chunk // 32))
+
+
+def pixel_groups(p: int, dev=None) -> torch.Tensor:
+    """The keep-mask group of each of a tile's ``p`` pixels, [P] int64.
+
+    The row kernel holds pixels 4·tid .. 4·tid + 3 in thread tid; group
+    4·warp + a is lanes 2a and 2a + 1 of each eight of the warp (in a tile
+    32 pixels wide, an 8x4 patch): group(q) = 4·(q // 128) + (q // 8) % 4."""
+    q = torch.arange(p, device=dev)
+    return 4 * (q // 128) + (q // 8) % 4
+
+
+def _pack_bits(bits):
+    """[..., W·32] bool → [..., W] int32, bit b of word w = bits[32w + b]."""
+    weights = torch.tensor([1 << b for b in range(32)], dtype=torch.int64,
+                           device=bits.device)
+    words = (bits.reshape(bits.shape[:-1] + (-1, 32)).long()
+             * weights).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def rows_forward_reference(data, starts, counts, blk_off, row_tile, *,
+                           tiles_x: int, tile_px: int, chunk: int,
+                           log_space: bool = False):
+    """Plain PyTorch version of the row kernel → (scratch [R, 7, P] (8 with
+    ``log_space``), keep mask [R, G, W] int32). Per (tile, stream block) row
+    and pixel, walked as if entered with T = 1: ``cp_last``, ``cp_first``,
+    ``j0`` (the first kept pair's index from the row's first stream
+    position, or the row's length), ``L`` (r, g, b, depth: the sum of
+    ``eff·cp/(1-eff)·colour`` over the applied pairs) and, in log space,
+    ``cp_min``. The walk stops at the first kept pair whose ``cp`` falls
+    below 1e-4: that pair and all later ones add nothing to ``L``, and
+    ``cp_last`` (``cp_min``) is that pair's ``cp``. Bit j of a (row, group of
+    32 pixels: ``pixel_groups``) mask word is set iff some pixel of the
+    group keeps pair j before its walk has stopped. Unused rows are 0."""
+    num_tiles = starts.shape[0]
+    p = tile_px * tile_px
+    n_rows = row_tile.shape[0]
+    scratch = torch.zeros(n_rows, ROW_FIELDS + int(log_space), p,
+                          dtype=torch.float32, device=data.device)
+    _, groups, words = mask_shape(n_rows, tile_px, chunk)
+    mask = torch.zeros(n_rows, groups, words, dtype=torch.int32,
+                       device=data.device)
+    rows = torch.nonzero(row_tile < num_tiles).flatten()
+    if data.shape[1] == 0 or rows.numel() == 0:
+        return scratch, mask
+    s_all, e_all, _, _ = _tile_blocks(starts, counts, chunk)
+    slot = torch.arange(chunk, device=data.device)
+    group = max(1, (1 << 22) // (chunk * p))
+    for g0 in range(0, rows.numel(), group):
+        r = rows[g0:g0 + group]
+        tiles = row_tile[r].long()
+        s, e = s_all[tiles], e_all[tiles]
+        base = (s // chunk + r - blk_off[tiles].long()) * chunk
+        lo = torch.maximum(s, base)
+        n = torch.minimum(e, base + chunk) - lo
+        idx = base[:, None] + slot[None, :]
+        in_range = (idx >= s[:, None]) & (idx < e[:, None])
+        px, py = pixel_coords(tiles, tiles_x, tile_px, data.device)
+        f, alpha, keep = _block_alpha(data, idx, in_range, px, py)
+        eff = torch.where(keep, alpha, torch.zeros_like(alpha))
+        one_minus = 1.0 - eff
+        cp = _prefix(one_minus, log_space)  # [G, C, P]
+        stop = keep & (cp < T_EPS)
+        n_stop = torch.cumsum(stop.int(), dim=1)
+        first_stop = stop & (n_stop == 1)
+        stopped = n_stop[:, -1] > 0
+        w = torch.where(keep & (n_stop == 0), eff * (cp / one_minus),
+                        torch.zeros_like(cp))
+        cp_last = torch.where(
+            stopped, torch.where(first_stop, cp, torch.zeros_like(cp)).sum(1),
+            cp[:, -1])
+        any_keep = keep.any(dim=1)
+        j0_slot = keep.int().argmax(dim=1)  # [G, P]
+        fields = [
+            cp_last,
+            torch.where(any_keep, cp.gather(1, j0_slot[:, None, :])[:, 0],
+                        torch.ones_like(cp_last)),
+            torch.where(any_keep, j0_slot - (lo - base)[:, None],
+                        n[:, None]).float()]
+        fields += [(w * f[6 + c]).sum(dim=1) for c in range(4)]
+        if log_space:
+            fields.append(torch.where((n_stop == 0) | first_stop, cp,
+                                      torch.full_like(cp, float("inf"))
+                                      ).amin(dim=1))
+        scratch[r] = torch.stack(fields, dim=1)
+        # the mask: slots shifted to the row's own index j = slot - (lo -
+        # base)
+        live_keep = keep & (n_stop - stop.int() == 0)  # [G, C, P]
+        by_group = torch.zeros(r.numel(), chunk, groups, dtype=torch.int32,
+                               device=data.device).index_add_(
+            2, pixel_groups(p, data.device), live_keep.int()) > 0
+        j = torch.arange(words * 32, device=data.device)
+        slot_of = j[None, :] + (lo - base)[:, None]  # [G, W·32]
+        bits = by_group.gather(1, slot_of.clamp(max=chunk - 1)[..., None]
+                               .expand(-1, -1, groups))
+        bits &= (j[None, :] < n[:, None])[..., None]
+        mask[r] = _pack_bits(bits.transpose(1, 2))
+    return scratch, mask
+
+
+def rows_combine_reference(scratch, mask, data, starts, counts, blk_off, *,
+                           tiles_x: int, tile_px: int, chunk: int,
+                           log_space: bool = False, boundary: bool = False):
+    """Plain PyTorch version of the combine kernel → [T, 5, P], or (that,
+    boundary_T [R, P]) with ``boundary`` (rows not in use are 0): per tile
+    over its rows in order from T = 1, with the row kernel's ``scratch``:
+    every kept pair applied (``T·cp_last >= 1e-4``; log space ``T·cp_min``):
+    ``rgbd += T·L``, ``T = T·cp_last``; none applied (``T·cp_first <
+    1e-4``): nothing; else the row's block walked from T as
+    ``composite_pairs_reference`` walks it (whole: the keep ``mask`` only
+    spares the kernel work and is not read here)."""
+    dev = data.device
+    num_tiles = starts.shape[0]
+    n_rows, _, p = scratch.shape
+    out = torch.zeros(num_tiles, 5, p, dtype=torch.float32, device=dev)
+    out[:, 4] = 1.0
+    boundary_t = (torch.zeros(n_rows, p, dtype=torch.float32, device=dev)
+                  if boundary else None)
+    live = torch.nonzero(counts > 0).flatten()
+    if data.shape[1] > 0 and live.numel() > 0:
+        starts_l, ends, first, nblk = _tile_blocks(starts, counts, chunk)
+        slot = torch.arange(chunk, device=dev)
+        group = max(1, (1 << 23) // (chunk * p))
+        for g0 in range(0, live.numel(), group):
+            tiles = live[g0:g0 + group]
+            px, py = pixel_coords(tiles, tiles_x, tile_px, dev)
+            s, e, fb, nb = (starts_l[tiles], ends[tiles], first[tiles],
+                            nblk[tiles])
+            row0 = blk_off[tiles].long()
+            trans = torch.ones(tiles.numel(), p, device=dev)
+            acc = torch.zeros(tiles.numel(), 4, p, device=dev)
+            for k in range(int(nb.max())):
+                has = (k < nb)[:, None]
+                if boundary_t is not None:
+                    boundary_t[(row0 + k)[has[:, 0]]] = trans[has[:, 0]]
+                sc = scratch[(row0 + k).clamp(max=n_rows - 1)]
+                cp_last = sc[:, 0]
+                every = has & (trans * (sc[:, 7] if log_space else cp_last)
+                               >= T_EPS)
+                walk = has & ~every & (trans * sc[:, 1] >= T_EPS)
+                new_acc = torch.where(every[:, None],
+                                      acc + trans[:, None] * sc[:, 3:7], acc)
+                new_trans = torch.where(every, trans * cp_last, trans)
+                wt = torch.nonzero(walk.any(dim=1)).flatten()
+                if wt.numel():
+                    idx = (fb[wt] + k)[:, None] * chunk + slot[None, :]
+                    in_range = (idx >= s[wt, None]) & (idx < e[wt, None])
+                    add, factor = _block_walk(
+                        *_block_alpha(data, idx, in_range, px[wt], py[wt]),
+                        trans[wt, None], log_space)
+                    wm = walk[wt]
+                    new_acc[wt] = torch.where(wm[:, None], acc[wt] + add,
+                                              new_acc[wt])
+                    new_trans[wt] = torch.where(wm, trans[wt] * factor[:, 0],
+                                                new_trans[wt])
+                acc, trans = new_acc, new_trans
+            out[tiles, 0:4] = acc
+            out[tiles, 4] = trans
+    return out if boundary_t is None else (out, boundary_t)
+
+
+def combine_cases(scratch, boundary_t, row_tile, num_tiles: int, *,
+                  log_space: bool = False) -> dict:
+    """How often each case of the combine fired over the rows in use, from
+    the row kernel's scratch and the T entering each row: ``empty`` (no kept
+    pair), ``all`` (every kept pair applied), ``none`` (the first kept pair
+    refused) and ``walk`` (the row walked again from the entering T), in
+    (row, pixel) visits."""
+    used = row_tile < num_tiles
+    sc, tb = scratch[used], boundary_t[used]
+    empty = sc[:, 1] == 1.0
+    every = ~empty & (tb * sc[:, 7 if log_space else 0] >= T_EPS)
+    none = ~empty & ~every & ~(tb * sc[:, 1] >= T_EPS)
+    walk = ~empty & ~every & ~none
+    return {k: int(v.sum()) for k, v in (("empty", empty), ("all", every),
+                                         ("none", none), ("walk", walk))}
+
+
+def _load(log_space: bool):
+    if log_space not in _libs:
+        name, fwd, combine = _FORMS[log_space][:3]
+        lib = ctypes.CDLL(cuda_build.build_library(name))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        getattr(lib, fwd).argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
+                                      i32, i32, i32, ptr, ptr, ptr]
+        getattr(lib, combine).argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr,
+                                          i32, i32, i32, i32, ptr, ptr, ptr]
+        getattr(lib, fwd).restype = getattr(lib, combine).restype = i32
+        _libs[log_space] = lib
+    return _libs[log_space]
+
+
+def check_args(name: str, tensors, data, num_tiles: int, tile_px: int,
+               chunk: int) -> bool:
+    """Shared argument checks; returns True when every tensor is on the CPU
+    (the plain version runs) and False when all share one CUDA device."""
+    for what, t, dtype in tensors:
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
+                             f"tensor, got {t.dtype}")
+    if data.dim() != 2 or data.shape[0] != FEAT:
+        raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
+    for what, t, _ in tensors:
+        if what in ("starts", "counts", "blk_off") and \
+                t.shape != (num_tiles,):
+            raise ValueError("starts, counts and blk_off must be [T] each")
+    devices = {t.device for _, t, _ in tensors}
+    if devices == {torch.device("cpu")}:
+        return True
+    if len(devices) != 1 or data.device.type != "cuda":
+        raise ValueError(f"{name}: all tensors must share one CUDA device, "
+                         f"got {devices}")
+    if not 1 <= tile_px <= 32:
+        raise ValueError(f"tile_px {tile_px}: four pixels a thread, 256 "
+                         "threads a block need tile_px**2 <= 1024")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
+    if data.shape[1] >= 2 ** 31:
+        raise ValueError("stream too long for int32 offsets")
+    return False
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def rows_forward(data, starts, counts, blk_off, row_tile, *, tiles_x: int,
+                 tile_px: int, chunk: int, log_space: bool = False):
+    """The row kernel's wrapper → (scratch [R, 7, P] (8 with
+    ``log_space``), keep mask [R, G, W] int32; rows not in use are left
+    unwritten on the card). On CUDA tensors it launches K1's row kernel
+    (K5's with ``log_space``), or raises; on CPU tensors it takes
+    ``rows_forward_reference``."""
+    f32, i32 = torch.float32, torch.int32
+    num_tiles = starts.shape[0]
+    on_cpu = check_args("rows_forward", (
+        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
+        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32)), data,
+        num_tiles, tile_px, chunk)
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk,
+              log_space=log_space)
+    if on_cpu:
+        return rows_forward_reference(data, starts, counts, blk_off,
+                                      row_tile, **kw)
+    lib = _load(log_space)
+    _, fwd, _, key, _ = _FORMS[log_space]
+    n_rows = row_tile.shape[0]
+    scratch = torch.empty(n_rows, ROW_FIELDS + int(log_space),
+                          tile_px * tile_px, dtype=f32, device=data.device)
+    mask = torch.empty(mask_shape(n_rows, tile_px, chunk), dtype=i32,
+                       device=data.device)
+    with torch.cuda.device(data.device):
+        err = getattr(lib, fwd)(
+            data.data_ptr(), data.shape[1], starts.data_ptr(),
+            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
+            n_rows, num_tiles, tiles_x, tile_px, chunk, scratch.data_ptr(),
+            mask.data_ptr(), _stream(data))
+    if err != 0:
+        raise RuntimeError(f"{fwd} launch failed: cudaError {err}")
+    launch_counts[key] += 1
+    return scratch, mask
+
+
+def rows_combine(scratch, mask, data, starts, counts, blk_off, *,
+                 tiles_x: int,
+                 tile_px: int, chunk: int, log_space: bool = False,
+                 boundary: bool = False):
+    """The combine kernel's wrapper → [T, 5, P], or (that, boundary_T
+    [R, P]) with ``boundary`` (rows not in use are left unwritten on the
+    card). On CUDA tensors it launches K1's combine kernel (K5's with
+    ``log_space``), or raises; on CPU tensors it takes
+    ``rows_combine_reference``."""
+    f32, i32 = torch.float32, torch.int32
+    num_tiles = starts.shape[0]
+    on_cpu = check_args("rows_combine", (
+        ("scratch", scratch, f32), ("mask", mask, i32), ("data", data, f32),
+        ("starts", starts, i32), ("counts", counts, i32),
+        ("blk_off", blk_off, i32)), data, num_tiles, tile_px, chunk)
+    p = tile_px * tile_px
+    if scratch.dim() != 3 or scratch.shape[1:] != (
+            ROW_FIELDS + int(log_space), p):
+        raise ValueError(f"scratch must be [R, {ROW_FIELDS + int(log_space)}"
+                         f", P], got {tuple(scratch.shape)}")
+    if mask.shape != mask_shape(scratch.shape[0], tile_px, chunk):
+        raise ValueError(f"mask must be [R, G, W], got {tuple(mask.shape)}")
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk,
+              log_space=log_space, boundary=boundary)
+    if on_cpu:
+        return rows_combine_reference(scratch, mask, data, starts, counts,
+                                      blk_off, **kw)
+    lib = _load(log_space)
+    _, _, combine, _, key = _FORMS[log_space]
+    out = torch.empty(num_tiles, 5, p, dtype=f32, device=data.device)
+    boundary_t = (torch.empty(scratch.shape[0], p, dtype=f32,
+                              device=data.device) if boundary else None)
+    with torch.cuda.device(data.device):
+        err = getattr(lib, combine)(
+            scratch.data_ptr(), mask.data_ptr(), data.data_ptr(),
+            data.shape[1],
+            starts.data_ptr(), counts.data_ptr(), blk_off.data_ptr(),
+            num_tiles, tiles_x, tile_px, chunk, out.data_ptr(),
+            None if boundary_t is None else boundary_t.data_ptr(),
+            _stream(data))
+    if err != 0:
+        raise RuntimeError(f"{combine} launch failed: cudaError {err}")
+    launch_counts[key] += 1
+    return out if boundary_t is None else (out, boundary_t)
+
+
+def composite_rows(data, starts, counts, *, tiles_x: int, tile_px: int,
+                   chunk: int, log_space: bool = False,
+                   boundary_rows: Optional[Tuple[torch.Tensor, int]] = None,
+                   row_tile: Optional[torch.Tensor] = None):
+    """The row kernel then the combine kernel on CUDA tensors → [T, 5, P],
+    or (that, boundary_T [n_rows, P]) with ``boundary_rows=(blk_off,
+    n_rows)``. ``row_tile`` is ``block_rows``' when the caller has it."""
+    if boundary_rows is None or row_tile is None:
+        blk_off, rt, n_rows = block_rows(starts, counts, chunk, data.shape[1])
+        row_tile = rt if row_tile is None else row_tile
+    if boundary_rows is not None:
+        blk_off, n_rows = boundary_rows
+    if row_tile.shape != (n_rows,):
+        raise ValueError(f"row_tile must be [{n_rows}] (block_rows)")
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk,
+              log_space=log_space)
+    scratch, mask = rows_forward(data, starts, counts, blk_off, row_tile,
+                                 **kw)
+    return rows_combine(scratch, mask, data, starts, counts, blk_off,
+                        boundary=boundary_rows is not None, **kw)
 
 
 def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
                            tile_px: int, chunk: int,
                            boundary_rows: Optional[Tuple[torch.Tensor,
-                                                         int]] = None):
-    """The kernel's wrapper → [T, 5, P], or (that, boundary_T [n_rows, P])
-    with ``boundary_rows=(blk_off, n_rows)`` (the kernel leaves rows not in
-    use unwritten). On CUDA tensors it launches the kernel, or raises on
-    anything the kernel does not take; it never falls back. On CPU tensors,
-    where no kernel runs, it takes the plain version."""
+                                                         int]] = None,
+                           row_tile: Optional[torch.Tensor] = None):
+    """K1's wrapper → [T, 5, P], or (that, boundary_T [n_rows, P]) with
+    ``boundary_rows=(blk_off, n_rows)`` (the combine kernel leaves rows not
+    in use unwritten). On CUDA tensors it launches the row kernel and the
+    combine kernel, or raises on anything they do not take; it never falls
+    back. On CPU tensors, where no kernel runs, it takes the plain version.
+    ``row_tile`` is ``block_rows``' when the caller has it."""
     num_tiles = starts.shape[0]
     checked = [("data", data, torch.float32), ("starts", starts, torch.int32),
                ("counts", counts, torch.int32)]
     if boundary_rows is not None:
         checked.append(("blk_off", boundary_rows[0], torch.int32))
-        if boundary_rows[0].shape != (num_tiles,):
-            raise ValueError("blk_off must be [T]")
-    for name, t, dtype in checked:
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"composite_pairs_stream: {name} must be a "
-                             f"contiguous {dtype} tensor, got {t.dtype}")
-    if data.dim() != 2 or data.shape[0] != FEAT:
-        raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
-    if counts.shape != (num_tiles,) or starts.dim() != 1:
-        raise ValueError("starts and counts must be [T] each")
-    devices = {t.device for _, t, _ in checked}
-    if devices == {torch.device("cpu")}:
+    if check_args("composite_pairs_stream", checked, data, num_tiles, tile_px,
+              chunk):
         return composite_pairs_reference(data, starts, counts, tiles_x=tiles_x,
                                          tile_px=tile_px, chunk=chunk,
                                          boundary_rows=boundary_rows)
-    if len(devices) != 1 or data.device.type != "cuda":
-        raise ValueError("composite_pairs_stream: all tensors must share "
-                         f"one CUDA device, got {devices}")
-    if not 1 <= tile_px <= 32:
-        raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
-                         "tile_px**2 <= 1024")
-    if not 1 <= chunk <= 1024:
-        raise ValueError(f"chunk {chunk} outside [1, 1024]")
-    if data.shape[1] >= 2 ** 31:
-        raise ValueError("stream too long for int32 offsets")
-    lib = _load()
-    out = torch.empty(num_tiles, 5, tile_px * tile_px, dtype=torch.float32,
-                      device=data.device)
-    blk_off = boundary_t = None
-    if boundary_rows is not None:
-        blk_off = boundary_rows[0]
-        boundary_t = torch.empty(boundary_rows[1], tile_px * tile_px,
-                                 dtype=torch.float32, device=data.device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pairs_composite(
-            data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
-            out.data_ptr(),
-            None if blk_off is None else blk_off.data_ptr(),
-            None if boundary_t is None else boundary_t.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_composite launch failed: cudaError {err}")
-    launch_counts["pairs_composite"] += 1
-    return out if boundary_t is None else (out, boundary_t)
+    return composite_rows(data, starts, counts, tiles_x=tiles_x,
+                          tile_px=tile_px, chunk=chunk,
+                          boundary_rows=boundary_rows, row_tile=row_tile)
 
 
 def untile(x: torch.Tensor, tiles_x: int, tiles_y: int, tile_px: int,

@@ -11,10 +11,13 @@ kernel is redesigned. The tool's other two modes (``roll``, ``two_level``)
 are two ways to form the same cumprod on the TPU and have no kernel of their
 own here: on this card ``pairs_composite.cu`` already is that function.
 
-The log-space kernel is ``dge_tpu_torch/csrc/pairs_logdot.cu``;
-``composite_pairs_logdot`` is its wrapper (CUDA tensors: the kernel or an
+The log-space kernels are ``dge_tpu_torch/csrc/pairs_logdot.cu`` (K1's row
++ combine split in log space, ``pair_rows_forward.cuh``);
+``composite_pairs_logdot`` is their wrapper (CUDA tensors: the kernels or an
 error; CPU tensors: the plain version) and
-``composite_pairs_logdot_reference`` its plain PyTorch version.
+``composite_pairs_logdot_reference`` its plain PyTorch version; the plain
+versions of each kernel alone are ``pairs_composite.rows_forward_reference``
+and ``rows_combine_reference`` with ``log_space=True``.
 
 Usage:
   python -m dge_tpu_torch.tools.proto_logdot [--ply scene.ply]
@@ -28,14 +31,12 @@ their CUDA-event times and max|dcolor|, and returns the numbers. With
 from __future__ import annotations
 
 import argparse
-import ctypes
 import math
 import os
 import statistics
 
 import torch
 
-from dge_tpu_torch.ops import cuda_build
 from dge_tpu_torch.ops import pairs_composite as PC
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -43,8 +44,6 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 BENCH_PLY = os.path.join(_REPO, "outputs", "bench_scene", "point_cloud.ply")
 # agreement with the production kernel and with the plain version
 TOL = {"color": 1e-4, "depth": 1e-3, "trans": 2e-4}
-
-_lib = None
 
 
 def composite_pairs_logdot_reference(data, starts, counts, *, tiles_x: int,
@@ -57,66 +56,20 @@ def composite_pairs_logdot_reference(data, starts, counts, *, tiles_x: int,
                                         log_prefix=True)
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("pairs_logdot"))
-        lib.pairs_logdot.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.pairs_logdot.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
-
 def composite_pairs_logdot(data, starts, counts, *, tiles_x: int,
                            tile_px: int, chunk: int) -> torch.Tensor:
-    """The log-space kernel's wrapper → [T, 5, P], with the contract of
+    """The log-space kernels' wrapper → [T, 5, P], with the contract of
     ``pairs_composite.composite_pairs_stream``: on CUDA tensors it launches
-    the kernel or raises, and never falls back; on CPU tensors it takes the
-    plain version."""
-    num_tiles = starts.shape[0]
-    for name, t, dtype in (("data", data, torch.float32),
-                           ("starts", starts, torch.int32),
-                           ("counts", counts, torch.int32)):
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"composite_pairs_logdot: {name} must be a "
-                             f"contiguous {dtype} tensor, got {t.dtype}")
-    if data.dim() != 2 or data.shape[0] != PC.FEAT:
-        raise ValueError(
-            f"data must be [{PC.FEAT}, Pc], got {tuple(data.shape)}")
-    if counts.shape != (num_tiles,) or starts.dim() != 1:
-        raise ValueError("starts and counts must be [T] each")
-    devices = {data.device, starts.device, counts.device}
-    if devices == {torch.device("cpu")}:
-        return composite_pairs_logdot_reference(
-            data, starts, counts, tiles_x=tiles_x, tile_px=tile_px,
-            chunk=chunk)
-    if len(devices) != 1 or data.device.type != "cuda":
-        raise ValueError("composite_pairs_logdot: data, starts and counts "
-                         f"must share one CUDA device, got {devices}")
-    if not 1 <= tile_px <= 32:
-        raise ValueError(f"tile_px {tile_px}: one thread per pixel needs "
-                         "tile_px**2 <= 1024")
-    if not 1 <= chunk <= 1024:
-        raise ValueError(f"chunk {chunk} outside [1, 1024]")
-    if data.shape[1] >= 2 ** 31:
-        raise ValueError("stream too long for int32 offsets")
-    lib = _load()
-    out = torch.empty(num_tiles, 5, tile_px * tile_px, dtype=torch.float32,
-                      device=data.device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pairs_logdot(
-            data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
-            out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_logdot launch failed: cudaError {err}")
-    PC.launch_counts["pairs_logdot"] += 1
-    return out
+    K5's row kernel and its combine kernel or raises, and never falls back;
+    on CPU tensors it takes the plain version."""
+    on_cpu = PC.check_args("composite_pairs_logdot", (
+        ("data", data, torch.float32), ("starts", starts, torch.int32),
+        ("counts", counts, torch.int32)), data, starts.shape[0], tile_px,
+        chunk)
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    if on_cpu:
+        return composite_pairs_logdot_reference(data, starts, counts, **kw)
+    return PC.composite_rows(data, starts, counts, log_space=True, **kw)
 
 
 def _cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:

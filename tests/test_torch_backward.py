@@ -270,8 +270,10 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
     ts = to_port(make_random_scene(rng, n=24))
     cam, _ = make_test_camera(height=32, width=32)
     before = dict(TPC.launch_counts)
-    assert set(before) == {"pairs_composite", "pairs_pass1", "pairs_suffix",
-                           "pairs_pass2", "tiles_composite", "pairs_logdot"}
+    assert set(before) == {"pairs_composite", "pairs_composite_combine",
+                           "pairs_pass1", "pairs_suffix", "pairs_pass2",
+                           "tiles_composite", "pairs_logdot",
+                           "pairs_logdot_combine"}
     xyz = ts.xyz.clone().requires_grad_(True)
     out = TR.render(ts.replace(xyz=xyz), CameraArrays.from_camera(cam, "cpu"),
                     tile_px=16, backend="cuda_train")

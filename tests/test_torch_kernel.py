@@ -1,16 +1,19 @@
 """The CUDA kernels of the PyTorch port (forward compositing over the pair
-stream, backward pass 1, suffix and pass 2, forward compositing over
-per-tile lists, the log-space arm of the stream kernel): their wrappers' checks on the CPU,
-and each kernel against its plain version on a card (marked ``gpu``; skips
-without a card). This file imports neither JAX nor the JAX package, so the
-card's machine runs it without them:
+stream: its row kernel and its combine kernel, backward pass 1, suffix and
+pass 2, forward compositing over per-tile lists, the log-space arm of the
+stream kernel): their wrappers' checks on the CPU, and each kernel against
+its plain version on a card (marked ``gpu``; skips without a card). This
+file imports neither JAX nor the JAX package, so the card's machine runs it
+without them:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernel.py
 
-Tolerances: colour 1e-4, depth 1e-3, final T and boundary T 2e-4 (f32
-rounding: the kernels walk pairs one by one, the plain versions use
-torch.cumprod); row totals, suffix sums and gradients 2e-3·max + 1e-7 per
-field (the pixel sums run in another order: four pixels a thread, a warp
+Tolerances: colour 1e-4, depth 1e-3, final T, boundary T and the forward's
+prefix fields 2e-4 (f32 rounding: the kernels walk pairs one by one, the
+plain versions use torch.cumprod; the forward row kernel's first kept pair
+may differ in one visit in a thousand, where an alpha rounds across
+1/255); row totals, suffix sums and gradients 2e-3·max + 1e-7 per field
+(the pixel sums run in another order: four pixels a thread, a warp
 butterfly, then the warps' partial sums in warp order)."""
 
 import os
@@ -329,6 +332,126 @@ def test_refused_launch_raises_on_card(monkeypatch):
         TPB.pairs_pass2(*args, **dict(k["kw"], chunk=1024))
     assert TPC.launch_counts["pairs_pass2"] == before
     assert torch.equal(TPB.pairs_pass2(*args, **k["kw"]), grads)
+
+
+def card_forward_case(seed, tile_px, chunk, num_tiles=8):
+    """A random stream on the card with its row layout."""
+    rng = np.random.default_rng(seed)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(
+        rng, num_tiles, tile_px, tail=3)
+    dev = torch.device("cuda")
+    data = TPC.assemble_stream_data(*(torch.from_numpy(x).to(dev)
+                                      for x in (ids, m, c, r, d, o)))
+    st = torch.from_numpy(starts).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    blk_off, row_tile, n_rows = TPC.block_rows(st, ct, chunk, data.shape[1])
+    return dict(args=(data, st, ct, blk_off), row_tile=row_tile,
+                n_rows=n_rows, used=row_tile < num_tiles,
+                kw=dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk))
+
+
+def assert_forward_close(got, want):
+    err = (got - want).abs()
+    assert float(err[:, 0:3].max()) <= 1e-4
+    assert float(err[:, 3].max()) <= 1e-3
+    assert float(err[:, 4].max()) <= 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log_space", [False, True])
+@pytest.mark.parametrize("chunk", [128, 256, 512])
+@pytest.mark.parametrize("tile_px", [8, 16, 32])
+def test_forward_row_and_combine_kernels_match_plain_on_card(
+        tile_px, chunk, log_space):
+    """K1's (K5's) row kernel and combine kernel each against its plain
+    version: the scratch field by field (L where it is read: a prefix of at
+    least 1e-4 in both) and the keep mask, the combine on the kernel's
+    scratch and mask, boundary T;
+    two launches of each give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    k = card_forward_case(21, tile_px, chunk)
+    kw = dict(k["kw"], log_space=log_space)
+    used = k["used"]
+    keys = ("pairs_logdot", "pairs_logdot_combine") if log_space else (
+        "pairs_composite", "pairs_composite_combine")
+    before = dict(TPC.launch_counts)
+    scratch, mask = TPC.rows_forward(*k["args"], k["row_tile"], **kw)
+    out, bt = TPC.rows_combine(scratch, mask, *k["args"], boundary=True, **kw)
+    torch.cuda.synchronize()
+    assert TPC.launch_counts[keys[0]] == before[keys[0]] + 1
+    assert TPC.launch_counts[keys[1]] == before[keys[1]] + 1
+    want, want_mask = TPC.rows_forward_reference(*k["args"], k["row_tile"],
+                                                 **kw)
+    assert float((mask[used] != want_mask[used]).float().mean()) <= 1e-3
+    got, want = scratch[used], want[used]
+    read = (got[:, 0] >= 1e-4) & (want[:, 0] >= 1e-4)
+    assert float((got[:, 0:2] - want[:, 0:2]).abs().max()) <= 2e-4
+    assert float((got[:, 2] != want[:, 2]).float().mean()) <= 1e-3  # j0
+    for f, tol in ((3, 1e-4), (4, 1e-4), (5, 1e-4), (6, 1e-3)):
+        assert float((got[:, f] - want[:, f])[read].abs().max()) <= tol
+    out_p, bt_p = TPC.rows_combine_reference(scratch, mask, *k["args"],
+                                             boundary=True, **kw)
+    assert_forward_close(out, out_p)
+    assert float((bt[used] - bt_p[used]).abs().max()) <= 2e-4
+    whole = TPC.composite_pairs_reference(*k["args"][:3], log_prefix=log_space,
+                                          **k["kw"])
+    assert_forward_close(out, whole)
+    s2, m2 = TPC.rows_forward(*k["args"], k["row_tile"], **kw)
+    assert torch.equal(s2[used], scratch[used])
+    assert torch.equal(m2[used], mask[used])
+    again, bt_again = TPC.rows_combine(scratch, mask, *k["args"],
+                                       boundary=True, **kw)
+    assert torch.equal(again, out) and torch.equal(bt_again[used], bt[used])
+
+
+@pytest.mark.gpu
+def test_forward_kernels_nan_saturation_and_refusal_on_card(monkeypatch):
+    """A NaN colour gives NaN where the plain version has it; a saturating
+    stream takes all three combine cases; a chunk whose row stage exceeds
+    what a block may have is refused by the card and the wrapper raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    feat = torch.zeros(10, 8)
+    feat[0:2] = 8.0
+    feat[5] = 0.3
+    feat[6:9] = 0.5
+    feat[9] = 1.0
+    feat[6, 2] = float("nan")
+    st = torch.zeros(1, dtype=torch.int32, device=dev)
+    ct = torch.full((1,), 5, dtype=torch.int32, device=dev)
+    kw = dict(tiles_x=1, tile_px=16, chunk=128)
+    got = TPC.composite_pairs_stream(feat.to(dev), st, ct, **kw)
+    want = TPC.composite_pairs_reference(feat.to(dev), st, ct, **kw)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(got[0, 0].isnan().all())
+    assert_forward_close(got.nan_to_num(), want.nan_to_num())
+
+    rows = [[0.5], [0.9] * 5, [0.99], [0.0, 0.0, 0.5], [0.0]]
+    sat = torch.zeros(10, 128 * len(rows))
+    sat[0:2] = 8.0
+    sat[6] = 1.0
+    sat[9] = 2.0
+    for r, ops in enumerate(rows):
+        sat[5, 128 * r:128 * r + len(ops)] = torch.tensor(ops)
+    data = sat.to(dev).contiguous()
+    ct = torch.full((1,), data.shape[1], dtype=torch.int32, device=dev)
+    blk_off, row_tile, n_rows = TPC.block_rows(st, ct, 128, data.shape[1])
+    scratch, mask = TPC.rows_forward(data, st, ct, blk_off, row_tile, **kw)
+    out, bt = TPC.rows_combine(scratch, mask, data, st, ct, blk_off,
+                               boundary=True, **kw)
+    assert_forward_close(out, TPC.composite_pairs_reference(data, st, ct,
+                                                            **kw))
+    assert TPC.combine_cases(scratch, bt, row_tile, 1) == {
+        "empty": 256, "all": 512, "none": 256, "walk": 256}
+
+    monkeypatch.setattr(TPC, "MAX_CHUNK", 4096)
+    before = TPC.launch_counts["pairs_composite"]
+    with pytest.raises(RuntimeError, match="pairs_rows_forward launch failed"):
+        TPC.composite_pairs_stream(data, st, ct, **dict(kw, chunk=2048))
+    assert TPC.launch_counts["pairs_composite"] == before
+    assert torch.equal(TPC.composite_pairs_stream(data, st, ct, **kw), out)
 
 
 def random_lists(rng, num_tiles, k):
