@@ -26,8 +26,12 @@ process per source, started together) and runs:
    the whole ``stream_composite`` backward against autograd through the
    plain forward (per-Gaussian gradients within 2e-3·max|g| + 1e-7 per
    field) at the same tiles and chunks;
-   the per-tile-list kernel (K2) on the list form of the fixture and on the
-   random scene's lists at chunk 128 and 256, with and without ``order``;
+   the per-tile-list kernel (K2: its lists as a chunk-aligned stream
+   through K1's row and combine kernels) on the list form of the fixture
+   and on the random scene's lists at tile 32, 16 and 8 and chunk 128, 256
+   and 512, with and without ``order`` (colour 1e-5, depth 2e-5, final T
+   5e-6; its counter and K1's two advance by one a call; a repeat gives
+   the same bits), a NaN colour and a launch the card refuses;
    the later phases hold the kernels against the plain versions on their
    streams too;
 2. the render path: ``dge_tpu_torch.launch --render`` of the quality-gate
@@ -43,23 +47,32 @@ process per source, started together) and runs:
    256^2 (SH degree 3, 1,200 steps, seed 0), counters set to 0 just before
    and read just after, then the saved PLY rendered spill-free over the 16
    views; every loss finite, at least one launch per step of each of K1's
-   two kernels and of K3, suffix and K4, more than 8,000 Gaussians alive,
-   train PSNR (last 100 steps) and evaluation PSNR at least 30 dB;
+   two kernels and of K3, suffix, K4 and the ordered fold, more than 8,000
+   Gaussians alive, train PSNR (last 100 steps) and evaluation PSNR at
+   least 30 dB; the fold at the fit's view 0 (bit-identical repeats and
+   plain version, ``index_add_`` within 1e-5·max|g|, times); then two
+   700-step fits with seed 0, which must log the same losses and alive
+   counts and save the same PLY;
 5. full width, training: on the bench scene at 512^2 with a seeded random
    target and ``lambda_dssim=0``: K3 and K4 against their plain versions,
    CUDA-event times of K1 (with and without the ``boundary_T`` store), K3
    (both routes), the suffix kernel and K4 alone, of the stages of a train
-   step, of forward + backward of ``render`` and of a whole train step;
+   step, of forward + backward of ``render`` and of a whole train step; the
+   fold as in phase 4; two forward + backward passes of one step give
+   bit-identical gradients in every parameter group;
 6. the evaluation path: ``dge_tpu_torch.launch --validate`` of the
    quality-gate scene over the capture at 256^2, in-process, twice: on the
    default backend (K1) and with ``--backend cuda_tiles`` (per-tile lists,
    K2), counters set to 0 before each; spill 0 and mean PSNR at least 41.5
-   dB in both, the two within 0.02 dB, SSIM finite, K2 launched at least
-   once per view and K1 never in the second run; ``--export`` with an
-   8-frame orbit; the mask lift (``render_weights``) over the 16 views; K2
-   at the path's shapes and, on the bench scene, at 512^2 and 1920x1080
-   (whole ``cuda_tiles`` render, list binning, kernel, plain version, bound,
-   image against ``cuda_stream``); and the K1-vs-K5 tool
+   dB in both, the two within 0.02 dB, SSIM and LPIPS finite, K2 launched
+   at least once per view and K1's two kernels exactly as often as K2 in
+   the second run; ``--export`` with an 8-frame orbit; the mask lift
+   (``render_weights``) over the 16 views; K2 at the path's shapes, then
+   LPIPS at 256^2 (ms a view, card against CPU within 1e-4 relative), and
+   K2 on the bench scene at 512^2 and 1920x1080 (whole ``cuda_tiles``
+   render, list binning, the wrapper's event time and the device time of
+   its kernels, its layout's row-count read and gather apart, plain
+   version, bound, image against ``cuda_stream``); and the K1-vs-K5 tool
    (``dge_tpu_torch.tools.proto_logdot``) at 512^2, counters set to 0
    before it.
 
@@ -105,6 +118,9 @@ FLOPS_PASS2 = 70
 GRAD_TOL = 2e-3  # x max|reference| + 1e-7, per field
 FLOPS_LOGDOT = 27  # K1's count plus one log and one exp per (pair, pixel)
 FIT_STEPS = 1200
+# two same-seed fits of this length pass the densify steps 500 and 600 (the
+# final step densifies nothing)
+REPRO_STEPS = 700
 FIT_PSNR_MIN = 30.0
 BACKENDS_PSNR_TOL = 0.02  # dB between the stream and the list validate run
 # list image against stream image, both spill-free. The two binnings keep
@@ -123,8 +139,8 @@ STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_pairs=3 << 18, big_capacity=16384)
 ALL_PHASES = {1, 2, 3, 4, 5, 6}
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
-                "pairs_suffix", "pairs_pass2", "tiles_composite",
-                "pairs_logdot", "pairs_logdot_combine")
+                "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
+                "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
 # the forward's two kernels per form (csrc/pair_rows_forward.cuh): counter
 # keys and the profiler's kernel names
 FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
@@ -133,7 +149,14 @@ FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
                  True: ("pairs_logdot", "pairs_logdot_combine",
                         "rows_forward_kernel<true>",
                         "rows_combine_kernel<true>")}
-BACKWARD_KERNELS = ("pairs_pass1", "pairs_suffix", "pairs_pass2")
+BACKWARD_KERNELS = ("pairs_pass1", "pairs_suffix", "pairs_pass2",
+                    "pairs_fold")
+# K2 runs its layout kernel, then K1's row and combine kernels over its
+# aligned list stream: a call advances these four counters by one each
+K2_COUNTERS = ("list_stream", "tiles_composite") + FORWARD_FORMS[False][:2]
+# K2 against its plain version (composite_lists): the two differ only in
+# where T is multiplied in, f32 rounding
+K2_TOL = {"color": 1e-5, "depth": 2e-5, "trans": 5e-6}
 
 
 def log(msg: str) -> None:
@@ -670,6 +693,75 @@ def backward_times(a, plain_reps: int = 2):
     return out
 
 
+def fold_cell(a, pair_ids, num_gaussians: int, what: str) -> dict:
+    """The ordered fold on one stream's pass-2 gradients: two launches
+    bit-identical and equal to its plain version (the same adds in the same
+    order) bit for bit, within 1e-5·max|g| of ``index_add_`` (whose atomics
+    add in another order); CUDA-event and device times of the fold (sort,
+    segments and kernel; the kernel alone), of its plain version and of
+    ``index_add_``, the library call that computes the same function; its
+    bound (bytes: the used positions' gradients and ids read, [10, N]
+    written)."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_backward as PB
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    pair_grads = PB.pairs_pass2(
+        a["data"], a["starts"], a["counts"], a["blk_off"], a["row_tile"],
+        a["cot"], a["fwd"], a["boundary_t"], a["suffix"], **a["kw"])
+    # as stream_backward calls it: the stream's tail past the last range out
+    used = (a["starts"] + a["counts"]).max()
+
+    def fold():
+        return PB.fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used)
+
+    before = dict(PC.launch_counts)
+    got = fold()
+    torch.cuda.synchronize()
+    for k in PC.launch_counts:
+        if PC.launch_counts[k] != before[k] + (k == "pairs_fold"):
+            raise AssertionError(f"{what} fold: launch counter {k} advanced")
+    again = fold()
+    perm, seg = PB.fold_segments(pair_ids, num_gaussians, used)
+    plain = PB.fold_reference(pair_grads, perm, seg)
+
+    def index_add():
+        return torch.zeros_like(got).index_add_(1, pair_ids.long(),
+                                                pair_grads)
+
+    scale = float(pair_grads.abs().max())
+    e_lib = float((got - index_add()).abs().max())
+    e_plain = float((got - plain).abs().max())
+    if not (torch.equal(got, again) and torch.equal(got, plain)
+            and e_lib <= 1e-5 * scale):
+        raise AssertionError(f"{what} fold: repeat {torch.equal(got, again)}"
+                             f", vs plain {e_plain}, vs index_add_ {e_lib} "
+                             f"(max|g| {scale})")
+    pc = pair_ids.numel()
+    # the function's bytes: the gradients and ids of the positions before
+    # ``used`` read, [10, N] written (the sentinel tail past ``used``, the
+    # int64 permutation and the segments are the design's own)
+    n_used = int(used)
+    t_bytes = (n_used * 44 + num_gaussians * 40) / HBM_BYTES_PER_S
+    t_ops = n_used * 10 / F32_FLOPS
+    res = dict(
+        pairs=pc, used=int(used), longest_segment=int((seg[1:] - seg[:-1])
+                                                      .max()),
+        gaussians=num_gaussians, ms=cuda_ms(fold, reps=20),
+        device_ms=sum_device_ms(fold),
+        kernel_device_ms=kernel_device_ms(fold, dict(k="fold_kernel"))["k"],
+        plain_ms=cuda_ms(lambda: PB.fold_reference(pair_grads, perm, seg),
+                         reps=3, warmup=1),
+        library_ms=cuda_ms(index_add, reps=20),
+        library_device_ms=sum_device_ms(index_add),
+        bound_ms=max(t_bytes, t_ops) * 1e3,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        max_abs_err=e_plain, vs_index_add_rel=e_lib / max(scale, 1e-30))
+    log(f"  {what} fold: {res}")
+    return res
+
+
 def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64,
                                 tile_px: int = 32):
     """The whole stream_composite backward (K1 forward, K3 + K4 + fold)
@@ -721,6 +813,43 @@ def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64,
             f"rel err {r:.3e}")
         worst = max(worst, r)
     return worst
+
+
+def same_seed_fits(launch) -> dict:
+    """Two ``--fit`` runs with seed 0, past the second densify (steps 500
+    and 600 of REPRO_STEPS): their logged losses, PSNRs and alive counts
+    (metrics.jsonl, every 10 steps, wall time left out), final alive counts
+    and saved PLY files must be identical."""
+    import hashlib
+
+    runs = []
+    for _ in range(2):
+        with tempfile.TemporaryDirectory() as tmp:
+            r = launch.main(["--fit", "--source", CAPTURE, "--out", tmp,
+                             "--seed", "0", "data.height=256",
+                             "data.width=256", "system.sh_degree=3",
+                             f"trainer.max_steps={REPRO_STEPS}"])
+            with open(os.path.join(r.trial_dir, "metrics.jsonl")) as f:
+                logged = [{k: v for k, v in json.loads(line).items()
+                           if k != "wall"} for line in f]
+            with open(r.ply_path, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()
+            runs.append(dict(logged=logged, n_alive=r.n_alive, ply=digest,
+                             steps_per_s=r.steps / r.seconds))
+    a, b = runs
+    parted = next((x["step"] for x, y in zip(a["logged"], b["logged"])
+                   if x != y), None)
+    log(f"  two {REPRO_STEPS}-step fits, seed 0: alive {a['n_alive']} / "
+        f"{b['n_alive']}, first logged step that differs {parted}, PLY "
+        f"identical {a['ply'] == b['ply']}, last logged "
+        f"{a['logged'][-1]} / {b['logged'][-1]}")
+    if (parted is not None or a["logged"] != b["logged"]
+            or a["n_alive"] != b["n_alive"] or a["ply"] != b["ply"]):
+        raise AssertionError("two fits with the same seed differ")
+    return dict(steps=REPRO_STEPS, n_alive=a["n_alive"],
+                logged_steps=len(a["logged"]),
+                last_loss=a["logged"][-1]["train/loss"],
+                steps_per_s=[x["steps_per_s"] for x in runs])
 
 
 def mean_psnr_against_capture(frames, names):
@@ -795,6 +924,17 @@ def train_cell(scene, cam, caps, tight_cull, a, times):
         a["cot"], a["fwd"], a["boundary_t"], a["suffix"], **a["kw"])
     pair_ids = a["pair_ids"]
 
+    # one step's gradients twice: every parameter group bit-identical
+    # (the fold adds in stream order; no other op of the step may add in an
+    # order of its own)
+    first, second = render_fwd_bwd(), render_fwd_bwd()
+    differ = [k for k, x, y in zip(scene.params(), first, second)
+              if not torch.equal(x, y)]
+    if differ:
+        raise AssertionError(f"train step: gradients of {differ} differ "
+                             "between two runs")
+    log("  512x512 train step: render forward + backward twice, the "
+        "gradients of every parameter group bit-identical")
     stages = dict(
         preprocess_fwd_bwd_ms=cuda_ms(prep_fwd_bwd),
         fold_ms=cuda_ms(lambda: PB.fold_to_gaussians(pair_grads, pair_ids,
@@ -881,6 +1021,13 @@ def device_busy(step, steps: int) -> dict:
                         for e in events[:8]])
 
 
+def sum_device_ms(step, steps: int = 10) -> float:
+    """Device time of every kernel ``step`` launches, per call, in ms, from
+    a torch.profiler trace (no host time)."""
+    events, _ = profiled_kernels(step, steps)
+    return sum(dev_us(e) for e in events) / steps / 1e3
+
+
 def kernel_device_ms(step, kernels: dict, steps: int = 10) -> dict:
     """Device time per launch, in ms, of the kernels named in ``kernels``
     ({result key: substring of the kernel's name}) over ``steps`` calls of
@@ -947,9 +1094,12 @@ def list_inputs(scene, cam, caps, tight_cull, tile_px, chunk):
                 tile_px=tile_px, binning=binning)
 
 
-def list_kernel_vs_plain(inp, what: str) -> float:
-    """K2 against its plain version (ops/composite.composite_lists at the
-    kernel's chunk) on one frame's lists."""
+def list_kernel_vs_plain(inp, what: str) -> dict:
+    """K2 (K1's row and combine kernels over the aligned list stream)
+    against its plain version (ops/composite.composite_lists at the
+    kernel's chunk) on one frame's lists, at K2_TOL, NaN where the plain
+    version has NaN; the ``tiles_composite`` counter and K1's two advance
+    by one each; a second call gives the same bits."""
     import torch
 
     from dge_tpu_torch.ops import composite as CMP
@@ -958,30 +1108,110 @@ def list_kernel_vs_plain(inp, what: str) -> float:
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
-    before = PC.launch_counts["tiles_composite"]
-    got = TT.composite_tiles_kernel(inp["feat"], inp["lists"], inp["counts"],
-                                    inp["order"], **kw)
+    args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
+    before = dict(PC.launch_counts)
+    got = TT.composite_tiles_kernel(*args, **kw)
     torch.cuda.synchronize()
-    if PC.launch_counts["tiles_composite"] != before + 1:
-        raise AssertionError("tiles_composite launch counter did not advance")
+    for k in PC.launch_counts:
+        if PC.launch_counts[k] != before[k] + (k in K2_COUNTERS):
+            raise AssertionError(f"{what}: launch counter {k} advanced by "
+                                 f"{PC.launch_counts[k] - before[k]}")
+    if not torch.equal(TT.composite_tiles_kernel(*args, **kw).nan_to_num(
+            nan=7.0), got.nan_to_num(nan=7.0)):
+        raise AssertionError(f"{what}: two launches differ")
     want = CMP.composite_lists(inp["lists"], inp["counts"], *inp["feats"],
                                order=inp["order"], **kw)
-    return compare(got, want, what)
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"{what}: the kernel's NaNs are not the plain "
+                             "version's")
+    # the layout kernel alone: the same bits as its plain version
+    counts = inp["counts"].clamp(max=inp["lists"].shape[1])
+    _, _, cum, rows = TT.list_rows(counts, inp["chunk"])
+    layout = (inp["feat"], inp["lists"], counts, inp["order"], cum, rows,
+              inp["chunk"])
+    e_layout = 0.0
+    for x, y in zip(TT.list_stream(*layout),
+                    TT.list_stream_reference(*layout)):
+        if not torch.equal(x.nan_to_num(nan=7.0), y.nan_to_num(nan=7.0)):
+            raise AssertionError(f"{what}: the layout kernel differs from "
+                                 "its plain version")
+        if x.numel():
+            e_layout = max(e_layout, float((x.float() - y.float())
+                                           .nan_to_num().abs().max()))
+    err = (got - want).nan_to_num().abs()
+    e = [float(err[:, f].max()) if err.numel() else 0.0
+         for f in (slice(0, 3), 3, 4)]
+    log(f"  {what}: max|err| colour {e[0]:.3e} depth {e[1]:.3e} T "
+        f"{e[2]:.3e}; bit-identical repeat; layout kernel = its plain "
+        "version")
+    if not (e[0] <= K2_TOL["color"] and e[1] <= K2_TOL["depth"]
+            and e[2] <= K2_TOL["trans"]):
+        raise AssertionError(f"{what}: K2 disagrees with its plain version "
+                             f"({e}) > {K2_TOL}")
+    return {"tiles_composite": max(e[0], e[2]), "list_stream": e_layout}
 
 
 def list_times(inp, plain_reps: int = 3) -> dict:
-    """CUDA-event times of K2, its plain version and the list binning, and
-    K2's bound, at one frame's shapes."""
+    """At one frame's shapes: CUDA-event times of K2's wrapper, of its
+    layout's two parts (``list_rows``, which holds the host read of the row
+    count, and the gather ``list_stream``), of its plain version and of the
+    list binning; from a profiler trace the device time of every kernel of
+    one wrapper call (summed, and K1's row and combine kernels apart); K2's
+    bound and the bounds of the two kernels at its rows."""
+    import torch
+
     from dge_tpu_torch.ops import composite as CMP
     from dge_tpu_torch.ops import tiles_composite as TT
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
     args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
-    b_ms, b_by = bound_ms(inp["pairs"], inp["counts"].shape[0],
-                          inp["tile_px"], bytes_per_pair=44)
+    num_tiles = inp["counts"].shape[0]
+    b_ms, b_by = bound_ms(inp["pairs"], num_tiles, inp["tile_px"],
+                          bytes_per_pair=44)
+    _, _, cum, rows = TT.list_rows(inp["counts"], inp["chunk"])
+    rb = forward_bounds(inp["pairs"], num_tiles, rows, inp["tile_px"],
+                        inp["chunk"])
+    layout = (inp["feat"], inp["lists"], inp["counts"], inp["order"], cum,
+              rows, inp["chunk"])
+    # the layout's function: each entry's id (and order) and each listed
+    # Gaussian's feature row read once, each entry's ten features and each
+    # row's tile written (the zero padding past a tile's count is the
+    # design's own); no arithmetic to speak of
+    k = inp["lists"].shape[1]
+    ids = inp["lists"][torch.arange(k, device=inp["lists"].device)[None]
+                       < inp["counts"][:, None]]
+    if inp["order"] is not None:
+        ids = inp["order"][ids.long()]
+    gaussians = int(torch.unique(ids).numel())
+    per_entry = 4 + 4 * (inp["order"] is not None) + 40
+    lay_bound = (inp["pairs"] * per_entry + gaussians * 40 + rows * 4) \
+        / HBM_BYTES_PER_S * 1e3
+
+    def wrapper():
+        return TT.composite_tiles_kernel(*args, **kw)
+
+    events, _ = profiled_kernels(wrapper, 10)
+    dev = {e.key: dev_us(e) / 10 / 1e3 for e in events}  # per call
     return dict(
-        ms=cuda_ms(lambda: TT.composite_tiles_kernel(*args, **kw), reps=20),
+        ms=cuda_ms(wrapper, reps=20),
+        device_ms=sum(dev.values()),
+        row_device_ms=sum(v for k, v in dev.items()
+                          if FORWARD_FORMS[False][2] in k),
+        combine_device_ms=sum(v for k, v in dev.items()
+                              if FORWARD_FORMS[False][3] in k),
+        layout_device_ms=sum(v for k, v in dev.items()
+                             if "rows_" not in k),
+        list_stream_device_ms=sum(v for k, v in dev.items()
+                                  if "list_stream_kernel" in k),
+        list_rows_ms=cuda_ms(lambda: TT.list_rows(inp["counts"],
+                                                  inp["chunk"]), reps=20),
+        list_stream_ms=cuda_ms(lambda: TT.list_stream(*layout), reps=20),
+        list_stream_plain_ms=cuda_ms(
+            lambda: TT.list_stream_reference(*layout), reps=5, warmup=1),
+        list_stream_bound_ms=lay_bound, listed_gaussians=gaussians,
+        rows=rows, row_bound_ms=rb[0][0], combine_bound_ms=rb[1][0],
+        combine_bound_by=rb[1][1],
         plain_ms=cuda_ms(lambda: CMP.composite_lists(
             inp["lists"], inp["counts"], *inp["feats"], order=inp["order"],
             **kw), reps=plain_reps, warmup=1),
@@ -1009,6 +1239,21 @@ def logdot_vs_plain(inp, what: str) -> float:
                   f"{what} K5 vs plain")
     compare(got, PC.composite_pairs_stream(*args, **kw), f"{what} K5 vs K1")
     return err
+
+
+def k2_summary(t: dict) -> str:
+    return (f"K2 {t['ms']:.4f} ms (events), device {t['device_ms']:.4f} ms "
+            f"(row kernel {t['row_device_ms']:.4f}, combine "
+            f"{t['combine_device_ms']:.4f}, layout {t['layout_device_ms']:.4f}"
+            f" of which the layout kernel {t['list_stream_device_ms']:.4f}), "
+            f"list_rows {t['list_rows_ms']:.4f} ms, list_stream "
+            f"{t['list_stream_ms']:.4f} ms (plain "
+            f"{t['list_stream_plain_ms']:.3f}, bound "
+            f"{t['list_stream_bound_ms']:.5f}), rows {t['rows']}, plain "
+            f"{t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']}; row kernel {t['row_bound_ms']:.5f}, combine "
+            f"{t['combine_bound_ms']:.5f}), bin_gaussians "
+            f"{t['bin_gaussians_ms']:.3f} ms")
 
 
 def list_cell(name, scene, cam, bg, stream_start, *, chunk=64, **start):
@@ -1060,21 +1305,21 @@ def list_cell(name, scene, cam, bg, stream_start, *, chunk=64, **start):
     diff_rule = float(apart[ordered].max()) if bool(ordered.any()) else 0.0
     t_rule = float((1.0 - stream.alpha)[rule].max()) if bool(rule.any()) \
         else 0.0
-    err = list_kernel_vs_plain(inp, f"{name} K2 vs plain")
+    found = list_kernel_vs_plain(inp, f"{name} K2 vs plain")
     cell = dict(cell=name, render_ms=cuda_ms(lambda: r.render(cam), reps=10),
                 **list_times(inp), entries=inp["pairs"],
                 tiles=int(inp["counts"].shape[0]),
                 list_width=int(inp["lists"].shape[1]),
                 fullest_tile=int(inp["counts"].max()), chunk=inp["chunk"],
-                caps=r.caps, tight_cull=r.tight_cull, max_abs_err=err,
+                caps=r.caps, tight_cull=r.tight_cull,
+                max_abs_err=found["tiles_composite"],
+                layout_max_abs_err=found["list_stream"],
                 vs_stream_max_abs=diff, vs_stream_pixels_over_1e5=n_diff,
                 tiles_in_stream_order=int(same_order.sum()),
                 vs_stream_max_abs_in_those=diff_rule,
                 vs_stream_max_final_t_in_those=t_rule)
     log(f"  {name} lists: render {cell['render_ms']:.3f} ms/frame, "
-        f"bin_gaussians {cell['bin_gaussians_ms']:.3f} ms, K2 "
-        f"{cell['ms']:.3f} ms, plain {cell['plain_ms']:.3f} ms, bound "
-        f"{cell['bound_ms']:.4f} ms ({cell['bound_by']}), entries "
+        f"{k2_summary(cell)}, entries "
         f"{cell['entries']}, fullest tile {cell['fullest_tile']}, list width "
         f"{cell['list_width']}, caps {r.caps}; image vs cuda_stream max|diff| "
         f"{diff:.3e} ({n_diff} pixels over 1e-5); {cell['tiles_in_stream_order']} "
@@ -1189,6 +1434,59 @@ def refused_forward_launch(inp):
     if not bool((PC.composite_pairs_stream(*args, chunk=inp["chunk"], **kw)
                  == good).all()):
         raise AssertionError("the launch after the refusal differs")
+
+
+def nan_colour_lists(dev):
+    """Two tiles' lists of five wide Gaussians, the third with a NaN red:
+    K2 gives NaN red where its plain version does and agrees on the
+    rest."""
+    import torch
+
+    feat = torch.zeros(8, 10)
+    feat[:, 0:2] = 16.0  # mean at the corner the two 16-pixel tiles share
+    feat[:, 2] = feat[:, 4] = 1e-3
+    feat[:, 5] = 0.3
+    feat[:, 6:9] = 0.5
+    feat[:, 9] = 1.0
+    feat[2, 6] = float("nan")
+    feat = feat.to(dev)
+    inp = dict(feat=feat.contiguous(), lists=torch.arange(
+        5, dtype=torch.int32, device=dev).repeat(2, 1).contiguous(),
+        counts=torch.full((2,), 5, dtype=torch.int32, device=dev),
+        order=None, tiles_x=2, tile_px=16, chunk=128,
+        feats=(feat[:, 0:2], feat[:, 2:5], feat[:, 6:9], feat[:, 9],
+               feat[:, 5]))
+    return list_kernel_vs_plain(inp, "list NaN colour K2")
+
+
+def refused_list_launch(inp):
+    """K2 at a chunk whose row stage exceeds what a block may have is
+    refused by the card: the wrapper raises and counts nothing for K2, and
+    the next launch is unharmed."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import tiles_composite as TT
+
+    args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"])
+    good = TT.composite_tiles_kernel(*args, chunk=inp["chunk"], **kw)
+    old = PC.MAX_CHUNK
+    PC.MAX_CHUNK = 4096
+    before = PC.launch_counts["tiles_composite"]
+    try:
+        TT.composite_tiles_kernel(*args, chunk=2048, **kw)
+    except RuntimeError as e:
+        log(f"  refused K2 launch raises: {e}")
+    else:
+        raise AssertionError("a refused K2 launch did not raise")
+    finally:
+        PC.MAX_CHUNK = old
+    if PC.launch_counts["tiles_composite"] != before:
+        raise AssertionError("a refused K2 launch was counted")
+    if not torch.equal(TT.composite_tiles_kernel(*args, chunk=inp["chunk"],
+                                                 **kw), good):
+        raise AssertionError("the K2 launch after the refusal differs")
 
 
 def random_scene(rng, n, device):
@@ -1334,6 +1632,11 @@ def main(argv=None) -> int:
         a["cases"] = cases[False]
         return a
 
+    def hold_list(inp, what):
+        """K2 and its layout kernel against their plain versions."""
+        for k, e in list_kernel_vs_plain(inp, what).items():
+            errs[k].append(e)
+
     bench = bg = None
     if phases & {3, 5, 6}:
         bench = G.load_ply(BENCH_PLY, device=dev)
@@ -1432,7 +1735,9 @@ def main(argv=None) -> int:
 
         # K2: the fixture as one tile's list (chunks count from the tile's
         # own slot 0: slot 128 is applied again, slot 100 stays refused),
-        # then the random scene's lists, direct ids and through `order`
+        # then the random scene's lists at tiles 32 / 16 / 8 and chunks
+        # 128 / 256 / 512, direct ids and through `order`; a NaN colour and
+        # a launch the card refuses
         from dge_tpu_torch.ops import binning as B
         from dge_tpu_torch.ops import tiles_composite as TT
         for slot, want_c, want_t in ((128, 0.9975, 0.0025),
@@ -1446,8 +1751,7 @@ def main(argv=None) -> int:
                 counts=fx["counts"], order=None, tiles_x=1, tile_px=16,
                 chunk=128, feats=(feat[0:2].T, feat[2:5].T, feat[6:9].T,
                                   feat[9], feat[5]))
-            errs["tiles_composite"].append(list_kernel_vs_plain(
-                linp, f"list fixture slot {slot} K2"))
+            hold_list(linp, f"list fixture slot {slot} K2")
             got = TT.composite_tiles_kernel(
                 linp["feat"], linp["lists"], linp["counts"], tiles_x=1,
                 tile_px=16, chunk=128)
@@ -1456,33 +1760,37 @@ def main(argv=None) -> int:
                 f"(tile-relative rule: {want_c}, {want_t})")
             if abs(c - want_c) > 1e-6 or abs(t - want_t) > 1e-7:
                 raise AssertionError("list fixture: wrong chunk semantics")
-        for chunk in (128, 256):
-            linp = list_inputs(rscene, rcam, dict(
-                max_per_tile=4096, max_tiles_per_gaussian=64), False, 32,
-                chunk)
-            errs["tiles_composite"].append(list_kernel_vs_plain(
-                linp, f"random scene lists chunk {chunk} K2"))
-            prep = stream_stages(rscene, rcam, {}, False, 32)[0]()
+        prep = stream_stages(rscene, rcam, {}, False, 32)[0]()
+        for tile_px in (32, 16, 8):
             scan = B.bin_gaussians_scan(
                 prep.mean2d, prep.depth, prep.radius, prep.visible,
-                height=256, width=256, tile_px=32, max_per_tile=4096)
-            if not torch.equal(scan.counts, linp["counts"]):
-                raise AssertionError("bin_gaussians_scan counts differ")
-            oinp = dict(linp, lists=scan.lists.contiguous(),
-                        order=scan.order.contiguous())
-            errs["tiles_composite"].append(list_kernel_vs_plain(
-                oinp, f"random scene lists through order chunk {chunk} K2"))
+                height=256, width=256, tile_px=tile_px, max_per_tile=4096)
+            for chunk in (128, 256, 512):
+                # a Gaussian covers 4x the tiles at half the tile width
+                linp = list_inputs(rscene, rcam, dict(
+                    max_per_tile=4096,
+                    max_tiles_per_gaussian=64 * (32 // tile_px) ** 2), False,
+                    tile_px, chunk)
+                what = f"random scene lists tile {tile_px} chunk {chunk} K2"
+                hold_list(linp, what)
+                if not torch.equal(scan.counts, linp["counts"]):
+                    raise AssertionError("bin_gaussians_scan counts differ")
+                oinp = dict(linp, lists=scan.lists.contiguous(),
+                            order=scan.order.contiguous())
+                hold_list(oinp, what + " through order")
+        for k, e in nan_colour_lists(dev).items():
+            errs[k].append(e)
+        refused_list_launch(list_inputs(rscene, rcam, dict(
+            max_per_tile=4096, max_tiles_per_gaussian=64), False, 32, 128))
         before = dict(PC.launch_counts)
         lo = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       max_tiles_per_gaussian=64, backend="cuda_tiles")
         po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       max_tiles_per_gaussian=64, backend="torch_tiles",
                       chunk=128)
-        if (PC.launch_counts["tiles_composite"]
-                != before["tiles_composite"] + 1
-                or any(PC.launch_counts[k] != before[k]
-                       for k in FORWARD_FORMS[False][:2])):
-            raise AssertionError("cuda_tiles render did not launch K2 alone")
+        if any(PC.launch_counts[k] != before[k] + 1 for k in K2_COUNTERS):
+            raise AssertionError("cuda_tiles render did not launch K2 (K1's "
+                                 "two kernels over its list stream) once")
         for a, b, tol, what in ((lo.color, po.color, TOL["color"], "colour"),
                                 (lo.depth, po.depth, TOL["depth"], "depth"),
                                 (lo.alpha, po.alpha, TOL["trans"], "alpha")):
@@ -1593,6 +1901,9 @@ def main(argv=None) -> int:
         inp = stream_inputs(fscene, fcam, fcaps, frun.caps["tight_cull"],
                             frun.caps["tile_px"], frun.caps["chunk"])
         a = hold(inp, "fit view 0")
+        fold_fit = fold_cell(a, inp["pair_ids"], fscene.capacity,
+                             "fit view 0")
+        errs["pairs_fold"].append(fold_fit["max_abs_err"])
         fb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
                              32)
         fit = dict(
@@ -1605,7 +1916,8 @@ def main(argv=None) -> int:
                        **backward_times(a, plain_reps=3),
                        pass1_bound_ms=fb[0][0], pass1_bound_by=fb[0][1],
                        pass2_bound_ms=fb[1][0], pass2_bound_by=fb[1][1],
-                       suffix_bound_ms=fb[2][0], suffix_bound_by=fb[2][1]))
+                       suffix_bound_ms=fb[2][0], suffix_bound_by=fb[2][1]),
+            fold=fold_fit, reproduced=same_seed_fits(launch))
         log(f"  fit view 0: {fit['view0']}")
 
     # ---- phase 5: full width, training ---------------------------------
@@ -1620,11 +1932,14 @@ def main(argv=None) -> int:
             raise AssertionError("512x512: spill after the ladder")
         inp = stream_inputs(bench, cam512, r.caps, r.tight_cull, 32, 64)
         a = hold(inp, "512x512")
+        fold512 = fold_cell(a, inp["pair_ids"], bench.capacity, "512x512")
+        errs["pairs_fold"].append(fold512["max_abs_err"])
         times = backward_times(a)
         tb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
                              32)
         train = train_cell(bench, cam512, r.caps, r.tight_cull, a, times)
-        train.update(pairs=inp["pairs"], rows=a["rows"], caps=r.caps,
+        train.update(fold=fold512, pairs=inp["pairs"], rows=a["rows"],
+                     caps=r.caps,
                      tight_cull=r.tight_cull, pass1_bound_ms=tb[0][0],
                      pass1_bound_by=tb[0][1], pass2_bound_ms=tb[1][0],
                      pass2_bound_by=tb[1][1], suffix_bound_ms=tb[2][0],
@@ -1665,17 +1980,20 @@ def main(argv=None) -> int:
                 if not res["psnr"] >= PSNR_MIN:
                     raise AssertionError(f"validate {backend}: PSNR "
                                          f"{res['psnr']} < {PSNR_MIN}")
-                if not math.isfinite(res["ssim"]) or res["lpips"] is not None:
+                if not (math.isfinite(res["ssim"])
+                        and math.isfinite(res["lpips"] or math.nan)):
                     raise AssertionError(f"validate {backend}: bad SSIM/LPIPS")
             k1_keys = FORWARD_FORMS[False][:2]
             if (min(runs["cuda_stream"]["launches"][k] for k in k1_keys) < 16
                     or runs["cuda_stream"]["launches"]["tiles_composite"]):
                 raise AssertionError("default validate did not go through K1")
-            if (runs["cuda_tiles"]["launches"]["tiles_composite"] < 16
-                    or any(runs["cuda_tiles"]["launches"][k]
-                           for k in k1_keys)):
+            # K2 runs its layout kernel and K1's two kernels, once each a call
+            tiles = runs["cuda_tiles"]["launches"]
+            if (tiles["tiles_composite"] < 16
+                    or any(tiles[k] != tiles["tiles_composite"]
+                           for k in k1_keys + ("list_stream",))):
                 raise AssertionError("cuda_tiles validate did not go through "
-                                     "K2 alone")
+                                     "K2 (K1's kernels once per K2 call)")
             gap = abs(runs["cuda_stream"]["psnr"] - runs["cuda_tiles"]["psnr"])
             log(f"  PSNR gap between the two backends: {gap:.5f} dB")
             if gap > BACKENDS_PSNR_TOL:
@@ -1735,14 +2053,28 @@ def main(argv=None) -> int:
         if r.probe(qcams[0]) != 0:
             raise AssertionError("validate view 0: spill after the ladder")
         inp = list_inputs(qscene, qcams[0], r.caps, r.tight_cull, 32, 64)
-        errs["tiles_composite"].append(
-            list_kernel_vs_plain(inp, "validate view 0 K2"))
+        hold_list(inp, "validate view 0 K2")
         main_k2 = list_times(inp, plain_reps=5)
-        log(f"  validate view 0: K2 {main_k2['ms']:.4f} ms, plain "
-            f"{main_k2['plain_ms']:.4f} ms, bound {main_k2['bound_ms']:.5f} "
-            f"ms ({main_k2['bound_by']}), bin_gaussians "
-            f"{main_k2['bin_gaussians_ms']:.3f} ms, entries {inp['pairs']}, "
-            f"caps {r.caps}")
+        log(f"  validate view 0: {k2_summary(main_k2)}, entries "
+            f"{inp['pairs']}, caps {r.caps}")
+
+        # LPIPS per view at 256^2 (TF32 off, as in the tool), on the card
+        # and against the same network on the CPU
+        from dge_tpu_torch.models import lpips as LP
+        from dge_tpu_torch.utils import saving
+        img = r.render(qcams[0]).color
+        gt = torch.from_numpy(saving.load_image(saving.find_image(
+            cs.images_dir, cs.cameras[0].image_name))).to(dev)
+        lp_fn, lp_params = LP.make_perceptual_fn(device=dev)
+        lp_card = float(lp_fn(img, gt))
+        lp_cpu = float(LP.make_perceptual_fn(params={
+            k: v.cpu() for k, v in lp_params.items()}, device="cpu")[0](
+                img.cpu(), gt.cpu()))
+        lpips_ms = cuda_ms(lambda: lp_fn(img, gt), reps=10)
+        log(f"  LPIPS at 256^2: {lpips_ms:.3f} ms a view, {lp_card:.6f} on "
+            f"the card, {lp_cpu:.6f} on the CPU")
+        if not abs(lp_card - lp_cpu) <= 1e-4 * abs(lp_cpu):
+            raise AssertionError(f"LPIPS card {lp_card} vs CPU {lp_cpu}")
 
         # K2 at full width: the bench scene at 512^2 and 1920x1080
         list_cells = [
@@ -1752,6 +2084,7 @@ def main(argv=None) -> int:
                       STREAM_START_1080P, chunk=256, tight_cull=True,
                       max_per_tile=2048, max_tiles_per_gaussian=256)]
         errs["tiles_composite"] += [c["max_abs_err"] for c in list_cells]
+        errs["list_stream"] += [c["layout_max_abs_err"] for c in list_cells]
 
         # the K1-vs-K5 tool on the bench scene at 512^2, then K5 against its
         # plain version on the tool's stream
@@ -1783,6 +2116,7 @@ def main(argv=None) -> int:
             max_dtrans_vs_k1=tool["max_dtrans"])
         log(f"  proto_logdot at 512x512: {main_k5}, launches {tool_launches}")
         ev = dict(validate=runs, lift_ms_per_view=lift_ms,
+                  lpips_ms_per_view=lpips_ms, lpips_view0=lp_card,
                   lift_gaussians_hit=n_hit, view0=main_k2,
                   list_cells=list_cells, logdot=main_k5,
                   logdot_launches=tool_launches)
@@ -1874,15 +2208,49 @@ def main(argv=None) -> int:
         "bound_by": v0["pass2_bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
     }, {
-        "name": "tiles_composite",
+        "name": "pairs_fold",
         "route": "cuda",
-        "source": "dge_tpu_torch/csrc/tiles_composite.cu",
+        "source": "dge_tpu_torch/csrc/pairs_backward.cu",
+        # the `.at[].add` fold after the backward kernels (jnp, no Pallas)
+        "replaces": "dge_tpu/ops/pallas_backward.py:341",
+        "launches": fit["launches"]["pairs_fold"],
+        "max_abs_err": max(errs["pairs_fold"]),
+        **{k: fit["fold"][k] for k in (
+            "ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_device_ms")},
+        "cells": [dict(cell="512x512", **train["fold"])],
+    }, {
+        "name": "list_stream",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/list_stream.cu",
+        # the TPU wrapper's gather feat[:, order[lists]] (jnp, no Pallas)
+        "replaces": "dge_tpu/ops/pallas_composite.py:187",
+        "launches": ev["validate"]["cuda_tiles"]["launches"]["list_stream"],
+        "max_abs_err": max(errs["list_stream"]),
+        "ms": ev["view0"]["list_stream_ms"],
+        "device_ms": ev["view0"]["list_stream_device_ms"],
+        "plain_ms": ev["view0"]["list_stream_plain_ms"],
+        "bound_ms": ev["view0"]["list_stream_bound_ms"],
+        "bound_by": "bytes",
+        # index_select gathers, but only from the per-position ids, which
+        # take their own ops to form
+        "library_ms": None,
+    }, {
+        # K2: its lists as a chunk-aligned stream through K1's row and
+        # combine kernels. Its times are those of the three kernels named in
+        # composite_of, whose own entries count them too: add it to none.
+        "name": "tiles_composite",
+        "composite_of": ["list_stream", *FORWARD_FORMS[False][:2]],
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/pair_rows_forward.cuh",
         "replaces": "dge_tpu/ops/pallas_composite.py:51",
         "launches": ev["validate"]["cuda_tiles"]["launches"][
             "tiles_composite"],
         "max_abs_err": max(errs["tiles_composite"]),
-        **{k: ev["view0"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by")},
+        **{k: ev["view0"][k] for k in (
+            "ms", "device_ms", "row_device_ms", "combine_device_ms",
+            "layout_device_ms", "list_stream_device_ms", "list_rows_ms",
+            "list_stream_ms", "rows", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,  # no single PyTorch call computes this function
         "cells": ev["list_cells"],
     }]

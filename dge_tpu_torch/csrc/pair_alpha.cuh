@@ -1,7 +1,7 @@
 // The alpha of one (Gaussian, pixel) pair, shared by every compositing
-// kernel: tiles_composite.cu through `pair_alpha`, the row kernels of
-// pair_rows.cuh (pairs_composite.cu, pairs_logdot.cu, pairs_backward.cu)
-// through `alpha_at`.
+// kernel: the row and combine kernels of pair_rows.cuh and
+// pair_rows_forward.cuh (pairs_composite.cu, pairs_logdot.cu,
+// pairs_backward.cu) through `alpha_at`.
 //
 // Every operation on the alpha path is an explicitly rounded intrinsic
 // (__fmul_rn / __fadd_rn / __fsub_rn), so nvcc contracts none of it into
@@ -37,19 +37,6 @@ __device__ __forceinline__ bool alpha_at(float mx, float my, float a, float b,
   raw = __fmul_rn(op, ex);
   alpha = fminf(kAlphaMax, raw);
   return (power <= 0.0f) && (alpha >= kAlphaEps);
-}
-
-// `stage` holds a chunk's features as [kFeat, chunk] in shared memory. Returns
-// whether pair j takes part at pixel (px, py); `alpha` is
-// min(0.99, opacity * exp(power)).
-__device__ __forceinline__ bool pair_alpha(const float* stage, int chunk,
-                                           int j, float px, float py,
-                                           float& alpha) {
-  float dx, dy, ex, raw;
-  return alpha_at(stage[0 * chunk + j], stage[1 * chunk + j],
-                  stage[2 * chunk + j], stage[3 * chunk + j],
-                  stage[4 * chunk + j], stage[5 * chunk + j], px, py, dx, dy,
-                  ex, raw, alpha);
 }
 
 }  // namespace dge

@@ -1,13 +1,14 @@
 // Backward of the pair-stream compositing for NVIDIA Hopper (sm_90a): the
-// row kernel in its two forms (pass 1 and pass 2) and the small suffix
-// kernel between them.
+// row kernel in its two forms (pass 1 and pass 2), the small suffix kernel
+// between them, and the ordered fold of the per-pair gradients to the
+// Gaussians after them.
 //
 // Replaces the TPU kernels `_pass1_kernel` and `_pass2_kernel`
-// (dge_tpu/ops/pallas_backward.py, called from `_stream_backward`) and the
-// flipped cumsum between them. Python side:
-// dge_tpu_torch/ops/pairs_backward.py, which builds this file with nvcc at
-// first use, loads it with ctypes and keeps a plain PyTorch version of each
-// kernel beside it. The forward is csrc/pairs_composite.cu; its source note
+// (dge_tpu/ops/pallas_backward.py, called from `_stream_backward`), the
+// flipped cumsum between them and the `.at[].add` fold after them. Python
+// side: dge_tpu_torch/ops/pairs_backward.py, which builds this file with
+// nvcc at first use, loads it with ctypes and keeps a plain PyTorch version
+// of each kernel beside it. The forward is csrc/pairs_composite.cu; its source note
 // defines the stream, the blocks at absolute offsets k*chunk and the block
 // rule (a refused pair blocks its pixel only to the end of its block).
 //
@@ -39,7 +40,8 @@
 // row_range, the staging, the reject radius and load4 / store4 are shared
 // with the forward in pair_rows.cuh, the alpha path in pair_alpha.cuh.
 //
-// One kernel body, `pairs_rows_kernel`, one thread block per row:
+// One kernel body, `pairs_rows_kernel`, one thread block per row, and two
+// small kernels:
 //   pass 1 (kPass2 = false): per pixel the row's total of w*g;
 //   suffix (`rows_suffix_kernel`, one thread per four pixels of a tile):
 //           the totals, last row first, become the INCLUSIVE suffix over
@@ -50,9 +52,9 @@
 //           is about 1e-7 of the tile's sum of |w g|, far below the 2e-3
 //           max|g| gradient tolerance.) Every stream position belongs to
 //           one row, so the ten per-pair gradients are written once to the
-//           stream-ordered [10, Pc] buffer with no global atomics; the fold
-//           to per-Gaussian space is an index_add_ over pair_ids outside
-//           the kernels, as in the TPU version.
+//           stream-ordered [10, Pc] buffer with no global atomics;
+//   fold (`fold_kernel`, one thread a Gaussian): each Gaussian's gradient
+//           is the sum of its pairs' gradients in stream order, from 0.
 //
 // What bounds it on this card, and what the design does about it. Both
 // passes are bound by operations (about 35 and 70 per (pair, pixel) against
@@ -71,8 +73,8 @@
 //   bits 1..4 spell f;
 // - each warp stores its totals for pair j in its own shared-memory slot,
 //   and after the walk the block adds the slots in warp order: no atomics,
-//   so the per-pair gradients are bit-identical from launch to launch (the
-//   fold's index_add_ is still unordered);
+//   so the per-pair gradients are bit-identical from launch to launch, and
+//   so, through the ordered fold, are the per-Gaussian ones;
 // - a staged pair is three float4 (ten features, a reject radius, a pad),
 //   read by broadcast once for four pixels;
 // - a warp whose pixel patch (128 consecutive pixel ids: 32x4 at tile 32)
@@ -105,9 +107,23 @@
 //           operations per (pair, pixel);
 //   suffix: reads and writes R*P*4 bytes; bound by bytes;
 //   pass 2: reads pairs*40 + T*P*24 + R*P*8 bytes, writes pairs*40 bytes;
-//           about 70 operations per (pair, pixel).
+//           about 70 operations per (pair, pixel);
+//   fold:   its function reads U*(40 + 4) bytes (the gradients and ids of
+//           the U positions before `used`) and writes N*40 bytes; one add
+//           per (pair, feature): bound by bytes. The kernel itself also
+//           reads the 8-byte permutation and the segments, its own layout.
 // Pass 1 and pass 2 are bound by operations at every operating point of the
 // repo.
+//
+// The fold. The TPU version scatter-adds the [10, Pc] gradients into
+// [10, N] with one `.at[].add`; on the card an index_add_ does that with
+// atomics, which add in the order the threads arrive, so two runs of one
+// fit part after the first densify. Here the wrapper takes a stable sort of
+// pair_ids (perm) and each Gaussian's segment [seg[g], seg[g+1]) of it
+// (searchsorted, no host read), and one thread per Gaussian adds its pairs'
+// ten gradients in stream order, starting from 0: the result depends only
+// on the stream, and equals index_add_ on the CPU, which adds serially in
+// stream order, bit for bit.
 
 #include "pair_rows.cuh"
 
@@ -385,6 +401,31 @@ int launch_rows(const float* data, int pc, const int* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ordered fold: out[f, g] = sum over i in [seg[g], seg[g+1]) of
+// grads[f, perm[i]], added in that order from 0. No atomics.
+__global__ void fold_kernel(const float* __restrict__ grads,  // [kFeat, pc]
+                            int pc,
+                            const int64_t* __restrict__ perm,  // [pc]
+                            const int* __restrict__ seg,       // [n + 1]
+                            int n,
+                            float* __restrict__ out) {         // [kFeat, n]
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (g >= n) return;
+  float acc[kFeat];
+#pragma unroll
+  for (int f = 0; f < kFeat; ++f) acc[f] = 0.0f;
+  const int end = seg[g + 1];
+  for (int i = seg[g]; i < end; ++i) {
+    const int64_t j = perm[i];
+#pragma unroll
+    for (int f = 0; f < kFeat; ++f)
+      acc[f] += grads[static_cast<int64_t>(f) * pc + j];
+  }
+#pragma unroll
+  for (int f = 0; f < kFeat; ++f)
+    out[static_cast<int64_t>(f) * n + g] = acc[f];
+}
+
 }  // namespace
 
 // Plain C entries for ctypes. Each returns the CUDA error of its launch
@@ -425,4 +466,14 @@ extern "C" int pairs_pass2(const float* data, int pc, const int* starts,
                            num_rows, cot, fwd_out, boundary_t, suffix,
                            num_tiles, tiles_x, tile_px, chunk, grads,
                            static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int pairs_fold(const float* grads, int pc, const int64_t* perm,
+                          const int* seg, int n, float* out, void* stream) {
+  if (n <= 0) return 0;
+  constexpr int kThreads = 128;
+  fold_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(grads, pc, perm, seg, n,
+                                                     out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -6,6 +6,11 @@
 // pairs_composite.py, which builds this file with nvcc at first use, loads
 // it with ctypes and keeps the plain PyTorch versions beside it.
 //
+// The same two kernels also carry the per-tile-list kernel K2 (the TPU
+// kernel `_composite_kernel`, wrapper ops/tiles_composite.py): its lists are
+// laid out as a stream whose tiles start at multiples of `chunk`, so the
+// absolute blocks below are each list's own chunks, counted from its slot 0.
+//
 // What it computes, per tile t and pixel (px, py) = (ox + pid % tile_px,
 // oy + pid / tile_px) (no +0.5): the pairs [starts[t], starts[t]+counts[t])
 // of the depth-ordered stream are walked in order. The stream is cut into

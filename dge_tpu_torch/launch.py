@@ -23,7 +23,7 @@ ported yet):
 binning caps on view 0 (tile_px 32), renders every view and writes
 ``<out>/<name>/<tag>@<time>/renders/NNNN.png``; ``--test`` is the same
 mode. ``--validate`` renders every view the same way and scores PSNR / SSIM
-against the capture's images into ``eval/results.json``
+/ LPIPS against the capture's images into ``eval/results.json``
 (tools/full_eval.py). ``--export`` writes a turntable orbit
 (``orbit_frames/NNNN.png``, ``orbit.mp4`` where imageio is installed) and a
 copy of the scene as ``scene.ply``. ``--fit`` initialises a scene
@@ -93,8 +93,8 @@ def parse_args(argv=None):
     mode.add_argument("--test", action="store_true",
                       help="the same as --render")
     mode.add_argument("--validate", action="store_true",
-                      help="render every capture view and write PSNR/SSIM "
-                      "to eval/results.json")
+                      help="render every capture view and write PSNR/SSIM/"
+                      "LPIPS to eval/results.json")
     mode.add_argument("--export", action="store_true",
                       help="turntable orbit frames and a copy of the scene")
     mode.add_argument("--fit", action="store_true",
@@ -150,8 +150,9 @@ def _size(cfg):
 
 def run_validate(cfg, gs_source, source, trial_dir, device,
                  backend=None) -> ValidateRun:
-    """Render every capture view and write PSNR / SSIM to eval/results.json
-    (gaussiansplatting/metrics.py:36-93 analog for one scene)."""
+    """Render every capture view and write PSNR / SSIM / LPIPS to
+    eval/results.json (gaussiansplatting/metrics.py:36-93 analog for one
+    scene)."""
     from dge_tpu_torch.tools import full_eval
 
     h, w = _size(cfg)

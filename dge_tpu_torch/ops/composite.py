@@ -18,8 +18,8 @@ saturates before the last chunk it reaches. The pair-stream compositors
 instead, so they and this module can differ at pixels that saturate across
 a chunk edge, as this module does with itself at two chunk sizes.
 
-``composite_lists`` at the kernel's chunk is the plain version of the CUDA
-kernel of ops/tiles_composite.py.
+``composite_lists`` at the kernel's chunk is the plain version of the list
+kernel K2 of ops/tiles_composite.py.
 """
 
 from __future__ import annotations

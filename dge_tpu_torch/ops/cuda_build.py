@@ -21,8 +21,8 @@ from typing import Dict, Sequence
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-SOURCES = ("pairs_composite", "pairs_backward", "tiles_composite",
-           "pairs_logdot")
+SOURCES = ("pairs_composite", "pairs_backward", "pairs_logdot",
+           "list_stream")
 
 
 def source_path(name: str) -> str:

@@ -23,11 +23,15 @@ they compute, the design and the bounds.
   ``row_totals_reference``, ``suffix_reference`` and ``pass2_reference`` are
   the plain PyTorch versions (``torch.cumprod`` and a flipped ``cumsum`` per
   block), same inputs and outputs as the kernels.
-- ``stream_backward`` runs pass 1, pass 2 and the fold to per-Gaussian
-  gradients ``[10, N]`` (one ``index_add_`` over ``pair_ids``). Pass 2's
-  per-pair gradients are bit-identical from launch to launch; the fold's
-  ``index_add_`` adds in no fixed order, so the per-Gaussian gradients are
-  not.
+- ``fold_to_gaussians`` is the fold's wrapper: per-pair gradients ``[10,
+  Pc]`` to per-Gaussian ``[10, N]``, each Gaussian's sum taken over its
+  pairs in stream order from 0. On CUDA tensors a stable sort of
+  ``pair_ids`` and its segments (``fold_segments``) feed the fold kernel;
+  on CPU tensors it is one ``index_add_``, which adds serially in stream
+  order. ``fold_reference`` is the kernel's arithmetic in plain PyTorch.
+- ``stream_backward`` runs pass 1, pass 2 and the fold. Pass 2's per-pair
+  gradients and the fold's sums are bit-identical from launch to launch,
+  so a fit is reproducible from its seed.
 - ``stream_composite`` is the Function: forward = stream assembly + the
   forward kernels (``pairs_composite.composite_pairs_stream``, which also
   stores ``boundary_T``), backward = ``stream_backward``. It returns (color,
@@ -79,6 +83,8 @@ def _load():
             ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
             i32, i32, ptr, ptr]
         lib.pairs_pass2.restype = i32
+        lib.pairs_fold.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr]
+        lib.pairs_fold.restype = i32
         _lib = lib
     return _lib
 
@@ -437,12 +443,76 @@ def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
     return grads
 
 
-def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int):
-    """Per-pair gradients [10, Pc] → per-Gaussian [10, N]: one scatter-add
-    over the stream (plain PyTorch, as the TPU version folds in jnp)."""
-    out = torch.zeros(FEAT, num_gaussians, dtype=pair_grads.dtype,
+def fold_segments(pair_ids, num_gaussians: int, used=None):
+    """The fold's layout: ``perm`` [Pc] int64, a stable sort of ``pair_ids``
+    (each Gaussian's pairs keep their stream order), and ``seg`` [N + 1]
+    int32, Gaussian g's pairs being ``perm[seg[g]:seg[g + 1]]``. No host
+    read; ids outside [0, N) fall in no segment, and with ``used`` (a
+    0-dim tensor) neither do the positions at or past it."""
+    if used is not None:
+        pos = torch.arange(pair_ids.shape[0], device=pair_ids.device)
+        pair_ids = torch.where(pos < used, pair_ids, num_gaussians)
+    ids, perm = torch.sort(pair_ids, stable=True)
+    seg = torch.searchsorted(
+        ids, torch.arange(num_gaussians + 1, dtype=ids.dtype,
+                          device=ids.device), out_int32=True)
+    return perm, seg
+
+
+def fold_reference(pair_grads, perm, seg):
+    """Plain PyTorch version of the fold kernel → [10, N]: per Gaussian its
+    segment's gradients added one by one in stream order, from 0."""
+    n = seg.shape[0] - 1
+    out = torch.zeros(pair_grads.shape[0], n, dtype=pair_grads.dtype,
                       device=pair_grads.device)
-    return out.index_add_(1, pair_ids.long(), pair_grads)
+    lo = seg[:-1].long()
+    lens = seg[1:].long() - lo
+    for i in range(int(lens.max()) if n else 0):
+        has = i < lens
+        pos = (lo + i).clamp(max=max(perm.shape[0] - 1, 0))
+        out = torch.where(has, out + pair_grads[:, perm[pos]], out)
+    return out
+
+
+def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int, used=None):
+    """The fold's wrapper: per-pair gradients [10, Pc] → per-Gaussian
+    [10, N], each Gaussian's sum over its pairs taken in stream order from
+    0, so the result depends only on the stream (the TPU version's
+    ``.at[].add``, pallas_backward.py:341, fixes no order). On CUDA tensors
+    it launches the fold kernel over ``fold_segments``, or raises; on CPU
+    tensors it is one ``index_add_``, which adds serially in stream order.
+
+    ``used`` (a 0-dim tensor, the end of the last tile's range) leaves the
+    stream's tail out of the kernel's segments: its gradients are 0, and in
+    a pair binning its unused big-Gaussian slots all carry id 0, a segment
+    of ~10^5 pairs one thread would add one by one. Adding a +0.0 leaves a
+    sum's bits as they are, so the result is the same with or without."""
+    if pair_grads.dtype != torch.float32 or not pair_grads.is_contiguous():
+        raise ValueError("fold_to_gaussians: pair_grads must be a contiguous "
+                         f"torch.float32 tensor, got {pair_grads.dtype}")
+    if pair_grads.dim() != 2 or pair_ids.shape != (pair_grads.shape[1],):
+        raise ValueError("pair_grads must be [F, Pc] and pair_ids [Pc]")
+    dev = pair_grads.device
+    out = torch.zeros(pair_grads.shape[0], num_gaussians, dtype=torch.float32,
+                      device=dev)
+    if dev.type == "cpu" and pair_ids.device.type == "cpu":
+        return out.index_add_(1, pair_ids.long(), pair_grads)
+    if pair_ids.device != dev or dev.type != "cuda":
+        raise ValueError("fold_to_gaussians: both tensors must share one "
+                         f"CUDA device, got {dev} and {pair_ids.device}")
+    if pair_grads.shape[0] != FEAT or pair_grads.shape[1] >= 2 ** 31:
+        raise ValueError(f"pair_grads must be [{FEAT}, Pc < 2**31]")
+    perm, seg = fold_segments(pair_ids, num_gaussians, used)
+    lib = _load()
+    with torch.cuda.device(dev):
+        err = lib.pairs_fold(pair_grads.data_ptr(), pair_grads.shape[1],
+                             perm.data_ptr(), seg.data_ptr(), num_gaussians,
+                             out.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pairs_fold launch failed: cudaError {err}")
+    launch_counts["pairs_fold"] += 1
+    return out
 
 
 def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
@@ -463,7 +533,8 @@ def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
         boundary_t=boundary_t, row_tile=row_tile, **kw)
     pair_grads = pairs_pass2(data, starts, counts, blk_off, row_tile, cot,
                              fwd_out, boundary_t, suffix, **kw)
-    return fold_to_gaussians(pair_grads, pair_ids, num_gaussians)
+    used = (starts + counts).max() if starts.numel() else None
+    return fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used=used)
 
 
 def image_to_tiles(x, tiles_x: int, tiles_y: int, tile_px: int):

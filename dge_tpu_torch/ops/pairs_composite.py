@@ -62,13 +62,15 @@ ROW_FIELDS = 7  # scratch per (row, pixel): cp_last, cp_first, j0, L (4)
 # kernel is launched and nowhere else): pairs_composite and
 # pairs_composite_combine are K1's row and combine kernels, pairs_logdot and
 # pairs_logdot_combine those of its log-space arm K5 (tools/proto_logdot.py);
-# pairs_pass1, pairs_suffix and pairs_pass2 are the backward kernels of
-# ops/pairs_backward.py, tiles_composite the per-tile-list kernel of
-# ops/tiles_composite.py
+# pairs_pass1, pairs_suffix, pairs_pass2 and pairs_fold are the backward
+# kernels of ops/pairs_backward.py; list_stream is the layout kernel of the
+# per-tile-list path (ops/tiles_composite.py), and tiles_composite counts
+# that path's wrapper each time it has launched K1's two kernels over a list
+# stream
 launch_counts = {"pairs_composite": 0, "pairs_composite_combine": 0,
                  "pairs_pass1": 0, "pairs_suffix": 0, "pairs_pass2": 0,
-                 "tiles_composite": 0, "pairs_logdot": 0,
-                 "pairs_logdot_combine": 0}
+                 "pairs_fold": 0, "list_stream": 0, "tiles_composite": 0,
+                 "pairs_logdot": 0, "pairs_logdot_combine": 0}
 # per form (log_space): library, C entries, launch counter keys
 _FORMS = {False: ("pairs_composite", "pairs_rows_forward",
                   "pairs_rows_combine", "pairs_composite",

@@ -18,10 +18,11 @@ gaussian_renderer/__init__.py:45-150. Backends:
   row and never walk a tile's whole range again;
 - ``"torch"``: pair binning + the forward kernel's plain PyTorch version,
   differentiable by plain autograd: the CPU twin and the gradient oracle;
-- ``"cuda_tiles"``: per-tile-list binning (``bin_gaussians``) + the
-  hand-written CUDA list kernel (ops/tiles_composite.py, the counterpart of
-  JAX ``"pallas"``) at chunk ``max(chunk, 128)``, through its wrapper.
-  Forward only; ``spill_parts`` is None;
+- ``"cuda_tiles"``: per-tile-list binning (``bin_gaussians``) + the list
+  kernel K2 (ops/tiles_composite.py, the counterpart of JAX ``"pallas"``:
+  the lists laid out as a chunk-aligned stream through the forward's
+  hand-written row and combine kernels) at chunk ``max(chunk, 128)``,
+  through its wrapper. Forward only; ``spill_parts`` is None;
 - ``"torch_tiles"``: the same binning + the plain per-tile-list compositor
   (ops/composite.py, the counterpart of JAX ``"jnp"``) at ``chunk``,
   differentiable by plain autograd, on either device.

@@ -12,7 +12,12 @@ Usage:
 
 Writes ``<out>/<scene>/renders/<image>.png`` and ``<out>/results.json``
 (psnr, ssim, lpips, n_views, n_gaussians, spill per scene) and returns the
-results. LPIPS is reported as null: its network is not part of the port yet.
+results. LPIPS is the VGG16 distance of ``dge_tpu_torch/models/lpips.py``:
+with ``--vgg_checkpoint`` (a local torchvision VGG16 state dict) its convs
+are that file's, else they are random (seed 0), a structural distance and
+not calibrated LPIPS; it is then not the JAX tool's random number either,
+since the two packages draw their weights differently. ``--no_lpips``
+reports it as null. On a card the VGG convs run with cuDNN's TF32 off.
 Runs on the GPU unless ``--cpu`` is given. ``--backend`` picks the render
 backend (default: the device's own, the pair-stream kernel on a card).
 """
@@ -20,6 +25,7 @@ backend (default: the device's own, the pair-stream kernel on a card).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -56,6 +62,41 @@ def expand_scene_lists(args):
     return pairs
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in full float32 (they default to TF32 on a card),
+    as the JAX reference computes them."""
+    import torch
+
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def make_lpips(args, device):
+    """The LPIPS function the flags ask for, or None with ``--no_lpips``."""
+    if args.no_lpips:
+        return None
+    import torch
+
+    from dge_tpu_torch.models import lpips as LP
+
+    params = None
+    if args.vgg_checkpoint and os.path.exists(args.vgg_checkpoint):
+        params = LP.params_from_torchvision(torch.load(
+            args.vgg_checkpoint, map_location="cpu", weights_only=True))
+    fn, _ = LP.make_perceptual_fn(params=params, device=device)
+    if params is None:
+        print("[full_eval] LPIPS: no VGG checkpoint"
+              + (f" at {args.vgg_checkpoint}" if args.vgg_checkpoint else "")
+              + " - using random-init features (structural distance, not "
+              "calibrated LPIPS)", flush=True)
+    return fn
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--pairs", nargs="*", default=[],
@@ -73,6 +114,10 @@ def main(argv=None) -> dict:
     p.add_argument("--backend", default=None,
                    help="render backend (default: the device's own)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--vgg_checkpoint", default=None,
+                   help="torchvision VGG16 state dict (a local file) for "
+                   "calibrated LPIPS")
+    p.add_argument("--no_lpips", action="store_true")
     args = p.parse_args(argv)
 
     pairs = list(args.pairs) + expand_scene_lists(args)
@@ -91,8 +136,7 @@ def main(argv=None) -> dict:
     from dge_tpu_torch.utils import saving
 
     device = resolve_device("cpu" if args.cpu else "cuda")
-    print("[full_eval] LPIPS: its network (models/lpips.py) is not ported "
-          "yet; lpips is reported as null", flush=True)
+    lpips_fn = make_lpips(args, device)
 
     results = {}
     for pair in pairs:
@@ -116,7 +160,7 @@ def main(argv=None) -> dict:
                   "- the metrics below are computed on TRUNCATED renders",
                   file=sys.stderr, flush=True)
 
-        psnrs, ssims = [], []
+        psnrs, ssims, lpipss = [], [], []
         total_spill = 0
         out_dir = os.path.join(args.out, name, "renders")
         for cam, ca in zip(cs.cameras, cams):
@@ -134,10 +178,13 @@ def main(argv=None) -> dict:
                     gt_path, size=(args.height, args.width))).to(device)
                 psnrs.append(float(L.psnr(img, gt)))
                 ssims.append(float(L.ssim(img, gt)))
+                if lpips_fn is not None:
+                    with _no_tf32():
+                        lpipss.append(float(lpips_fn(img, gt)))
         results[name] = {
             "psnr": float(np.mean(psnrs)) if psnrs else None,
             "ssim": float(np.mean(ssims)) if ssims else None,
-            "lpips": None,
+            "lpips": float(np.mean(lpipss)) if lpipss else None,
             "n_views": len(cs.cameras),
             "n_gaussians": scene.n_alive,
             "spill": total_spill,  # nonzero = some view still truncated

@@ -272,7 +272,8 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
     before = dict(TPC.launch_counts)
     assert set(before) == {"pairs_composite", "pairs_composite_combine",
                            "pairs_pass1", "pairs_suffix", "pairs_pass2",
-                           "tiles_composite", "pairs_logdot",
+                           "pairs_fold", "list_stream", "tiles_composite",
+                           "pairs_logdot",
                            "pairs_logdot_combine"}
     xyz = ts.xyz.clone().requires_grad_(True)
     out = TR.render(ts.replace(xyz=xyz), CameraArrays.from_camera(cam, "cpu"),
@@ -438,3 +439,59 @@ def test_stream_composite_matches_autograd_of_plain_forward(tile_px, chunk):
                        [g.numpy() for g in res[1]],
                        ("mean2d", "conic", "rgb", "depth", "opacity"),
                        f"tile {tile_px} chunk {chunk}")
+
+
+def fold_case(seed):
+    """Per-pair gradients over five decades with repeated ids (a third of
+    the 60 Gaussians get no pair), and a reordering of the stream that keeps
+    each Gaussian's pairs in their order: a shuffle of the ids, each
+    Gaussian's pairs placed in order at the places its id went to."""
+    rng = np.random.default_rng(seed)
+    n, pc = 60, 700
+    ids = rng.integers(0, 40, size=pc).astype(np.int32)
+    g = (rng.normal(size=(10, pc))
+         * 10.0 ** rng.uniform(-2, 3, size=(1, pc))).astype(np.float32)
+    shuffled = rng.permutation(ids)
+    moved = np.empty_like(g)
+    for gid in np.unique(ids):
+        moved[:, shuffled == gid] = g[:, ids == gid]
+    return n, torch.from_numpy(ids), torch.from_numpy(g), \
+        torch.from_numpy(shuffled), torch.from_numpy(moved)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ordered_fold_matches_index_add(seed):
+    """The fold's plain version over ``fold_segments`` (the fold kernel's
+    arithmetic: a stable sort of pair_ids, each Gaussian's pairs added in
+    stream order from 0) against ``index_add_`` within 1e-6·max|g| (on the
+    CPU it is bit-identical: index_add_ adds serially in stream order), and
+    the wrapper's CPU path (``index_add_``) against both. A stream
+    reordered so that each Gaussian's pairs keep their order folds
+    bit-identically."""
+    n, ids, g, shuffled, moved = fold_case(seed)
+    want = torch.zeros(10, n).index_add_(1, ids.long(), g)
+    perm, seg = TPB.fold_segments(ids, n)
+    assert perm.dtype == torch.int64 and seg.dtype == torch.int32
+    assert seg.shape == (n + 1,) and int(seg[-1]) == ids.numel()
+    assert torch.equal(ids[perm].long(), torch.sort(ids.long()).values)
+    got = TPB.fold_reference(g, perm, seg)
+    assert float((got - want).abs().max()) <= 1e-6 * float(g.abs().max())
+    assert torch.equal(got, want)
+    assert torch.equal(TPB.fold_to_gaussians(g, ids, n), want)
+    assert float(got[:, 40:].abs().max()) == 0.0  # Gaussians with no pair
+    again = TPB.fold_reference(moved, *TPB.fold_segments(shuffled, n))
+    assert torch.equal(again, got)
+    assert torch.equal(TPB.fold_to_gaussians(moved, shuffled, n), got)
+    # a zero-gradient tail of one id (a pair binning's unused big-Gaussian
+    # slots) left out of the segments: the same bits, short segments
+    ids[600:], g[:, 600:] = 0, 0.0
+    used = torch.tensor(600)
+    want = torch.zeros(10, n).index_add_(1, ids.long(), g)
+    perm, seg = TPB.fold_segments(ids, n, used)
+    assert int(seg[-1]) == 600 and int((seg[1:] - seg[:-1]).max()) < 60
+    assert torch.equal(TPB.fold_reference(g, perm, seg), want)
+    assert torch.equal(TPB.fold_to_gaussians(g, ids, n, used), want)
+    with pytest.raises(ValueError, match="contiguous torch.float32"):
+        TPB.fold_to_gaussians(g.double(), ids, n)
+    with pytest.raises(ValueError, match=r"pair_ids \[Pc\]"):
+        TPB.fold_to_gaussians(g, ids[:-1], n)

@@ -116,9 +116,10 @@ def jax_full_eval():
 
 
 def test_full_eval_matches_reference_tool(tmp_path):
-    """The port's tool on the CPU against the JAX tool (``--no_lpips``) over
-    a tiny synthetic capture: the same ``results.json`` keys, PSNR within
-    0.01 dB and SSIM within 1e-4 on both render backends, lpips null."""
+    """The port's tool on the CPU against the JAX tool, both with
+    ``--no_lpips``, over a tiny synthetic capture: the same ``results.json``
+    keys, PSNR within 0.01 dB and SSIM within 1e-4 on both render backends,
+    lpips null."""
     ply, capture = write_synthetic_capture(str(tmp_path), n_views=3)
     common = ["--pairs", f"{ply}:{capture}", "--height", "32", "--width", "32"]
     jout = str(tmp_path / "jax")
@@ -128,7 +129,8 @@ def test_full_eval_matches_reference_tool(tmp_path):
     for backend in (None, "torch_tiles"):
         out = str(tmp_path / f"port_{backend}")
         extra = ["--backend", backend] if backend else []
-        res = TFE.main(common + ["--out", out, "--cpu"] + extra)
+        res = TFE.main(common + ["--out", out, "--cpu", "--no_lpips"]
+                       + extra)
         with open(os.path.join(out, "results.json")) as f:
             assert json.load(f) == res
         got = res["capture"]

@@ -485,17 +485,27 @@ def test_list_kernel_matches_plain_on_card(chunk, with_order):
         order = torch.from_numpy(perm).to(dev)
         lt = torch.from_numpy(np.argsort(perm).astype(np.int32)[lists]).to(dev)
     kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
-    before = TPC.launch_counts["tiles_composite"]
+    before = dict(TPC.launch_counts)
     got = TTC.composite_tiles_kernel(TTC.feature_table(*feats), lt, ct, order,
                                      **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["tiles_composite"] == before + 1
+    # K2 runs its layout kernel, then K1's row and combine kernels over the
+    # aligned list stream
+    for k in ("list_stream", "tiles_composite", "pairs_composite",
+              "pairs_composite_combine"):
+        assert TPC.launch_counts[k] == before[k] + 1, k
     want = TCMP.composite_lists(lt, ct, *feats, order=order, **kw)
     err = (got - want).abs()
     assert float(err[:, 0:3].max()) <= 1e-4
     assert float(err[:, 3].max()) <= 1e-3
     assert float(err[:, 4].max()) <= 2e-4
     assert float(got[1, 4].min()) == 1.0  # the empty tile
+    # the layout kernel alone: the same bits as its plain version
+    _, _, cum, n_rows = TTC.list_rows(ct, chunk)
+    layout = (TTC.feature_table(*feats), lt, ct, order, cum, n_rows, chunk)
+    for x, y in zip(TTC.list_stream(*layout),
+                    TTC.list_stream_reference(*layout)):
+        assert torch.equal(x, y)
 
 
 @pytest.mark.gpu
@@ -530,9 +540,9 @@ def test_logdot_kernel_matches_plain_on_card(chunk):
 
 @pytest.mark.gpu
 def test_cuda_tiles_raises_when_the_library_cannot_load(monkeypatch):
-    """A scene on the card with ``backend="cuda_tiles"`` raises when the
-    kernel library cannot be built or loaded; it never falls back to the
-    plain version."""
+    """K2 on the card raises when a library of the kernels it runs (its
+    layout kernel; K1's row and combine kernels) cannot be built or loaded;
+    it never falls back to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from dge_tpu_torch.ops import cuda_build
@@ -551,7 +561,7 @@ def test_cuda_tiles_raises_when_the_library_cannot_load(monkeypatch):
     monkeypatch.setattr(TTC, "_lib", None)
     monkeypatch.setattr(cuda_build, "build_library", broken)
     before = TPC.launch_counts["tiles_composite"]
-    with pytest.raises(RuntimeError, match="nvcc failed: tiles_composite"):
+    with pytest.raises(RuntimeError, match="nvcc failed: list_stream"):
         TTC.composite_tiles_kernel(
             table, torch.from_numpy(lists).to(dev),
             torch.from_numpy(counts).to(dev), tiles_x=tiles_x, tile_px=16,
@@ -599,7 +609,7 @@ def test_build_paths_stay_in_repo():
     for name in cuda_build.SOURCES:
         assert os.path.isfile(cuda_build.source_path(name))
     assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward",
-                                  "tiles_composite", "pairs_logdot")
+                                  "pairs_logdot", "list_stream")
     assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "pair_alpha.cuh"))
 
 

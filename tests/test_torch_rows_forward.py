@@ -247,7 +247,8 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
     before = dict(TPC.launch_counts)
     assert set(before) == {"pairs_composite", "pairs_composite_combine",
                            "pairs_pass1", "pairs_suffix", "pairs_pass2",
-                           "tiles_composite", "pairs_logdot",
+                           "pairs_fold", "list_stream", "tiles_composite",
+                           "pairs_logdot",
                            "pairs_logdot_combine"}
     for log_space in (False, True):
         scratch, mask = TPC.rows_forward(*args, k["row_tile"],

@@ -34,7 +34,7 @@ from dge_tpu_torch.scene.camera_arrays import CameraArrays
 from dge_tpu_torch.tools import proto_logdot as TLD
 from tests.conftest import make_random_scene, make_test_camera
 from tests.test_torch_backward import assert_grads_close
-from tests.test_torch_kernel import random_stream
+from tests.test_torch_kernel import random_lists, random_stream
 from tests.test_torch_ops import boundary_stream, shared_prep
 from tests.test_torch_scene import to_port
 
@@ -277,9 +277,38 @@ def test_block_boundary_semantics_tile_relative():
     np.testing.assert_allclose(out[0, 0].numpy(), 0.9975, atol=1e-6)
 
 
+def list_rows_plain(table, lists, counts, order=None, *, tiles_x, tile_px,
+                    chunk):
+    """K2's layout through the two kernels' plain versions, called
+    directly: the aligned list stream, ``rows_forward_reference``,
+    ``rows_combine_reference``."""
+    starts, blk_off, cum, n_rows = TTC.list_rows(counts, chunk)
+    data, row_tile = TTC.list_stream_reference(table, lists, counts, order,
+                                               cum, n_rows, chunk)
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    scratch, mask = TPC.rows_forward_reference(data, starts, counts, blk_off,
+                                               row_tile, **kw)
+    return TPC.rows_combine_reference(scratch, mask, data, starts, counts,
+                                      blk_off, **kw)
+
+
+def assert_lists_close(got, want, what=""):
+    """K2's layout against ``composite_lists``: colour and final T within
+    1e-6, depth within 1e-6 of its largest value (a row whose every pair is
+    applied adds ``T·L``, the row's sum taken from T = 1, where the plain
+    version adds ``T·cp/(1-α)·α·c`` pair by pair: f32 rounding only)."""
+    err = (got - want).abs()
+    assert float(err[:, 0:3].max()) <= 1e-6, what
+    assert float(err[:, 4].max()) <= 1e-6, what
+    assert float(err[:, 3].max()) <= 1e-6 * max(
+        1.0, float(want[:, 3].abs().max())), what
+
+
 def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
-    """On CPU tensors the list kernel's wrapper runs the plain version, with
-    and without ``order``, counts no launch, and checks what it is given."""
+    """On CPU tensors the list kernel's wrapper runs the two kernels' plain
+    versions over its aligned list stream, with and without ``order``,
+    counts no launch, and checks what it is given; it agrees with the plain
+    list compositor ``composite_lists``."""
     prep, lists, counts, geom = list_case(rng)
     feats = [t_(prep[k]) for k in FEAT_NAMES]
     table = TTC.feature_table(*feats)
@@ -287,15 +316,17 @@ def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
     kw = dict(tiles_x=geom["tiles_x"], tile_px=16, chunk=128)
     before = dict(TPC.launch_counts)
     got = TTC.composite_tiles_kernel(table, t_(lists), t_(counts), **kw)
+    assert torch.equal(got, list_rows_plain(table, t_(lists), t_(counts),
+                                            **kw))
     want = TCMP.composite_lists(t_(lists), t_(counts), *feats, **kw)
-    assert torch.equal(got, want)
+    assert_lists_close(got, want)
     # a depth permutation: features permuted, lists index through `order`
     n = table.shape[0]
     perm = np.random.default_rng(5).permutation(n).astype(np.int32)
     inv = np.argsort(perm).astype(np.int32)
     via = TTC.composite_tiles_kernel(table, t_(inv[lists]), t_(counts),
                                      t_(perm), **kw)
-    assert torch.equal(via, want)
+    assert torch.equal(via, got)
     assert TPC.launch_counts == before
     with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
         TTC.composite_tiles_kernel(table, t_(lists).long(), t_(counts), **kw)
@@ -309,9 +340,104 @@ def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
     tcam = CameraArrays.from_camera(cam, "cpu")
     named = TR.render(ts, tcam, tile_px=16, backend="cuda_tiles")
     plain = TR.render(ts, tcam, tile_px=16, backend="torch_tiles", chunk=128)
-    assert torch.equal(named.color, plain.color)
+    assert float((named.color - plain.color).abs().max()) <= 1e-6
     assert float(named.alpha.max()) > 0.5
     assert TPC.launch_counts == before
+
+
+def test_list_rows_layout():
+    """K2's aligned list stream on a hand case: chunk 4, counts 3, 0, 5 →
+    tile starts 0, 4, 4 (multiples of the chunk), rows (tile 0), (tile 2,
+    chunk 0), (tile 2, chunk 1); each slot at its tile's start plus the
+    slot, through ``order`` when given, zeros past a tile's count; the
+    layout wrapper takes its plain version on CPU tensors and counts no
+    launch."""
+    counts = torch.tensor([3, 0, 5], dtype=torch.int32)
+    starts, blk_off, cum, n_rows = TTC.list_rows(counts, 4)
+    assert n_rows == 3
+    assert starts.tolist() == [0, 4, 4] and blk_off.tolist() == [0, 1, 1]
+    assert cum.tolist() == [1, 1, 3]
+    assert starts.dtype == blk_off.dtype == cum.dtype == torch.int32
+    table = torch.arange(20 * TPC.FEAT, dtype=torch.float32).reshape(20, -1)
+    lists = torch.tensor([[7, 3, 9, 1, 1, 1], [0] * 6, [2, 4, 6, 8, 5, 11]],
+                         dtype=torch.int32)
+    before = dict(TPC.launch_counts)
+    data, row_tile = TTC.list_stream(table, lists, counts, None, cum, n_rows,
+                                     4)
+    assert TPC.launch_counts == before
+    assert row_tile.tolist() == [0, 2, 2] and row_tile.dtype == torch.int32
+    assert data.shape == (TPC.FEAT, 12) and data.is_contiguous()
+    want = {0: 7, 1: 3, 2: 9, 4: 2, 5: 4, 6: 6, 7: 8, 8: 5}
+    for pos in range(12):
+        expect = table[want[pos]] if pos in want else torch.zeros(TPC.FEAT)
+        assert torch.equal(data[:, pos], expect), pos
+    order = torch.arange(19, -1, -1, dtype=torch.int32)
+    via, _ = TTC.list_stream(table, lists, counts, order, cum, n_rows, 4)
+    for pos, g in want.items():
+        assert torch.equal(via[:, pos], table[19 - g]), pos
+    empty = TTC.list_rows(torch.zeros(3, dtype=torch.int32), 4)
+    assert empty[3] == 0
+    data, row_tile = TTC.list_stream(table, lists, torch.zeros_like(counts),
+                                     None, empty[2], 0, 4)
+    assert data.shape == (TPC.FEAT, 0) and row_tile.numel() == 0
+
+
+@pytest.mark.parametrize("tile_px,chunk", [(8, 16), (8, 32), (16, 16),
+                                           (16, 32)])
+@pytest.mark.parametrize("with_order", [False, True])
+def test_list_rows_match_lists_and_pallas(tile_px, chunk, with_order):
+    """K2's layout, the aligned list stream through the plain row + combine
+    arithmetic (what the wrapper runs on CPU tensors, and its kernels on a
+    card), against ``composite_lists`` (``assert_lists_close``) and against
+    the Pallas list kernel ``composite_tiles_pallas`` in interpret mode
+    (colour 1e-4, depth 1e-3, final T 2e-4), on lists of up to five chunks
+    with two empty tiles and a full one, directly and through ``order``;
+    every case of the combine fires."""
+    rng = np.random.default_rng(tile_px * 100 + chunk + with_order)
+    _, _, _, m, c, r, d, o, tiles_x = random_stream(rng, 8, tile_px, tail=0)
+    # wider and more opaque than random_stream's: pixels saturate
+    c = (c * 0.1).astype(np.float32)
+    o = rng.uniform(0.2, 0.99, size=o.shape).astype(np.float32)
+    lists, counts = random_lists(rng, 8, 5 * chunk - 3)
+    counts[5] = 0
+    order = None
+    if with_order:
+        perm = rng.permutation(80).astype(np.int32)
+        order = perm
+        lists = np.argsort(perm).astype(np.int32)[lists]
+    feats = [t_(x) for x in (m, c, r, d, o)]
+    kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
+    table = TTC.feature_table(*feats)
+    ot = None if order is None else t_(order)
+    got = list_rows_plain(table, t_(lists), t_(counts), ot, **kw)
+    assert torch.equal(got, TTC.composite_tiles_kernel(
+        table, t_(lists), t_(counts), ot, **kw))
+    assert_lists_close(got, TCMP.composite_lists(t_(lists), t_(counts),
+                                                 *feats, order=ot, **kw))
+    assert float(got[1, 4].min()) == float(got[5, 4].min()) == 1.0
+    tiles_y = 8 // tiles_x
+    geom = dict(height=tiles_y * tile_px, width=tiles_x * tile_px,
+                tiles_x=tiles_x, tiles_y=tiles_y, tile_px=tile_px)
+    jc, jd, jt = JPC.composite_tiles_pallas(
+        jnp.asarray(lists), jnp.asarray(counts),
+        *(jnp.asarray(x) for x in (m, c, r, d, o)), bg=jnp.zeros(3),
+        chunk=chunk, interpret=True,
+        order=None if order is None else jnp.asarray(order), **geom)
+    tc, td, tt = TCMP.tiles_to_image(got, torch.zeros(3), **geom)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=1e-4)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), atol=1e-3)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), atol=2e-4)
+    # the row + combine cases, from the plain versions' boundary T
+    starts, blk_off, cum, n_rows = TTC.list_rows(t_(counts), chunk)
+    data, row_tile = TTC.list_stream(table, t_(lists), t_(counts), ot, cum,
+                                     n_rows, chunk)
+    scratch, mask = TPC.rows_forward_reference(data, starts, t_(counts),
+                                               blk_off, row_tile, **kw)
+    _, bt = TPC.rows_combine_reference(scratch, mask, data, starts,
+                                       t_(counts), blk_off, boundary=True,
+                                       **kw)
+    cases = TPC.combine_cases(scratch, bt, row_tile, 8)
+    assert min(cases["all"], cases["none"], cases["walk"]) > 0, cases
 
 
 def test_render_weights_matches_reference(rng):
