@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -78,7 +78,7 @@ process per source, started together) and runs:
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all six ran.
+gate's own recipe); the result lines are printed only when all seven ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -137,7 +137,14 @@ LIST_VS_STREAM_TOL = 1e-2
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = {1, 2, 3, 4, 5, 6}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+# phase 7, the edit path: 10 views in camera batches of 5, one edit round,
+# a refit that passes one densify (step 100)
+EDIT_VIEWS = 10
+EDIT_BATCH = 5
+EDIT_STEPS = 150
+SDPA_TOL = 1e-4  # x max|chunked plain attention|
+ARGMAX_GAP = 1e-5  # dense top-2 gap above which the argmax indices must agree
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
@@ -1560,11 +1567,163 @@ def full_width_cell(name, scene, cam, bg, *, chunk=64, **start):
     return cell
 
 
+def attention_vs_chunked(dev) -> list:
+    """SDPA, pinned to ``EFFICIENT_ATTENTION`` by the port's rule
+    (``layers.sdpa_takes``), against the chunked plain attention (k_chunk
+    1024) at the pivot pass's full shapes: 3 CFG chunks x 8 heads over 2 key
+    frames of the 64^2 latent's blocks (head width 40 over 8,192 tokens, 80
+    over 2,048, 160 over 512), and the VAE mid block's one head of 512 over
+    4,096 tokens for 5 views; within 1e-4·max|out|. Prints the backend each
+    head width takes."""
+    import torch
+
+    from dge_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for b, h, s, d in ((3, 8, 8192, 40), (3, 8, 2048, 80), (3, 8, 512, 160),
+                       (5, 1, 4096, 512)):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+                   for _ in range(3))
+        got = L.attend_heads(q, k, v, k_chunk=1024)
+        want = L.attend_chunked(q, k, v, k_chunk=1024)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        res = dict(
+            shape=[b, h, s, d],
+            backend=("EFFICIENT_ATTENTION" if L.sdpa_takes(d, q.dtype)
+                     else "chunked"),
+            max_abs_err=err, max_abs_out=scale,
+            ms=cuda_ms(lambda: L.attend_heads(q, k, v)),
+            plain_ms=cuda_ms(lambda: L.attend_chunked(q, k, v, 1024), reps=3,
+                             warmup=1))
+        log(f"  attention {res}")
+        if err > SDPA_TOL * scale:
+            raise AssertionError(f"attention {res['shape']}: SDPA differs "
+                                 f"from the chunked version by {err}")
+        out.append(res)
+    return out
+
+
+def blockwise_vs_dense(cams, dev) -> dict:
+    """``epi_blockwise_argmax`` against the dense path of the pivot reuse at
+    a full-width 32^2 latent (S = 1,024 tokens of width 640, the second down
+    block): 5 capture views (pivot 2) against 2 key views, normalised random
+    tokens; the indices must agree wherever the dense top-2 gap exceeds
+    1e-5."""
+    import torch
+
+    from dge_tpu_torch.models import layers as L
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    cams_b, keys = stack_cameras(cams[5:10]), stack_cameras([cams[1], cams[7]])
+    band = GD.make_cross_view_state(cams_b, keys, 2, 32, 32, 2, 1.0, "banded")
+    dense = GD.make_cross_view_state(cams_b, keys, 2, 32, 32, 2, 1.0, "dense")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    img = L._unit(torch.randn(5, 1024, 640, generator=gen, device=dev))
+    piv = L._unit(torch.randn(5, 2, 1024, 640, generator=gen, device=dev))
+
+    def banded():
+        return L.epi_blockwise_argmax(img, piv, band.epi_lines[1024],
+                                      band.epi_pts[1024], 1.0)
+
+    def dense_masked():
+        sim = torch.einsum("fsd,fktd->fkst", img, piv)
+        viol = dense.epipolar[1024]
+        return torch.where(viol & ~viol.all(dim=-1, keepdim=True), 0.0, sim)
+
+    sim = dense_masked()
+    top2 = sim.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > ARGMAX_GAP
+    got, want = banded(), sim.argmax(dim=-1)
+    res = dict(queries=int(clear.numel()), clear=int(clear.sum()),
+               mismatched_clear=int(((got != want) & clear).sum()),
+               mismatched_all=int((got != want).sum()),
+               ms=cuda_ms(banded, reps=5, warmup=1),
+               dense_ms=cuda_ms(lambda: dense_masked().argmax(dim=-1),
+                                reps=5, warmup=1))
+    log(f"  epi_blockwise_argmax vs dense at S=1024: {res}")
+    if res["mismatched_clear"]:
+        raise AssertionError("epi_blockwise_argmax differs from the dense "
+                             "path where the top-2 gap exceeds 1e-5")
+    return res
+
+
+def edit_stage_times(cams, dev) -> dict:
+    """CUDA-event medians at the edit path's full shapes (SD-1.5 widths,
+    random weights, 64^2 latents of the 512^2 guidance input, 10 views in 2
+    camera batches of 5, text of 77 tokens): the UNet in plain mode at batch
+    15 (5 views x 3 CFG chunks), the pivot pass (2 key frames x 3) and one
+    2-key reuse pass (batch 15); the VAE encode and decode of 5 views at
+    512^2; one DDIM step of the loop at t >= 100 (pivot pass, both reuse
+    passes, CFG, update)."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ddim
+    from dge_tpu_torch.diffusion import ip2p as P
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    models = P.build_models(seed=0, device=dev)
+    g = GD.DGEGuidance(GD.GuidanceConfig(camera_batch_size=EDIT_BATCH),
+                       models)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n = EDIT_VIEWS
+    lat = torch.randn(n, 64, 64, 4, generator=gen, device=dev)
+    cond = torch.randn(3 * n, 64, 64, 4, generator=gen, device=dev)
+    te = torch.randn(3 * n, 77, 768, generator=gen, device=dev)
+    t = 500
+
+    def inp(idx):
+        return torch.cat([P.triple(lat[idx]), cond[:3 * len(idx)]], dim=-1)
+
+    batch = torch.arange(EDIT_BATCH, 2 * EDIT_BATCH, device=dev)
+    piv = torch.tensor([2, 7], device=dev)
+    record = {}
+    cams_all = stack_cameras(cams[:n])
+    cv = GD.make_cross_view_state(stack_cameras(cams[5:10]),
+                                  stack_cameras([cams[2], cams[7]]), 2, 64,
+                                  64, 2)
+    imgs = torch.rand(EDIT_BATCH, 512, 512, 3, generator=gen, device=dev)
+    emb_pos, emb_neg = te[:n], te[n:2 * n]
+    cond_img, cond_zero = cond[:n], torch.zeros_like(cond[:n])
+
+    def triple_for(idx):
+        return (torch.cat([emb_pos[idx], emb_neg[idx], emb_neg[idx]]),
+                torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]]))
+
+    def one_step():
+        eps = g._predict_eps_multiview(lat, t, cams_all, triple_for, n,
+                                       EDIT_BATCH, n // EDIT_BATCH, 64, 64,
+                                       gen)
+        return ddim.step(models.schedule, eps, t, lat, 20)
+
+    res = dict(
+        unet_plain_b15_ms=cuda_ms(lambda: P.unet_eps(
+            models, inp(batch), t, te[:15]), reps=3, warmup=1),
+        pivot_pass_b6_ms=cuda_ms(lambda: P.unet_eps(
+            models, inp(piv), t, te[:6], mode="pivot_record", pivot=record),
+            reps=3, warmup=1),
+        reuse_pass_b15_ms=cuda_ms(lambda: P.unet_eps(
+            models, inp(batch), t, te[:15], mode="pivot_reuse",
+            cross_view=cv, pivot=record), reps=3, warmup=1),
+        vae_encode_5x512_ms=cuda_ms(lambda: P.encode_images(models, imgs,
+                                                             gen),
+                                    reps=3, warmup=1),
+        vae_decode_5x512_ms=cuda_ms(lambda: P.decode_latents(models,
+                                                             lat[:5]),
+                                    reps=3, warmup=1),
+        ddim_step_10_views_ms=cuda_ms(one_step, reps=3, warmup=1))
+    log(f"  edit path stages: {res}")
+    del models, g, record
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -2121,8 +2280,87 @@ def main(argv=None) -> int:
                   list_cells=list_cells, logdot=main_k5,
                   logdot_launches=tool_launches)
 
+    # ---- phase 7: the edit path (--train, full-width random networks) ---
+    edit = {}
+    if 7 in phases:
+        log("phase 7: edit path (dge_tpu_torch.launch --train --smoke, "
+            f"quality-gate scene over {EDIT_VIEWS} views of fit_capture at "
+            f"256^2, full-width SD-1.5 networks on random weights, camera "
+            f"batches of {EDIT_BATCH}, 20 DDIM steps, {EDIT_STEPS} refit "
+            "steps)")
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.reset_peak_memory_stats()
+            PC.reset_launch_counts()
+            trun = launch.main([
+                "--train", "--smoke", "--gs_source", QUALITY_PLY, "--source",
+                CAPTURE, "--out", tmp, "data.height=256", "data.width=256",
+                f"data.max_view_num={EDIT_VIEWS}",
+                f"system.guidance.camera_batch_size={EDIT_BATCH}",
+                "system.prompt=turn him into a clown",
+                f"system.edit.max_steps={EDIT_STEPS}",
+                "system.edit.densify_from=100",
+                f"system.edit.camera_update_per_step={EDIT_STEPS + 1}"])
+            edit_launches = dict(PC.launch_counts)
+            peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+            escene = G.load_ply(trun.ply_path, device=dev)
+        log(f"  launches during the edit path: {edit_launches}")
+        frames = [trun.edit_frames[v] for v in sorted(trun.edit_frames)]
+        bad = [i for i, f in enumerate(frames)
+               if f.shape != (256, 256, 3) or not np.isfinite(f).all()
+               or f.min() < 0.0 or f.max() > 1.0]
+        if len(frames) != EDIT_VIEWS or bad:
+            raise AssertionError(f"edit path: {len(frames)} edited frames, "
+                                 f"bad {bad}")
+        if not trun.losses_finite:
+            raise AssertionError("edit path: a refit loss was not finite")
+        if trun.spill or trun.render_spill:
+            raise AssertionError(f"edit path: spill {trun.spill} in the "
+                                 f"refit, {trun.render_spill} in the renders")
+        if escene.n_alive == 0:
+            raise AssertionError("edit path: last.ply holds no Gaussian")
+        need = {k: 2 * EDIT_VIEWS + EDIT_STEPS
+                for k in FORWARD_FORMS[False][:2]}
+        need.update({k: EDIT_STEPS for k in BACKWARD_KERNELS})
+        short = {k: (edit_launches[k], v) for k, v in need.items()
+                 if edit_launches[k] < v}
+        if short:
+            raise AssertionError(f"edit path: kernels launched too few times "
+                                 f"(got, need): {short}")
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        ecams = [CameraArrays.from_camera(c, device=dev)
+                 for c in DS.subsample_views(cs.cameras, EDIT_VIEWS)]
+        # the refit's kernels at the edit path's shapes: the edited scene,
+        # view 0, the loop's final caps
+        ecaps = {k: v for k, v in trun.caps.items()
+                 if k not in ("tile_px", "chunk", "tight_cull")}
+        inp = stream_inputs(escene, ecams[0], ecaps, trun.caps["tight_cull"],
+                            trun.caps["tile_px"], trun.caps["chunk"])
+        a = hold(inp, "edit refit view 0")
+        fold_edit = fold_cell(a, inp["pair_ids"], escene.capacity,
+                              "edit refit view 0")
+        errs["pairs_fold"].append(fold_edit["max_abs_err"])
+        smi_line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        edit = dict(
+            launches=edit_launches, steps=trun.steps,
+            seconds=trun.seconds,
+            edit_round_s=trun.seconds["edit"],
+            refit_steps_per_s=trun.steps / trun.seconds["fit"],
+            peak_memory_gib=peak_gb, n_alive=escene.n_alive, caps=trun.caps,
+            refit_view0=dict(pairs=inp["pairs"], rows=a["rows"]),
+            fold=fold_edit, attention=attention_vs_chunked(dev),
+            blockwise_argmax=blockwise_vs_dense(ecams, dev),
+            stages=edit_stage_times(ecams, dev), card=smi_line)
+        log(f"  edit round {edit['edit_round_s']:.2f} s, refit "
+            f"{edit['refit_steps_per_s']:.2f} steps/s, peak memory "
+            f"{peak_gb:.2f} GiB, host seconds {trun.seconds}, alive "
+            f"{escene.n_alive}, caps {trun.caps} ({smi_line})")
+
     if phases != ALL_PHASES:
-        log(f"phases {sorted(phases)} passed; the result lines need all six")
+        log(f"phases {sorted(phases)} passed; the result lines need all "
+            "seven")
         return 0
 
     v0 = fit["view0"]
@@ -2161,6 +2399,7 @@ def main(argv=None) -> int:
             }
             if not log_space:
                 entry["launches_fit"] = fit["launches"][key]
+                entry["launches_edit"] = edit["launches"][key]
             forward.append(entry)
     kernels = forward + [{
         "name": "pairs_pass1",
@@ -2168,6 +2407,7 @@ def main(argv=None) -> int:
         "source": "dge_tpu_torch/csrc/pairs_backward.cu",
         "replaces": "dge_tpu/ops/pallas_backward.py:111",
         "launches": fit["launches"]["pairs_pass1"],
+        "launches_edit": edit["launches"]["pairs_pass1"],
         "max_abs_err": max(errs["pairs_pass1"]),
         "max_rel_err": max(rels["pairs_pass1"]),  # of the field's max
         "ms": v0["pass1_ms"],  # the row kernel; the whole wrapper below
@@ -2184,6 +2424,7 @@ def main(argv=None) -> int:
         "source": "dge_tpu_torch/csrc/pairs_backward.cu",
         "replaces": "dge_tpu/ops/pallas_backward.py:287",
         "launches": fit["launches"]["pairs_suffix"],
+        "launches_edit": edit["launches"]["pairs_suffix"],
         "max_abs_err": max(errs["pairs_suffix"]),
         "max_rel_err": max(rels["pairs_suffix"]),  # of the field's max
         "ms": v0["suffix_ms"],
@@ -2199,6 +2440,7 @@ def main(argv=None) -> int:
         "source": "dge_tpu_torch/csrc/pairs_backward.cu",
         "replaces": "dge_tpu/ops/pallas_backward.py:157",
         "launches": fit["launches"]["pairs_pass2"],
+        "launches_edit": edit["launches"]["pairs_pass2"],
         "max_abs_err": max(errs["pairs_pass2"]),
         "max_rel_err": max(rels["pairs_pass2"]),  # of the row's max |grad|
         "ms": v0["pass2_ms"],
@@ -2214,6 +2456,7 @@ def main(argv=None) -> int:
         # the `.at[].add` fold after the backward kernels (jnp, no Pallas)
         "replaces": "dge_tpu/ops/pallas_backward.py:341",
         "launches": fit["launches"]["pairs_fold"],
+        "launches_edit": edit["launches"]["pairs_fold"],
         "max_abs_err": max(errs["pairs_fold"]),
         **{k: fit["fold"][k] for k in (
             "ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
@@ -2260,7 +2503,8 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
-              "evaluation": ev, "card": smi, "seconds": time.time() - t_start}
+              "evaluation": ev, "edit": edit, "card": smi,
+              "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

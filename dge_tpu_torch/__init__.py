@@ -1,7 +1,8 @@
 """dge_tpu_torch — the PyTorch/CUDA port of ``dge_tpu`` for NVIDIA Hopper.
 
 The package keeps ``dge_tpu``'s module layout (``scene/``, ``ops/``,
-``utils/``, ``launch.py``) so that each counterpart is easy to find; every
+``models/``, ``diffusion/``, ``systems/``, ``parallel/``, ``utils/``,
+``launch.py``) so that each counterpart is easy to find; every
 module's docstring names its JAX counterpart. It imports ``torch`` and never
 ``jax`` or ``dge_tpu``.
 

@@ -1,0 +1,201 @@
+"""InstructPix2Pix pipeline (functional).
+
+JAX counterpart: ``dge_tpu/diffusion/ip2p.py``. Reference analog: the
+diffusers StableDiffusionInstructPix2PixPipeline that the guidance wraps
+(dge_guidance.py:53-135) and its latent helpers (encode_images :190-199,
+encode_cond_images :201-218 with the 3-way [img, img, zeros] conditioning,
+decode_latents :221-235).
+
+The networks run NCHW inside; at this module's edges images are
+``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]``, the JAX layout. The
+UNet input is ``concat([noisy_latent, cond_latent], channel)`` (8 channels)
+and classifier-free guidance is IP2P's 3-way form (dge_guidance.py:362-368):
+
+    eps = eps_uncond + s_text * (eps_text - eps_image)
+                     + s_image * (eps_image - eps_uncond)
+
+Every random draw goes through ``_normal`` with an explicit
+``torch.Generator`` on the models' device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from dge_tpu_torch import resolve_device
+from dge_tpu_torch.diffusion import ddim
+from dge_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
+from dge_tpu_torch.models.layers import init_like_flax
+from dge_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
+from dge_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+
+class IP2PModels(NamedTuple):
+    unet: UNet2DConditionModel
+    vae: AutoencoderKL
+    text_encoder: CLIPTextModel
+    schedule: ddim.DDIMSchedule
+
+    @property
+    def device(self) -> torch.device:
+        return self.schedule.alphas_cumprod.device
+
+
+def build_models(unet_cfg: Optional[UNetConfig] = None,
+                 vae_cfg: Optional[VAEConfig] = None,
+                 text_cfg: Optional[CLIPTextConfig] = None,
+                 params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+                 seed: int = 0, device="cuda") -> IP2PModels:
+    """The three networks on ``device`` in eval mode, frozen. ``params``
+    (``{"unet", "vae", "text_encoder"}`` state dicts, from
+    ``weights.load_ip2p_checkpoint`` or ``*_params_from_jax``) load strictly;
+    without them the weights are drawn as flax initialises the JAX modules
+    (``layers.init_like_flax``) from ``seed``."""
+    dev = resolve_device(device)
+    with dev:
+        unet = UNet2DConditionModel(unet_cfg or UNetConfig())
+        vae = AutoencoderKL(vae_cfg or VAEConfig())
+        text = CLIPTextModel(text_cfg or CLIPTextConfig())
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        init_like_flax(unet, gen)
+        init_like_flax(vae, gen)
+        text.init_like_flax(gen)
+    else:
+        unet.load_state_dict(params["unet"])
+        vae.load_state_dict(params["vae"])
+        text.load_state_dict(params["text_encoder"])
+    for m in (unet, vae, text):
+        m.eval().requires_grad_(False)
+    return IP2PModels(unet, vae, text, ddim.make_schedule(device=dev))
+
+
+def _normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """A standard normal draw of ``shape`` (f32, the generator's device)."""
+    return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+@torch.no_grad()
+def encode_text(models: IP2PModels, input_ids) -> torch.Tensor:
+    """Token ids [B, S] -> last hidden states [B, S, D]."""
+    ids = torch.as_tensor(input_ids, dtype=torch.long, device=models.device)
+    return models.text_encoder(ids)
+
+
+def _chunks(b: int, chunk: Optional[int]):
+    """Leading-axis slices of at most ``chunk`` (all of it when None).
+    Full-size VAE activations at 512^2 are ~1.3 GB per conv buffer per 20
+    images, so the guidance encodes and decodes in chunks."""
+    step = chunk if chunk and b > chunk else b
+    return [slice(i, i + step) for i in range(0, b, step)]
+
+
+@torch.no_grad()
+def encode_images(models: IP2PModels, rgb: torch.Tensor,
+                  generator: torch.Generator,
+                  chunk: Optional[int] = None) -> torch.Tensor:
+    """[B, H, W, 3] in [0, 1] -> sampled scaled latents [B, H/8, W/8, 4]
+    (encode_images, dge_guidance.py:190-199); one posterior draw per chunk,
+    in chunk order."""
+    vae = models.vae
+    out = []
+    for sl in _chunks(rgb.shape[0], chunk):
+        x = nchw(rgb[sl]) * 2.0 - 1.0
+        b, _, h, w = x.shape
+        f = vae.downscale
+        noise = _normal((b, h // f, w // f, vae.config.latent_channels),
+                        generator)
+        out.append(nhwc(vae.encode(x, nchw(noise))))
+    return torch.cat(out, dim=0)
+
+
+@torch.no_grad()
+def encode_cond_images(models: IP2PModels, rgb: torch.Tensor,
+                       chunk: Optional[int] = None) -> torch.Tensor:
+    """Conditioning latents: the posterior mode, tripled [img, img, zeros]
+    (encode_cond_images, dge_guidance.py:201-218)."""
+    lat = torch.cat([nhwc(models.vae.encode(nchw(rgb[sl]) * 2.0 - 1.0))
+                     for sl in _chunks(rgb.shape[0], chunk)], dim=0)
+    return torch.cat([lat, lat, torch.zeros_like(lat)], dim=0)
+
+
+@torch.no_grad()
+def decode_latents(models: IP2PModels, latents: torch.Tensor,
+                   chunk: Optional[int] = None) -> torch.Tensor:
+    """[B, h, w, 4] -> images [B, 8h, 8w, 3] in [0, 1]."""
+    return torch.cat([
+        nhwc(models.vae.decode(nchw(latents[sl]))).mul(0.5).add(0.5)
+        .clamp(0.0, 1.0) for sl in _chunks(latents.shape[0], chunk)], dim=0)
+
+
+@torch.no_grad()
+def unet_eps(models: IP2PModels, inp: torch.Tensor, t: int,
+             text_emb: torch.Tensor, **kw) -> torch.Tensor:
+    """The UNet on [B, h, w, 8] latents at timestep ``t`` -> eps
+    [B, h, w, 4]; ``kw``: the cross-view ``mode``, ``cross_view``,
+    ``pivot``."""
+    ts = torch.full((inp.shape[0],), int(t), dtype=torch.long,
+                    device=inp.device)
+    return nhwc(models.unet(nchw(inp), ts, text_emb, **kw))
+
+
+def cfg_combine(eps_text, eps_image, eps_uncond, guidance_scale: float,
+                condition_scale: float):
+    return (eps_uncond + guidance_scale * (eps_text - eps_image)
+            + condition_scale * (eps_image - eps_uncond))
+
+
+def triple(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x, x, x], dim=0)
+
+
+@torch.no_grad()
+def edit_images_single_view(
+        models: IP2PModels, rgb: torch.Tensor, cond_rgb: torch.Tensor,
+        text_emb_pos: torch.Tensor, text_emb_neg: torch.Tensor,
+        generator: torch.Generator, *, t_start: int = 999,
+        num_steps: int = 20, guidance_scale: float = 7.5,
+        condition_scale: float = 1.5) -> torch.Tensor:
+    """Per-view IP2P editing with no cross-view attention (BASELINE.md
+    config 3). Returns the edited [B, H, W, 3]."""
+    latents = encode_images(models, rgb, generator)
+    cond_lat = encode_cond_images(models, cond_rgb)
+    text_emb = torch.cat([text_emb_pos, text_emb_neg, text_emb_neg], dim=0)
+    # truncated schedule over [0, t_start] (edit_latents sets
+    # num_train_timesteps to the sampled t and noises at the same t,
+    # dge_guidance.py:267-296)
+    sched = models.schedule._replace(
+        num_train_timesteps=max(t_start, num_steps))
+    noise = _normal(tuple(latents.shape), generator)
+    latents = ddim.add_noise(sched, latents, noise, t_start)
+    for t in ddim.inference_timesteps(sched, num_steps):
+        inp = torch.cat([triple(latents), cond_lat], dim=-1)
+        e_text, e_img, e_unc = unet_eps(models, inp, int(t),
+                                        text_emb).chunk(3, dim=0)
+        eps = cfg_combine(e_text, e_img, e_unc, guidance_scale,
+                          condition_scale)
+        latents = ddim.step(sched, eps, int(t), latents, num_steps)
+    return decode_latents(models, latents)
+
+
+def resize_to_64_multiple(h: int, w: int,
+                          target: int = 512) -> Tuple[int, int]:
+    """The guidance's 64-multiple resize rule (dge_guidance.py:505-511):
+    scale the long side to ~``target`` and round to 64 multiples."""
+    factor = target / max(w, h)
+    factor = math.ceil(min(w, h) * factor / 64) * 64 / min(w, h)
+    width = int((w * factor) // 64) * 64
+    height = int((h * factor) // 64) * 64
+    return height, width

@@ -1,0 +1,152 @@
+"""Checkpoint loading and carrying weights across from the JAX package.
+
+JAX counterpart: ``dge_tpu/diffusion/weights.py``. The port's parameter
+names are the diffusers / transformers names, so a local diffusers
+InstructPix2Pix directory (``timbrooks/instruct-pix2pix``) loads with
+``load_state_dict`` after one rename: the old diffusers VAE attention names
+(``query`` / ``key`` / ``value`` / ``proj_attn``). The orbax ``*_ingested``
+caches of the JAX package are JAX-only and have no counterpart here.
+
+``*_params_from_jax`` turn the JAX packages' parameter trees (numpy leaves)
+into the port's state dicts, the inverse of the JAX ``convert_*``: flax's
+flat module names go back to diffusers' (``down_blocks_0_attentions_1`` ->
+``down_blocks.0.attentions.1``), Dense kernels ``[in, out]`` become Linear
+weights ``[out, in]``, Conv kernels ``[kh, kw, in, out]`` become
+``[out, in, kh, kw]``, norm scales and embedding tables become ``weight``.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_SEGMENTS = (
+    (re.compile(r"^(down_blocks|up_blocks)_(\d+)_"
+                r"(resnets|attentions|downsamplers|upsamplers)_(\d+)$"),
+     r"\1.\2.\3.\4"),
+    (re.compile(r"^mid_block_(resnets|attentions)_(\d+)$"), r"mid_block.\1.\2"),
+    (re.compile(r"^transformer_blocks_(\d+)$"), r"transformer_blocks.\1"),
+    (re.compile(r"^to_out_0$"), "to_out.0"),
+    (re.compile(r"^net_0_proj$"), "net.0.proj"),
+    (re.compile(r"^net_2$"), "net.2"),
+    (re.compile(r"^layers_(\d+)$"), r"layers.\1"),
+    (re.compile(r"^mlp_(fc1|fc2)$"), r"mlp.\1"),
+)
+
+
+def _flat(tree: Mapping, prefix: Tuple[str, ...] = ()
+          ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _segment(name: str) -> str:
+    for pat, rep in _SEGMENTS:
+        if pat.match(name):
+            return pat.sub(rep, name)
+    return name
+
+
+def _leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if name == "kernel":
+        if arr.ndim == 4:  # HWIO -> OIHW
+            return "weight", arr.transpose(3, 2, 0, 1)
+        return "weight", arr.T
+    if name in ("scale", "embedding"):
+        return "weight", arr
+    return name, arr
+
+
+def _from_jax(tree: Mapping, rename) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, arr in _flat(tree):
+        leaf, arr = _leaf(path[-1], arr)
+        key = ".".join([_segment(p) for p in path[:-1]] + [leaf])
+        out[rename(key)] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
+    return out
+
+
+def unet_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``UNet2DConditionModel`` params -> port UNet state dict."""
+    return _from_jax(tree, lambda k: k)
+
+
+def vae_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``AutoencoderKL`` params -> port VAE state dict (the JAX package
+    keeps quant_conv in its encoder and post_quant_conv in its decoder)."""
+
+    def rename(k):
+        for old, new in (("encoder.quant_conv.", "quant_conv."),
+                         ("decoder.post_quant_conv.", "post_quant_conv.")):
+            if k.startswith(old):
+                return new + k[len(old):]
+        return k
+
+    return _from_jax(tree, rename)
+
+
+def clip_text_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextModel`` params -> port (transformers) state dict."""
+
+    def rename(k):
+        if k.startswith("text_projection."):
+            return k
+        if k == "position_embedding":
+            return "text_model.embeddings.position_embedding.weight"
+        if k.startswith("token_embedding."):
+            return "text_model.embeddings." + k
+        if k.startswith("layers."):
+            return "text_model.encoder." + k
+        return "text_model." + k
+
+    return _from_jax(tree, rename)
+
+
+def _modern_vae_names(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Old diffusers VAE attention names -> the current ones."""
+    out = {}
+    for k, v in sd.items():
+        for old, new in ((".query.", ".to_q."), (".key.", ".to_k."),
+                         (".value.", ".to_v."), (".proj_attn.", ".to_out.0.")):
+            k = k.replace(old, new)
+        out[k] = v
+    return out
+
+
+def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file (through ``safetensors``) or a torch
+    ``.bin``."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(path)
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_ip2p_checkpoint(root: str) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A local diffusers InstructPix2Pix directory -> ``{"unet", "vae",
+    "text_encoder"}`` state dicts in the port's names (load_ip2p_checkpoint,
+    weights.py:178)."""
+
+    def load_sd(subdir):
+        d = os.path.join(root, subdir)
+        for fname in ("diffusion_pytorch_model.safetensors",
+                      "diffusion_pytorch_model.bin", "model.safetensors",
+                      "pytorch_model.bin"):
+            p = os.path.join(d, fname)
+            if os.path.exists(p):
+                return load_state_dict_file(p)
+        raise FileNotFoundError(f"no checkpoint found under {d}")
+
+    text = {k: v for k, v in load_sd("text_encoder").items()
+            if "position_ids" not in k}
+    return {"unet": load_sd("unet"), "vae": _modern_vae_names(load_sd("vae")),
+            "text_encoder": text}

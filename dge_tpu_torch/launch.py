@@ -2,8 +2,7 @@
 
 JAX counterpart: the repo's ``launch.py`` (``--render`` / ``--test``,
 launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
-``--fit``, launch.py:232-307). Five modes (``--train``, the DGE edit, is not
-ported yet):
+``--fit``, launch.py:232-307; ``--train``, launch.py:317-485). Six modes:
 
     python -m dge_tpu_torch.launch --render --gs_source scene.ply \\
         --source capture_dir --out outputs [--cpu] [--config cfg.yaml] \\
@@ -19,6 +18,13 @@ ported yet):
         [--cpu] [--seed 0] data.height=256 data.width=256 \\
         system.sh_degree=3 trainer.max_steps=7000
 
+    python -m dge_tpu_torch.launch --train --gs_source scene.ply \\
+        --source capture_dir --out outputs [--smoke] [--resume ckpt] \\
+        system.ip2p_checkpoint=DIR system.prompt="..." \\
+        [system.model_size=tiny] [system.vgg_checkpoint=vgg16.pth] \\
+        [system.guidance.camera_batch_size=5] [system.edit.max_steps=1000] \\
+        [data.max_view_num=20] data.height=512 data.width=512
+
 ``--render`` loads the PLY and the COLMAP capture, probes the spill-free
 binning caps on view 0 (tile_px 32), renders every view and writes
 ``<out>/<name>/<tag>@<time>/renders/NNNN.png``; ``--test`` is the same
@@ -30,7 +36,14 @@ copy of the scene as ``scene.ply``. ``--fit`` initialises a scene
 from the capture's COLMAP points and fits it to the capture's images (vanilla
 3DGS: L1 + SSIM, densify, opacity reset, SH step-up, spill ladder), writing
 ``point_cloud.ply`` and ``metrics.jsonl`` (TensorBoard events too with
-``trainer.tensorboard=true``). Capture images may be PNG or JPEG at any size:
+``trainer.tensorboard=true``). ``--train`` is the DGE edit
+(systems/edit.DGESystem): the PLY and up to ``data.max_view_num`` capture
+views, the InstructPix2Pix models from ``system.ip2p_checkpoint`` (a local
+diffusers directory; ``--smoke`` or ``system.allow_random_weights`` runs
+random weights instead and writes ``SMOKE_ONLY.txt``), multi-view edit
+rounds and the L1 + LPIPS refit, writing ``val/``, ``ckpts/``, the edit
+cache under ``<out>/edit_cache/`` and ``last.ply``;
+``system.model_size=tiny`` builds the small test networks. Capture images may be PNG or JPEG at any size:
 they are area-resized to ``data.height`` x ``data.width``. Every mode writes
 ``cmd.txt`` and ``parsed.yaml``, runs on the GPU unless ``--cpu`` is given,
 and raises without a card and without ``--cpu``. Dotted overrides apply with or without
@@ -72,6 +85,19 @@ class ExportRun(NamedTuple):
     trial_dir: str
 
 
+class TrainRun(NamedTuple):
+    ply_path: str  # last.ply, the edited scene
+    steps: int
+    edit_frames: dict  # view index -> [H, W, 3] float32 edited frame
+    losses_finite: bool  # every refit step's L1 loss was finite
+    spill: int  # refit binning spill over the run (0 = spill-free)
+    render_spill: int  # binning spill of the view renders
+    caps: dict  # binning caps in effect at the end (FitLoop.caps)
+    seconds: dict  # host seconds by stage (DGESystem.seconds) and "run"
+    launches: dict  # kernel launch counts of the run
+    trial_dir: str
+
+
 class FitRun(NamedTuple):
     ply_path: str  # the fitted scene
     steps: int
@@ -99,6 +125,14 @@ def parse_args(argv=None):
                       help="turntable orbit frames and a copy of the scene")
     mode.add_argument("--fit", action="store_true",
                       help="fit a 3DGS scene to the capture's images")
+    mode.add_argument("--train", action="store_true",
+                      help="the DGE edit: multi-view edit rounds and refit")
+    p.add_argument("--smoke", action="store_true",
+                   help="allow --train with random diffusion weights "
+                   "(outputs are noise)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint (from <trial>/ckpts) to resume --train "
+                   "from")
     p.add_argument("--backend", type=str, default=None,
                    help="render backend of --render/--test/--validate "
                    "(default: the device's own)")
@@ -120,9 +154,9 @@ def main(argv=None):
     from dge_tpu_torch.utils import saving
 
     if not (args.render or args.test or args.validate or args.export
-            or args.fit):
+            or args.fit or args.train):
         log.error("choose a mode: --render / --test / --validate / "
-                  "--export / --fit")
+                  "--export / --fit / --train")
         sys.exit(2)
     device = resolve_device("cpu" if args.cpu else "cuda")
     cfg = C.load_config(args.config, args.overrides)
@@ -135,6 +169,10 @@ def main(argv=None):
     source = args.source or cfg.get("data", {}).get("source")
     if args.fit:
         return run_fit(cfg, source, trial_dir, args.seed, device)
+    if args.train:
+        return run_train(cfg, gs_source, source, trial_dir, args.seed, device,
+                         smoke=args.smoke, resume=args.resume,
+                         out_root=args.out)
     if args.validate:
         return run_validate(cfg, gs_source, source, trial_dir, device,
                             args.backend)
@@ -314,6 +352,143 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
                   loop.caps,
                   {k: v - before[k] for k, v in PC.launch_counts.items()},
                   seconds, trial_dir)
+
+
+def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
+              resume=None, out_root="outputs") -> TrainRun:
+    """The DGE edit loop (BASELINE.md config 4): render -> multi-view edit
+    -> refit."""
+    import hashlib
+    import json
+    import time
+
+    from dge_tpu_torch.diffusion import ip2p
+    from dge_tpu_torch.diffusion import tokenizer as T
+    from dge_tpu_torch.diffusion import weights as W
+    from dge_tpu_torch.models import lpips
+    from dge_tpu_torch.models.clip_text import CLIPTextConfig
+    from dge_tpu_torch.models.unet import UNetConfig
+    from dge_tpu_torch.models.vae import VAEConfig
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene import gaussians as G
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.systems.edit import DGESystem, EditConfig
+    from dge_tpu_torch.systems.guidance import DGEGuidance, GuidanceConfig
+    from dge_tpu_torch.systems.prompts import PromptConfig, PromptProcessor
+    from dge_tpu_torch.systems.segmentation import build_segmentor
+    from dge_tpu_torch.utils.config import parse_structured
+    from dge_tpu_torch.utils.logger import MetricsLogger
+
+    sys_cfg = cfg.get("system", {})
+    h, w = _size(cfg)
+    scene = G.load_ply(gs_source, device=device)
+    cs = DS.ColmapScene(source, height=h, width=w)
+    sub = DS.subsample_views(cs.cameras,
+                             int(cfg.get("data", {}).get("max_view_num", 20)))
+    cams = [CameraArrays.from_camera(c, device=device) for c in sub]
+
+    ckpt_dir = sys_cfg.get("ip2p_checkpoint")
+    params = None
+    if ckpt_dir and os.path.isdir(ckpt_dir):
+        log.info("loading IP2P weights from %s", ckpt_dir)
+        params = W.load_ip2p_checkpoint(ckpt_dir)
+    elif smoke or sys_cfg.get("allow_random_weights", False):
+        log.warning("SMOKE RUN: no IP2P checkpoint configured "
+                    "(system.ip2p_checkpoint): RANDOM weights, the edits are "
+                    "noise; outputs are marked smoke-only")
+        with open(os.path.join(trial_dir, "SMOKE_ONLY.txt"), "w") as f:
+            f.write("this trial ran with random diffusion weights: edit "
+                    "outputs are noise, usable only for pipeline smoke "
+                    "testing\n")
+    else:
+        log.error("--train needs real diffusion weights: set "
+                  "system.ip2p_checkpoint to a local diffusers "
+                  "timbrooks/instruct-pix2pix directory, or pass --smoke to "
+                  "run the pipeline with random weights (noise output)")
+        sys.exit(2)
+    if sys_cfg.get("model_size", "full") == "tiny":
+        # the small test networks: the whole edit path runs on the CPU
+        text_cfg = CLIPTextConfig.tiny()
+        models = ip2p.build_models(UNetConfig.tiny(), VAEConfig.tiny(),
+                                   text_cfg, params=params, device=device)
+        tok = T.HashTokenizer(vocab_size=text_cfg.vocab_size,
+                              max_length=text_cfg.max_length)
+    else:
+        models = ip2p.build_models(params=params, device=device)
+        tok = T.load_tokenizer(
+            os.path.join(ckpt_dir, "tokenizer") if ckpt_dir else None)
+        if isinstance(tok, T.HashTokenizer):
+            log.warning("no tokenizer vocabulary: HashTokenizer ids are "
+                        "meaningless (smoke only)")
+
+    # the refit's perceptual loss (DGE.py:637-683): VGG16 from
+    # system.vgg_checkpoint (a torchvision state dict), random otherwise
+    vgg_ckpt = sys_cfg.get("vgg_checkpoint")
+    if vgg_ckpt and os.path.exists(vgg_ckpt):
+        log.info("loading VGG16 weights from %s", vgg_ckpt)
+        perceptual_fn, _ = lpips.make_perceptual_fn(
+            lpips.params_from_torchvision(W.load_state_dict_file(vgg_ckpt)),
+            device=device)
+    else:
+        perceptual_fn, _ = lpips.make_perceptual_fn(
+            generator=torch.Generator().manual_seed(7), device=device)
+    prompt = sys_cfg.get("prompt", "")
+    po = PromptProcessor(
+        tok, lambda ids: ip2p.encode_text(models, ids),
+        cache_dir=os.path.join(trial_dir, "text_cache"),
+        cfg=PromptConfig(prompt=prompt,
+                         negative_prompt=sys_cfg.get("negative_prompt", "")),
+    )()
+    guidance = DGEGuidance(
+        parse_structured(GuidanceConfig, sys_cfg.get("guidance", {})), models)
+    e_cfg = parse_structured(EditConfig, sys_cfg.get("edit", {}))
+    seg = build_segmentor(sys_cfg.get("segmentor", "fallback"),
+                          sys_cfg.get("mask_dir", ""))
+    # the cross-trial edit cache keyed by (gs_source, prompt, #views): a
+    # re-run with the same key skips the edit rounds unless
+    # system.edit.cache_overwrite is set (DGE.py:96-99)
+    cache_key = hashlib.md5(f"{os.path.abspath(gs_source)}|{prompt}|"
+                            f"{len(cams)}".encode()).hexdigest()[:16]
+    cache_dir = os.path.join(out_root, "edit_cache", cache_key)
+    log.info("edit cache: %s", cache_dir)
+    system = DGESystem(
+        e_cfg, scene, cams, guidance=guidance,
+        text_emb_pos=torch.from_numpy(po.cond).to(device),
+        text_emb_neg=torch.from_numpy(po.uncond).to(device),
+        perceptual_fn=perceptual_fn, cameras_extent=cs.cameras_extent,
+        cache_dir=cache_dir, segmentor=seg)
+    start_step = 0
+    if resume:
+        start_step = system.restore_state(resume)
+        log.info("resumed from %s at step %d", resume, start_step)
+    metrics = MetricsLogger(
+        trial_dir,
+        tensorboard=bool(cfg.get("trainer", {}).get("tensorboard", False)))
+    before = dict(PC.launch_counts)
+    t0 = time.time()
+    final = system.run(seed, log_fn=log.info, start_step=start_step,
+                       ckpt_dir=os.path.join(trial_dir, "ckpts"),
+                       val_dir=os.path.join(trial_dir, "val"),
+                       metrics=metrics)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = dict(system.seconds, run=time.time() - t0)
+    metrics.close()
+    ply = os.path.join(trial_dir, "last.ply")
+    G.save_ply(final, ply)
+    log.info("saved edited scene to %s", ply)
+    # CLIP edit-quality metrics (clip_metrics.py:33-50) need the CLIP vision
+    # tower, not ported yet (ROADMAP.md §1)
+    log.info("CLIP edit metrics skipped: models/clip_vision.py is not "
+             "ported yet")
+    with open(metrics.path) as f:
+        losses = [json.loads(line).get("train/loss", 0.0) for line in f]
+    return TrainRun(
+        ply, e_cfg.max_steps, dict(system.edit_frames),
+        bool(np.isfinite(losses).all()), system.total_spill,
+        system.render_spill, system.loop.caps, seconds,
+        {k: v - before[k] for k, v in PC.launch_counts.items()}, trial_dir)
 
 
 if __name__ == "__main__":

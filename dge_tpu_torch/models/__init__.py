@@ -1,4 +1,6 @@
-"""Neural models of the port (plain ``torch.nn`` modules). So far the
-VGG16 / LPIPS perceptual distance (lpips.py); the diffusion models follow.
+"""Neural models of the port (plain ``torch.nn`` modules, diffusers /
+transformers / torchvision parameter names): the VGG16 / LPIPS perceptual
+distance (lpips.py), the diffusion building blocks (layers.py), the SD-1.5
+UNet (unet.py), the VAE (vae.py) and the CLIP text encoder (clip_text.py).
 
 JAX counterpart: ``dge_tpu/models/``."""

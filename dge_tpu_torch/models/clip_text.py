@@ -1,0 +1,152 @@
+"""CLIP text encoder (ViT-L/14 text tower, the SD-1.5 text encoder).
+
+JAX counterpart: ``dge_tpu/models/clip_text.py``. 12 layers, d=768, 12
+heads, vocab 49408, max_len 77, causal mask, quick-GELU. Parameter names
+are transformers' CLIPTextModel names (``text_model.encoder.layers.0.
+self_attn.q_proj.weight``); the optional ``text_projection`` is
+CLIPTextModelWithProjection's head.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_length: int = 77
+    intermediate_size: int = 3072
+    # the text_projection head (the metrics CLIP uses 768); the SD-1.5 text
+    # encoder has none
+    projection_dim: Optional[int] = None
+
+    @classmethod
+    def tiny(cls) -> "CLIPTextConfig":
+        return cls(vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
+                   max_length=16, intermediate_size=64)
+
+
+def quick_gelu(x):
+    return x * torch.sigmoid(1.702 * x)
+
+
+class CLIPAttention(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        d = cfg.hidden_size
+        self.heads = cfg.num_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x, mask):
+        b, s, d = x.shape
+        hd = d // self.heads
+
+        def split(t):
+            return t.reshape(b, s, self.heads, hd).transpose(1, 2)
+
+        q = self.q_proj(x) * hd ** -0.5
+        logits = torch.einsum("bhqd,bhkd->bhqk", split(q),
+                              split(self.k_proj(x)))
+        logits = torch.where(mask, logits, torch.tensor(
+            -1e9, dtype=logits.dtype, device=logits.device))
+        out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
+                           split(self.v_proj(x)))
+        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
+
+
+class CLIPMLP(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, x):
+        return self.fc2(quick_gelu(self.fc1(x)))
+
+
+class CLIPLayer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.self_attn = CLIPAttention(cfg)
+        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.mlp = CLIPMLP(cfg)
+
+    def forward(self, x, mask):
+        x = x + self.self_attn(self.layer_norm1(x), mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class _Embeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_length,
+                                               cfg.hidden_size)
+
+
+class _Encoder(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            [CLIPLayer(cfg) for _ in range(cfg.num_layers)])
+
+
+class _TextTransformer(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.embeddings = _Embeddings(cfg)
+        self.encoder = _Encoder(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+
+
+class CLIPTextModel(nn.Module):
+    def __init__(self, config: CLIPTextConfig):
+        super().__init__()
+        self.config = config
+        self.text_model = _TextTransformer(config)
+        self.text_projection = (
+            nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+            if config.projection_dim is not None else None)
+
+    def init_like_flax(self, generator: torch.Generator) -> None:
+        """The JAX module's default init (models/layers.init_like_flax), with
+        the position table drawn at std 0.01 as its ``param`` is."""
+        from dge_tpu_torch.models.layers import init_like_flax
+
+        init_like_flax(self, generator)
+        with torch.no_grad():
+            self.text_model.embeddings.position_embedding.weight.normal_(
+                0.0, 0.01, generator=generator)
+
+    def forward(self, input_ids: torch.Tensor, return_pooled: bool = False):
+        """input_ids [B, S] -> last hidden state [B, S, D]; with
+        ``return_pooled`` also the projected hidden state at the EOS token
+        (the largest id) [B, projection_dim]."""
+        tm = self.text_model
+        b, s = input_ids.shape
+        x = (tm.embeddings.token_embedding(input_ids)
+             + tm.embeddings.position_embedding.weight[None, :s])
+        causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                       device=input_ids.device))
+        for layer in tm.encoder.layers:
+            x = layer(x, causal)
+        x = tm.final_layer_norm(x)
+        if not return_pooled:
+            return x
+        if self.text_projection is None:
+            raise ValueError(
+                "return_pooled=True requires CLIPTextConfig.projection_dim")
+        pooled = x[torch.arange(b, device=x.device), input_ids.argmax(dim=-1)]
+        return x, self.text_projection(pooled)

@@ -1,0 +1,439 @@
+"""Shared diffusion-model building blocks (NCHW modules, diffusers names).
+
+JAX counterpart: ``dge_tpu/models/layers.py``. Architecture follows Stable
+Diffusion 1.5's UNet/VAE family; every parameter carries its diffusers
+name (``down_blocks.0.attentions.1.transformer_blocks.0.attn1.to_q.weight``),
+so a diffusers state dict loads with ``load_state_dict``.
+
+Cross-view modes of ``BasicTransformerBlock.attn1`` (the reference's
+attention surgery, threestudio/utils/dge_utils.py:272-356, :369-610):
+
+- ``"plain"``: per-frame self-attention (below timestep 100)
+- ``"extended"``: K/V concatenated across the frames of each CFG chunk
+- ``"pivot_record"``: extended, and the block's normed hidden states and
+  attention output are written into ``pivot[block.pivot_key]``
+- ``"pivot_reuse"``: epipolar-constrained cosine-argmax gather of the
+  recorded pivot attention outputs
+
+The pivot record is an explicit dict that the caller passes to the pivot
+pass (which fills it) and to the reuse passes (which read it); JAX keeps
+the same record in a flax ``"pivot"`` variable collection.
+
+Attention. On the CPU, ``attend`` runs the JAX package's two forms as torch
+ops: a dense softmax when ``Sq·Sk <= 2^24``, else an online softmax over key
+blocks of ``k_chunk``. On a CUDA device it runs
+``F.scaled_dot_product_attention`` with the backend pinned to
+``EFFICIENT_ATTENTION``, the f32 backend that never builds the logits (the
+``MATH`` backend would build ``[3, 8, Sk, Sk]`` f32 logits in the pivot pass:
+6.4 GB at 8,192 tokens). ``sdpa_takes`` is the written rule for the shapes
+that backend takes; the others go to the chunked form. A refused launch
+raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+# beyond this many logits entries per head-batch the plain path switches to
+# the online-softmax loop (layers.py:118-121)
+CHUNKED_LOGITS_THRESHOLD = 1 << 24
+
+
+@dataclasses.dataclass
+class CrossViewState:
+    """Per-batch cross-view attention inputs, computed once per UNet call."""
+
+    # long [F, n_key]: indices of the 1-2 closest key (pivot) cameras
+    closest_cam: Optional[torch.Tensor] = None
+    # f32 [F]: blend weight of the closest cam, sigmoid(d2/(d1+d2))
+    # (make_dge_block, dge_utils.py:557-566); 1.0 when n_key == 1
+    blend_w1: Optional[torch.Tensor] = None
+    # dense oracle: seq_len -> bool [F, n_key, S, S] violation masks, pivot
+    # frame rows cleared
+    epipolar: Optional[Dict[int, torch.Tensor]] = None
+    # banded form: seq_len -> f32 [F, n_key, S, 3] normalised epipolar lines
+    # per query token in the key image's pixel space (pivot rows zero)
+    epi_lines: Optional[Dict[int, torch.Tensor]] = None
+    # seq_len -> f32 [S, 3] homogeneous key-token pixel coords (raster order)
+    epi_pts: Optional[Dict[int, torch.Tensor]] = None
+    n_key: int = 1
+    # violation threshold in pixels (compute_epipolar_constrains' 1 px)
+    epi_threshold: float = 1.0
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int,
+                       max_period: float = 10000.0,
+                       flip_sin_to_cos: bool = True,
+                       downscale_freq_shift: float = 0.0) -> torch.Tensor:
+    """Sinusoidal timestep embedding (diffusers get_timestep_embedding with
+    SD's flip_sin_to_cos=True, freq_shift=0)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period)
+        * torch.arange(half, dtype=torch.float32, device=timesteps.device)
+        / (half - downscale_freq_shift))
+    args = timesteps.float()[:, None] * freqs[None, :]
+    sin, cos = torch.sin(args), torch.cos(args)
+    return torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
+
+
+class TimestepEmbedding(nn.Module):
+    def __init__(self, in_dim: int, out_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, out_dim)
+        self.linear_2 = nn.Linear(out_dim, out_dim)
+
+    def forward(self, sample):
+        return self.linear_2(F.silu(self.linear_1(sample)))
+
+
+def attend_dense(qh, kh, vh):
+    """[B, H, Sq, D] x [B, H, Sk, D] -> [B, H, Sq, D], dense softmax."""
+    scale = 1.0 / math.sqrt(qh.shape[-1])
+    logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), vh)
+
+
+def attend_chunked(qh, kh, vh, k_chunk: int = 512):
+    """Online-softmax attention over key blocks (the flash recurrence of the
+    JAX ``_attend_chunked``, layers.py:147-192): peak memory one
+    ``[B, H, Sq, k_chunk]`` logits block, exact softmax semantics."""
+    b, h, sq, d = qh.shape
+    sk = kh.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    k_chunk = min(k_chunk, sk)
+    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32,
+                   device=qh.device)
+    l = torch.zeros((b, h, sq), dtype=torch.float32, device=qh.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qh.device)
+    for off in range(0, sk, k_chunk):
+        logits = torch.einsum("bhqd,bhkd->bhqk", qh,
+                              kh[:, :, off:off + k_chunk]) * scale
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhqk,bhkd->bhqd", p, vh[:, :, off:off + k_chunk])
+        m = m_new
+    return (acc / l[..., None]).to(qh.dtype)
+
+
+def sdpa_takes(head_dim: int, dtype: torch.dtype) -> bool:
+    """The shapes the pinned ``EFFICIENT_ATTENTION`` backend takes: the
+    head width a multiple of 8 (its GEMM alignment), floating point. On
+    the H100 it took every head width of the edit path (40, 80, 160; the
+    VAE's 512; see PERF.md §6)."""
+    return head_dim % 8 == 0 and dtype in (torch.float32, torch.float16,
+                                           torch.bfloat16)
+
+
+def attend_heads(qh, kh, vh, k_chunk: int = 512):
+    """[B, H, Sq, D] attention on the device of ``qh``: pinned SDPA on a
+    CUDA device for the shapes ``sdpa_takes``; the JAX package's dense or
+    chunked form otherwise."""
+    if qh.is_cuda and sdpa_takes(qh.shape[-1], qh.dtype):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(qh, kh, vh)
+    if qh.shape[2] * kh.shape[2] > CHUNKED_LOGITS_THRESHOLD:
+        return attend_chunked(qh, kh, vh, k_chunk)
+    return attend_dense(qh, kh, vh)
+
+
+def attend(q, k, v, heads: int, k_chunk: int = 512):
+    """q [B, Sq, H*D], k/v [B, Sk, H*D] -> [B, Sq, H*D]."""
+
+    def split(x):
+        b, s, inner = x.shape
+        return x.reshape(b, s, heads, inner // heads).transpose(1, 2)
+
+    out = attend_heads(split(q), split(k), split(v), k_chunk)
+    b, h, s, d = out.shape
+    return out.transpose(1, 2).reshape(b, s, h * d)
+
+
+class Attention(nn.Module):
+    """Multi-head attention (diffusers Attention): to_q/to_k/to_v/to_out.0."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+                                     nn.Identity()])
+
+    def forward(self, x, context=None, extended_frames: int = 0):
+        """``extended_frames > 0``: x is ``[n_chunks * F, S, D]`` and every
+        frame of a CFG chunk attends to the K/V of all F frames of that
+        chunk (register_extended_attention, dge_utils.py:282-356): full
+        self-attention over the chunk's concatenated tokens."""
+        c = x if context is None else context
+        q, k, v = self.to_q(x), self.to_k(c), self.to_v(c)
+        if extended_frames:
+            if context is not None and context.shape[1] != x.shape[1]:
+                raise ValueError(
+                    "extended_frames requires self-attention (context seq "
+                    f"len {context.shape[1]} != query seq len {x.shape[1]})")
+            f = extended_frames
+            b, s, d = q.shape
+            chunks = b // f
+            out = attend(q.reshape(chunks, f * s, d),
+                         k.reshape(chunks, f * s, d),
+                         v.reshape(chunks, f * s, d), self.heads,
+                         k_chunk=1024).reshape(b, s, -1)
+        else:
+            out = attend(q, k, v, self.heads)
+        return self.to_out[0](out)
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        # diffusers GEGLU uses the exact (erf) gelu
+        return h * F.gelu(gate)
+
+
+class GEGLUFeedForward(nn.Module):
+    """diffusers FeedForward: net.0 = GEGLU, net.1 = dropout, net.2."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
+                                  nn.Linear(dim * mult, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+def epi_blockwise_argmax(img, piv_img, lines, pts, threshold: float,
+                         block: int = 512):
+    """Epipolar-masked cosine argmax over pivot tokens, evaluated over key
+    blocks without any ``[S, S]`` array (layers.py:246-313).
+
+    img [F, S, D] and piv_img [F, K, S, D] normalised tokens, lines
+    [F, K, S, 3], pts [S, 3]. Violating pairs count as similarity 0 (not
+    -inf); query rows whose every pivot token violates take the unmasked
+    argmax. Ties keep the first index inside a block and the earlier
+    block across blocks. Returns long [F, K, S]."""
+    f, k, s, _ = piv_img.shape
+    block = min(block, s)
+    dev = img.device
+    bm_val = torch.full((f, k, s), -math.inf, device=dev)
+    bm_idx = torch.zeros((f, k, s), dtype=torch.long, device=dev)
+    br_val = torch.full((f, k, s), -math.inf, device=dev)
+    br_idx = torch.zeros((f, k, s), dtype=torch.long, device=dev)
+    all_bad = torch.ones((f, k, s), dtype=torch.bool, device=dev)
+    for off in range(0, s, block):
+        sim = torch.einsum("fsd,fktd->fkst", img,
+                           piv_img[:, :, off:off + block])
+        dist = torch.einsum("fksc,tc->fkst", lines,
+                            pts[off:off + block]).abs()
+        viol = dist > threshold
+        for vals, best_val, best_idx in (
+                (torch.where(viol, 0.0, sim), bm_val, bm_idx),
+                (sim, br_val, br_idx)):
+            v = vals.amax(dim=-1)
+            ix = vals.argmax(dim=-1) + off
+            better = v > best_val
+            best_val.copy_(torch.where(better, v, best_val))
+            best_idx.copy_(torch.where(better, ix, best_idx))
+        all_bad &= viol.all(dim=-1)
+    return torch.where(all_bad, br_idx, bm_idx)
+
+
+def _unit(x):
+    return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6)
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        # torch LayerNorm default eps 1e-5 (diffusers BasicTransformerBlock)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn1 = Attention(dim, heads, dim_head)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn2 = Attention(dim, heads, dim_head, context_dim=context_dim)
+        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
+        self.ff = GEGLUFeedForward(dim)
+        # the key of this block's entry in a pivot record; the UNet sets it
+        # to the block's module path
+        self.pivot_key = ""
+
+    def forward(self, x, context, *, mode: str = "plain",
+                cross_view: Optional[CrossViewState] = None,
+                pivot: Optional[dict] = None):
+        """x [B, S, D], with B = 3·F (CFG chunks text / image / uncond) in
+        the cross-view modes; context [B, S_ctx, D_ctx]."""
+        norm_h = self.norm1(x)
+        if mode == "plain":
+            attn_out = self.attn1(norm_h)
+        elif mode in ("extended", "pivot_record"):
+            attn_out = self.attn1(norm_h, extended_frames=x.shape[0] // 3)
+            if mode == "pivot_record":
+                # the pivotal pass stores normed hidden states and attention
+                # output (make_dge_block, dge_utils.py:400-405, 526-533)
+                pivot[self.pivot_key] = (norm_h, attn_out)
+        elif mode == "pivot_reuse":
+            attn_out = self._pivot_reuse(norm_h, cross_view,
+                                         *pivot[self.pivot_key])
+        else:
+            raise ValueError(f"unknown attention mode {mode}")
+        x = x + attn_out
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+    @staticmethod
+    def _pivot_reuse(norm_h, cv: CrossViewState, piv_h, piv_attn):
+        """Epipolar-constrained nearest-token gather of the pivot attention
+        outputs (make_dge_block, dge_utils.py:407-571)."""
+        b, s, d = norm_h.shape
+        f = b // 3
+        fk = piv_h.shape[0] // 3
+        piv_h = piv_h.reshape(3, fk, s, d)
+        piv_attn = piv_attn.reshape(3, fk, s, d)
+        closest = cv.closest_cam  # [F, n_key]
+        # cosine similarity on the image CFG chunk only (dge_utils.py:428)
+        img = _unit(norm_h.reshape(3, f, s, d)[1])
+        piv_img = _unit(piv_h[1][closest])  # [F, n_key, S, D]
+        if cv.epi_lines is not None and s in cv.epi_lines:
+            idx = epi_blockwise_argmax(img, piv_img, cv.epi_lines[s],
+                                       cv.epi_pts[s], cv.epi_threshold)
+        else:
+            sim = torch.einsum("fsd,fktd->fkst", img, piv_img)
+            if cv.epipolar is not None and s in cv.epipolar:
+                violation = cv.epipolar[s]
+                # rows where every pivot token violates are exempted
+                violation = violation & ~violation.all(dim=-1, keepdim=True)
+                sim = torch.where(violation, 0.0, sim)
+            idx = sim.argmax(dim=-1)  # [F, n_key, S]
+        # the pivot attention output at the matched tokens, all 3 chunks
+        gathered = piv_attn[:, closest[..., None], idx]  # [3, F, n_key, S, D]
+        if cv.n_key == 2:
+            w1 = cv.blend_w1.reshape(1, f, 1, 1)
+            out = w1 * gathered[:, :, 0] + (1.0 - w1) * gathered[:, :, 1]
+        else:
+            out = gathered[:, :, 0]
+        return out.reshape(b, s, d).to(norm_h.dtype)
+
+
+def to_tokens(x):
+    """[B, C, H, W] -> [B, H·W, C] in raster (y-major) order, the JAX NHWC
+    ``reshape(b, h*w, c)``."""
+    b, c, h, w = x.shape
+    return x.permute(0, 2, 3, 1).reshape(b, h * w, c)
+
+
+def from_tokens(x, h: int, w: int):
+    b, _, c = x.shape
+    return x.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+
+class Transformer2DModel(nn.Module):
+    def __init__(self, channels: int, heads: int, dim_head: int,
+                 context_dim: int, groups: int = 32):
+        super().__init__()
+        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        # SD-1.5 uses 1x1 conv projections (use_linear_projection=False)
+        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.transformer_blocks = nn.ModuleList([
+            BasicTransformerBlock(channels, heads, dim_head, context_dim)])
+        self.proj_out = nn.Conv2d(channels, channels, 1)
+
+    def forward(self, x, context, **kw):
+        """x [B, C, H, W] -> same."""
+        h, w = x.shape[2:]
+        y = to_tokens(self.proj_in(self.norm(x)))
+        y = self.transformer_blocks[0](y, context, **kw)
+        return self.proj_out(from_tokens(y, h, w)) + x
+
+
+class ResnetBlock2D(nn.Module):
+    """diffusers ResnetBlock2D. ``eps``: the UNet builds its resnets with
+    1e-5, the VAE with 1e-6."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 temb_channels: Optional[int] = None, groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+                              if temb_channels else None)
+        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+                              if in_channels != out_channels else None)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        return h + x
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 conv. ``padding=0``: the VAE's asymmetric (0,1,0,1) pad in
+    forward; ``padding=1``: the UNet's symmetric pad. Same output shape on
+    even inputs, different window alignment."""
+
+    def __init__(self, channels: int, padding: int = 0):
+        super().__init__()
+        self.padding = padding
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
+                              padding=padding)
+
+    def forward(self, x):
+        if self.padding == 0:
+            x = F.pad(x, (0, 1, 0, 1))
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights as flax initialises the JAX modules: Dense and Conv
+    kernels truncated-normal of variance 1/fan_in (``lecun_normal``), biases
+    0, norms scale 1 and bias 0, embeddings normal of variance 1/dim (the
+    ``nn.Embed`` default). ``generator`` lives on the model's device."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                fan_in = m.weight[0].numel()
+                # the std of a normal truncated at +-2 std is 0.8796 of it
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                nn.init.trunc_normal_(m.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, nn.Embedding):
+                m.weight.normal_(0.0, 1.0 / math.sqrt(m.embedding_dim),
+                                 generator=generator)

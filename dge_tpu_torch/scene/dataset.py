@@ -1,9 +1,9 @@
 """Scene dataset: COLMAP capture -> camera list + scene extent.
 
-JAX counterpart: ``dge_tpu/scene/dataset.py`` (numpy only). This slice
-ports ``ColmapScene``, ``nerfpp_norm`` and ``_fovs_for_target``; the Blender
-loader, ``load_scene``, ``subsample_views`` and ``sort_cameras_ring`` wait
-for the slices that use them.
+JAX counterpart: ``dge_tpu/scene/dataset.py`` (numpy only). Ported:
+``ColmapScene``, ``nerfpp_norm``, ``_fovs_for_target`` and
+``subsample_views``; the Blender loader, ``load_scene`` and
+``sort_cameras_ring`` have no caller on the ported paths.
 
 Reference analogs: CamScene (gaussiansplatting/scene/camera_scene.py:17-42),
 readColmapCameras_hw with its aspect-preserving FoV rescale
@@ -107,3 +107,15 @@ class ColmapScene:
         if os.path.exists(pb):
             return colmap.read_points3d_binary(pb)
         return colmap.read_points3d_text(os.path.join(sparse, "points3D.txt"))
+
+
+def subsample_views(cameras: Sequence[Camera], max_views: int,
+                    seed: int = 0) -> List[Camera]:
+    """An evenly spread subset of at most ``max_views`` cameras
+    (gs_load.py max_view_num=20 semantics); ``seed`` is unused, as in the
+    JAX function."""
+    n = len(cameras)
+    if n <= max_views:
+        return list(cameras)
+    idx = np.linspace(0, n - 1, max_views).round().astype(int)
+    return [cameras[i] for i in idx]

@@ -1,0 +1,269 @@
+"""DGE guidance: multi-view-consistent InstructPix2Pix editing.
+
+JAX counterpart: ``dge_tpu/systems/guidance.py``. Reference analog:
+DGEGuidance (threestudio/models/guidance/dge_guidance.py) — the 20-step
+truncated DDIM edit loop with one random pivot per camera batch, extended
+attention over the pivots, epipolar-constrained pivot-attention reuse for
+the other views (edit_latents :246-374), IP2P 3-way CFG (:362-368) and
+plain attention below t=100 (use_normal_unet :237-244).
+
+The UNet takes an attention ``mode``, a ``CrossViewState`` and the pivot
+record (a dict this module owns for one step). Closest cameras and epipolar
+constraints are computed once per (step, camera batch) outside the network.
+Only ``batch_mode="loop"`` is ported; the batched / sharded reuse and the
+SDS mode wait (ROADMAP.md §1).
+
+Images are ``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]`` at this
+module's edges (the JAX layout). Every random draw goes through ``P._normal``
+or ``_pivot_offsets`` with an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from dge_tpu_torch.diffusion import ddim, epipolar
+from dge_tpu_torch.diffusion import ip2p as P
+from dge_tpu_torch.models.layers import CrossViewState
+from dge_tpu_torch.parallel.mesh import index_cameras
+
+_NOT_PORTED = ("not ported yet: ROADMAP.md §1 queues the batched / sharded "
+               "reuse and the SDS mode")
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidanceConfig:
+    """configs/dge.yaml guidance defaults (dge_guidance.py:34-51)."""
+
+    guidance_scale: float = 7.5
+    condition_scale: float = 1.5
+    camera_batch_size: int = 5
+    diffusion_steps: int = 20
+    use_sds: bool = False
+    min_step_percent: float = 0.02
+    max_step_percent: float = 0.98
+    normal_attn_below_t: int = 100
+    epipolar_threshold: float = 1.0
+    # "banded": 3 line coefficients per query token, distance test evaluated
+    # blockwise inside the pivot-reuse gather (nothing S x S materialises);
+    # "dense": the reference's full [S, S] violation masks (test oracle)
+    epipolar_mode: str = "banded"
+    # long-side target of the pre-VAE resize (dge_guidance.py:505-511)
+    resize_target: int = 512
+    # VAE encode / decode batch
+    vae_batch: int = 5
+    # "loop" (sequential camera batches, reference semantics); "vmap" and
+    # "shard" are not ported yet
+    batch_mode: str = "loop"
+
+
+def _pivot_offsets(n_batches: int, cbs: int,
+                   generator: torch.Generator) -> np.ndarray:
+    """One random pivot offset in [0, cbs) per camera batch (the reference's
+    per-step draw, edit_latents :305)."""
+    return torch.randint(0, cbs, (n_batches,), generator=generator,
+                         device=generator.device).cpu().numpy()
+
+
+def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Bilinear resize of [B, H, W, 3]; antialiased, which is what
+    ``jax.image.resize(..., "bilinear")`` does when it shrinks."""
+    return P.nhwc(F.interpolate(P.nchw(x), size=(h, w), mode="bilinear",
+                                align_corners=False, antialias=True))
+
+
+@torch.no_grad()
+def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
+                          latent_h: int, latent_w: int, n_key: int,
+                          threshold: float = 1.0,
+                          mode: str = "banded") -> CrossViewState:
+    """Closest key cameras, the distance blend and the per-resolution
+    epipolar constraints of one camera batch (make_dge_block's closest_cam
+    search :407-424 and w1 blend :557-566; edit_latents' per-batch mask
+    precompute :329-342), the pivot frame's rows cleared (:493-496).
+
+    ``mode="banded"``: normalised epipolar lines [F, n_key, S, 3] per
+    resolution, the distance test evaluated blockwise in the gather;
+    ``mode="dense"``: [F, n_key, S, S] violation masks (the test oracle)."""
+    d = epipolar.camera_distances(cams_b.campos, key_cams.campos)  # [F, K]
+    closest = torch.argsort(d, dim=-1, stable=True)[:, :n_key]
+    dsort = torch.sort(d, dim=-1).values
+    if n_key == 2:
+        w1 = torch.sigmoid(dsort[:, 1] / (dsort[:, 0] + dsort[:, 1] + 1e-12))
+    else:
+        w1 = torch.ones(d.shape[0], dtype=torch.float32, device=d.device)
+    f = d.shape[0]
+    key_fp = key_cams.full_proj[closest.reshape(-1)]  # [F*n_key, 4, 4]
+    query_fp = cams_b.full_proj.repeat_interleave(n_key, dim=0)
+    is_pivot = (torch.arange(f, device=d.device) == pivot_in_batch)[
+        :, None, None, None]
+    masks: Dict[int, torch.Tensor] = {}
+    lines_d: Dict[int, torch.Tensor] = {}
+    pts_d: Dict[int, torch.Tensor] = {}
+    for ds in (1, 2, 4, 8):
+        h, w = latent_h // ds, latent_w // ds
+        if h < 1 or w < 1:
+            continue
+        s = h * w
+        fm = epipolar.fundamental_from_projections(
+            epipolar.pixel_projection(key_fp, h, w),
+            epipolar.pixel_projection(query_fp, h, w))
+        if mode == "banded":
+            ln = epipolar.epipolar_lines(fm, h, w).reshape(f, n_key, s, 3)
+            # the pivot frame is unconstrained: zero lines -> distance 0
+            lines_d[s] = torch.where(is_pivot, 0.0, ln)
+            pts_d[s] = epipolar.pixel_grid(h, w, d.device)
+        else:
+            m = (epipolar.epipolar_distances(fm, h, w) > threshold).reshape(
+                f, n_key, s, s)
+            masks[s] = m & ~is_pivot
+    return CrossViewState(closest_cam=closest, blend_w1=w1,
+                          epipolar=masks or None, epi_lines=lines_d or None,
+                          epi_pts=pts_d or None, n_key=n_key,
+                          epi_threshold=threshold)
+
+
+class DGEGuidance:
+    def __init__(self, cfg: GuidanceConfig, models: P.IP2PModels):
+        if cfg.batch_mode != "loop":
+            raise NotImplementedError(
+                f"batch_mode={cfg.batch_mode!r} is {_NOT_PORTED}")
+        self.cfg = cfg
+        self.models = models
+        n = models.schedule.num_train_timesteps
+        self.min_step = int(n * cfg.min_step_percent)
+        self.max_step = int(n * cfg.max_step_percent)
+
+    # ---- the edit loop ----
+    @torch.no_grad()
+    def edit_latents(self, text_emb: torch.Tensor, latents: torch.Tensor,
+                     cond_latents: torch.Tensor, t_start: int, cams,
+                     generator: torch.Generator) -> torch.Tensor:
+        """text_emb [3B, S, D] (pos, neg, neg), latents [B, h, w, 4],
+        cond_latents [3B, h, w, 4] (img, img, zeros) -> edited latents."""
+        cfg = self.cfg
+        b, lat_h, lat_w = latents.shape[:3]
+        cbs = cfg.camera_batch_size
+        if b % cbs:
+            raise ValueError(f"views {b} must be a multiple of batch {cbs}")
+        n_batches = b // cbs
+        sched = self.models.schedule._replace(
+            num_train_timesteps=max(t_start, cfg.diffusion_steps))
+        noise = P._normal(tuple(latents.shape), generator)
+        latents = ddim.add_noise(sched, latents, noise, t_start)
+        emb_pos, emb_neg, _ = text_emb.chunk(3, dim=0)
+        cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
+
+        def triple_for(idx):
+            """CFG triplet [pos, neg, neg] embeddings and [img, img, zero]
+            conditioning latents of a view subset."""
+            te = torch.cat([emb_pos[idx], emb_neg[idx], emb_neg[idx]], 0)
+            cl = torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]], 0)
+            return te, cl
+
+        for t in ddim.inference_timesteps(sched, cfg.diffusion_steps):
+            eps = self._predict_eps_multiview(
+                latents, int(t), cams, triple_for, b, cbs, n_batches, lat_h,
+                lat_w, generator)
+            latents = ddim.step(sched, eps, int(t), latents,
+                                cfg.diffusion_steps)
+        return latents
+
+    def _combine(self, eps_chunks):
+        """CFG over per-batch eps triplets [3F, h, w, 4]."""
+        parts = [e.chunk(3, dim=0) for e in eps_chunks]
+        e_t, e_i, e_u = (torch.cat([p[k] for p in parts], 0)
+                         for k in range(3))
+        return P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
+                             self.cfg.condition_scale)
+
+    def _predict_eps_multiview(self, latents, t, cams, triple_for, b, cbs,
+                               n_batches, lat_h, lat_w, generator):
+        """One CFG-combined multi-view noise prediction at timestep t (the
+        body of the reference's edit_latents, dge_guidance.py:289-371):
+        plain attention below t=100, otherwise a pivot pass and an
+        epipolar-constrained reuse pass per camera batch."""
+        cfg = self.cfg
+        dev = latents.device
+        if t < cfg.normal_attn_below_t:
+            # plain attention per camera batch (use_normal_unet)
+            eps_chunks = []
+            for i in range(n_batches):
+                sl = torch.arange(i * cbs, min((i + 1) * cbs, b), device=dev)
+                te, cl = triple_for(sl)
+                inp = torch.cat([P.triple(latents[sl]), cl], dim=-1)
+                eps_chunks.append(P.unet_eps(self.models, inp, t, te))
+            return self._combine(eps_chunks)
+
+        # one random pivot per camera batch, then the pivot pass over all
+        # key frames (extended attention, recorded)
+        piv_off = _pivot_offsets(n_batches, cbs, generator)
+        piv = torch.as_tensor(piv_off + np.arange(0, b, cbs), device=dev)
+        key_cams = index_cameras(cams, piv)
+        te_p, cl_p = triple_for(piv)
+        record: dict = {}
+        P.unet_eps(self.models,
+                   torch.cat([P.triple(latents[piv]), cl_p], dim=-1), t, te_p,
+                   mode="pivot_record", pivot=record)
+
+        eps_chunks = []
+        for i in range(n_batches):
+            sl = torch.arange(i * cbs, (i + 1) * cbs, device=dev)
+            n_key = 1 if i == 0 else 2  # make_dge_block batch_idxs
+            cv = make_cross_view_state(
+                index_cameras(cams, sl), key_cams, int(piv_off[i]), lat_h,
+                lat_w, n_key, cfg.epipolar_threshold, cfg.epipolar_mode)
+            te_b, cl_b = triple_for(sl)
+            inp_b = torch.cat([P.triple(latents[sl]), cl_b], dim=-1)
+            eps_chunks.append(P.unet_eps(
+                self.models, inp_b, t, te_b, mode="pivot_reuse",
+                cross_view=cv, pivot=record))
+        return self._combine(eps_chunks)
+
+    @torch.no_grad()
+    def __call__(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,
+                 text_emb_pos: torch.Tensor, text_emb_neg: torch.Tensor,
+                 cams, generator: torch.Generator,
+                 max_step: Optional[int] = None) -> torch.Tensor:
+        """Edit all views (guidance __call__, dge_guidance.py:480-569):
+        rgb (current renders) and cond_rgb (original renders) [B, H, W, 3]
+        in [0, 1], text embeddings [B, S, D], stacked cameras. Returns the
+        edited images at the input resolution."""
+        b, h, w, _ = rgb.shape
+        rh, rw = P.resize_to_64_multiple(h, w, self.cfg.resize_target)
+        if (rh, rw) != (h, w):
+            rgb, cond_rgb = _resize(rgb, rh, rw), _resize(cond_rgb, rh, rw)
+        latents = P.encode_images(self.models, rgb, generator,
+                                  chunk=self.cfg.vae_batch)
+        cond_latents = P.encode_cond_images(self.models, cond_rgb,
+                                            chunk=self.cfg.vae_batch)
+        text_emb = torch.cat([text_emb_pos, text_emb_neg, text_emb_neg], 0)
+        t_start = (max_step if max_step is not None else self.max_step) - 1
+        edited = self.edit_latents(text_emb, latents, cond_latents, t_start,
+                                   cams, generator)
+        imgs = P.decode_latents(self.models, edited, chunk=self.cfg.vae_batch)
+        if (rh, rw) != (h, w):
+            imgs = _resize(imgs, h, w)
+        return imgs
+
+    def update_step(self, min_step_percent: Optional[float] = None,
+                    max_step_percent: Optional[float] = None) -> None:
+        """Anneal the noise-level window (DGEGuidance.update_step,
+        dge_guidance.py:571-586). Ported as the reference has it: nothing
+        calls it (ROADMAP.md §3)."""
+        n = self.models.schedule.num_train_timesteps
+        if min_step_percent is not None:
+            self.min_step = int(n * min_step_percent)
+        if max_step_percent is not None:
+            self.max_step = int(n * max_step_percent)
+
+    def sds_multiview(self, *args, **kwargs):
+        raise NotImplementedError(f"sds_multiview is {_NOT_PORTED}")
+
+    def compute_grad_sds(self, *args, **kwargs):
+        raise NotImplementedError(f"compute_grad_sds is {_NOT_PORTED}")

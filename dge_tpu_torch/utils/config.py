@@ -8,6 +8,7 @@ stays a string), so the CLI runs where PyYAML is not installed.
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import json
 import os
@@ -53,6 +54,26 @@ def load_config(path: Optional[str],
     if overrides:
         apply_dotlist(cfg, overrides)
     return cfg
+
+
+def parse_structured(cls, cfg: Optional[Dict[str, Any]] = None):
+    """Instantiate a dataclass from a dict, recursing into dataclass fields
+    (reference parse_structured, utils/config.py:121-123); an unknown key
+    raises."""
+    cfg = cfg or {}
+    if not dataclasses.is_dataclass(cls):
+        return cfg
+    fields = {f.name: f for f in dataclasses.fields(cls)}
+    kwargs = {}
+    for k, v in cfg.items():
+        if k not in fields:
+            raise ValueError(f"unknown config key '{k}' for {cls.__name__}")
+        ftype = fields[k].type
+        if dataclasses.is_dataclass(ftype) and isinstance(v, dict):
+            kwargs[k] = parse_structured(ftype, v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
 
 
 def make_trial_dir(exp_root: str, name: str, tag: str,

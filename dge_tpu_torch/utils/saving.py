@@ -197,6 +197,20 @@ def load_image(path: str, size: Optional[tuple] = None) -> np.ndarray:
     return img
 
 
+def save_image_grid(path: str, imgs: Sequence[np.ndarray],
+                    cols: int = 4) -> str:
+    """Tile images into a grid (SaverMixin save_image_grid analog)."""
+    imgs = [_to_u8(i) for i in imgs]
+    h, w = imgs[0].shape[:2]
+    cols = min(cols, len(imgs))
+    rows = -(-len(imgs) // cols)
+    grid = np.zeros((rows * h, cols * w, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, cols)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
+    return save_image(path, grid)
+
+
 def save_video(path: str, frames: Sequence[np.ndarray], fps: int = 30,
                log: Optional[Callable[[str], None]] = None) -> Optional[str]:
     """Image sequence -> mp4 (gif where imageio has no ffmpeg); skipped,

@@ -218,7 +218,7 @@ def test_cli_names_its_modes(tmp_path, caplog):
     with pytest.raises(SystemExit):
         launch.main(["--out", str(tmp_path)])
     assert "--validate" in caplog.text and "--export" in caplog.text
-    assert "--train" not in caplog.text
+    assert "--train" in caplog.text
 
 
 # ---- checkpoint -----------------------------------------------------------
