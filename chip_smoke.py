@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -74,11 +74,35 @@ process per source, started together) and runs:
    its kernels, its layout's row-count read and gather apart, plain
    version, bound, image against ``cuda_stream``); and the K1-vs-K5 tool
    (``dge_tpu_torch.tools.proto_logdot``) at 512^2, counters set to 0
-   before it.
+   before it;
+7. the edit path: ``--train --smoke`` at full SD-1.5 width on random
+   weights over 10 views of the capture (camera batches of 5, 20 DDIM
+   steps, a 150-step refit), counters set to 0 before it; its checks, the
+   kernels at the refit's shapes, SDPA against the chunked attention, the
+   blockwise argmax against the dense one, UNet / VAE / DDIM-step times;
+8. the rest of the edit system, counters set to 0 before each run: (a)
+   the repo's recipe ``--train --config configs/dge.yaml`` (batched reuse)
+   as a local edit (precomputed masks, a 50-step refit, CLIP metrics from a
+   random full-width CLIP directory): the reuse mode, a spill-free mask
+   lift, a grad mask neither empty nor everything, the masked fields (all
+   but rotation, as in the reference) of every Gaussian outside it
+   bit-identical after the refit, the edited frames, spill 0, the kernels'
+   launches; one DDIM step of the 10 views in ``"loop"`` and in ``"vmap"``
+   mode: the vmap pass's gather indices equal to the loop's except at ties
+   within 1e-5, the two steps within 2e-4 with the loop's indices handed
+   over, the free difference and both times printed; (b) 20
+   steps of ``system.edit.use_sds=true`` over batches of 5: finite losses,
+   moved parameters, densify statistics, spill 0, at least 2·5 launches a
+   step of K1's two kernels and 5 of K3, suffix, K4 and the fold; the
+   kernels at the SDS shapes, one SDS step's gradients through the
+   kernels against the plain render within 2e-3·max|g|, the SDS step and
+   the VAE encoder's forward + backward at 5 x 512^2 timed, peak memory;
+   (c) ``ClipSimilarity`` at ViT-L/14 width over the original and edited
+   frames: finite, identical images within 1e-5 of 1, ms per image.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all seven ran.
+gate's own recipe); the result lines are printed only when all eight ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -137,13 +161,23 @@ LIST_VS_STREAM_TOL = 1e-2
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
 EDIT_BATCH = 5
 EDIT_STEPS = 150
 SDPA_TOL = 1e-4  # x max|chunked plain attention|
+# phase 8, the rest of the edit system: the repo's recipe (configs/dge.yaml,
+# batched reuse) as a local edit with a short refit, then the SDS mode
+LOCAL_STEPS = 50
+SDS_STEPS = 20
+MASK_DIR = os.path.join(ROOT, "outputs", "quality_gate", "20260821-064841",
+                        "masks")
+# one DDIM step, "vmap" against "loop" with the same gather indices
+# (tests/test_guidance.py's tolerance between JAX's two modes)
+VMAP_TOL = 2e-4
+CLIP_TOL = 1e-5  # sim_image of identical images against 1
 ARGMAX_GAP = 1e-5  # dense top-2 gap above which the argmax indices must agree
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
@@ -1719,11 +1753,298 @@ def edit_stage_times(cams, dev) -> dict:
     return res
 
 
+def save_random_clip(root: str, dev, vision_cfg=None, text_cfg=None):
+    """A CLIP pair of towers on random weights (seed 0; ViT-L/14 and a
+    768-projected text tower unless configs are given) saved as a local
+    transformers-layout directory (``pytorch_model.bin``, ``config.json``
+    with the head counts) for ``system.clip_checkpoint``; returns the
+    scorer built from the same weights."""
+    import torch
+
+    from dge_tpu_torch.models import clip_vision as CV
+
+    sim = CV.build_clip_similarity(vision_cfg=vision_cfg, text_cfg=text_cfg,
+                                   device=dev)
+    state = {k: v.cpu() for m in (sim.vision, sim.text)
+             for k, v in m.state_dict().items()}
+    os.makedirs(root, exist_ok=True)
+    torch.save(state, os.path.join(root, "pytorch_model.bin"))
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump({f"{name}_config": {"num_attention_heads":
+                                      m.config.num_heads}
+                   for name, m in (("vision", sim.vision),
+                                   ("text", sim.text))}, f)
+    return sim
+
+
+def local_edit_checks(run, scene0, views: int, steps: int, size: int):
+    """Phase 8 (a)'s checks of one ``--train --config configs/dge.yaml``
+    local edit: the batched reuse, a spill-free lift, a grad mask that is
+    neither empty nor everything, every masked field (all but rotation, as
+    in the reference) of every Gaussian outside it bit-identical after the
+    refit and some inside moved, the edited frames, spill 0.
+    Returns the mask's size."""
+    import numpy as np
+    import torch
+
+    from dge_tpu_torch.systems.optim import MASKED_FIELDS
+
+    system = run.system
+    if system.guidance.cfg.batch_mode != "vmap":
+        raise AssertionError(f"local edit: batch_mode "
+                             f"{system.guidance.cfg.batch_mode!r}")
+    if system.lift_spill or system.lift_caps is None:
+        raise AssertionError(f"local edit: lift spill {system.lift_spill}, "
+                             f"caps {system.lift_caps}")
+    mask = system.scene.grad_mask > 0
+    n_mask, n_alive = int(mask.sum()), system.scene.n_alive
+    if not 0 < n_mask < n_alive:
+        raise AssertionError(f"local edit: grad mask holds {n_mask} of "
+                             f"{n_alive} alive Gaussians")
+    scene = system.scene
+    if not torch.equal(scene.alive, scene0.alive):
+        raise AssertionError("local edit: the alive set changed")
+    # the grad mask holds the fields the reference hooks; rotation is not
+    # one of them (gaussian_model.py:841-851; ROADMAP.md §3)
+    outside = scene0.alive & ~mask
+    moved = 0.0
+    for k in MASKED_FIELDS:
+        a, b = getattr(scene, k), getattr(scene0, k)
+        if not torch.equal(a[outside], b[outside]):
+            raise AssertionError(f"local edit: {k} changed outside the "
+                                 "grad mask")
+        if a[mask].numel():
+            moved = max(moved, float((a[mask] - b[mask]).abs().max()))
+    if moved <= 0.0:
+        raise AssertionError("local edit: nothing inside the mask moved")
+    rot_outside = float((scene.rotation[outside]
+                         - scene0.rotation[outside]).abs().max())
+    frames = [run.edit_frames[v] for v in sorted(run.edit_frames)]
+    bad = [i for i, f in enumerate(frames)
+           if f.shape != (size, size, 3) or not np.isfinite(f).all()
+           or f.min() < 0.0 or f.max() > 1.0]
+    if len(frames) != views or bad:
+        raise AssertionError(f"local edit: {len(frames)} frames, bad {bad}")
+    if not run.losses_finite or run.spill or run.render_spill:
+        raise AssertionError(f"local edit: losses finite "
+                             f"{run.losses_finite}, spill {run.spill} / "
+                             f"{run.render_spill}")
+    if run.steps != steps:
+        raise AssertionError(f"local edit: {run.steps} steps")
+    return dict(mask=n_mask, alive=n_alive, lift_caps=system.lift_caps,
+                inside_moved_max=moved,
+                outside_rotation_moved_max=rot_outside)
+
+
+def loop_vs_vmap_step(models, cams, views: int, batch: int, lat: int,
+                      dev, reps: int = 3) -> dict:
+    """One DDIM step over ``views`` views at t = 500 (pivot pass, reuse,
+    CFG, update) in ``"loop"`` and in ``"vmap"`` mode from the same draws,
+    with their CUDA-event times.
+
+    The two modes run the same arithmetic at other batch sizes, so cuBLAS
+    and cuDNN sum in other orders, and the reuse's cosine argmax can flip
+    at a near-tie, which moves a gathered token. So: (1) each reuse block's
+    gather indices of the vmap pass are held against the loop's, and every
+    index that differs must be a tie within 1e-5 of masked cosine
+    similarity (``ARGMAX_GAP``); (2) the vmap step with the loop's indices
+    handed to its gather must equal the loop's within 2e-4; (3) the free
+    vmap step's difference is reported."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ddim
+    from dge_tpu_torch.models import layers as L
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = models.unet.config.cross_attention_dim
+    x = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    cond = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    te = torch.randn(2 * views, 77, d, generator=gen, device=dev)
+    cams_all = stack_cameras(cams[:views])
+    n_batches = views // batch
+
+    def triple_for(idx):
+        return (torch.cat([te[idx], te[views + idx], te[views + idx]]),
+                torch.cat([cond[idx], cond[idx], torch.zeros_like(
+                    cond[idx])]))
+
+    guides = {mode: GD.DGEGuidance(GD.GuidanceConfig(
+        camera_batch_size=batch, batch_mode=mode), models)
+        for mode in ("loop", "vmap")}
+
+    def step(mode):
+        with torch.no_grad():
+            eps = guides[mode]._predict_eps_multiview(
+                x, 500, cams_all, triple_for, views, batch, n_batches, lat,
+                lat, torch.Generator(device=dev).manual_seed(4))
+            return ddim.step(models.schedule, eps, 500, x, 20)
+
+    real = L.epi_blockwise_argmax
+    loop_idx, flips, gaps = [], [], []
+
+    def recording(*args, **kw):
+        loop_idx.append(real(*args, **kw))
+        return loop_idx[-1]
+
+    def forced(img, piv_img, lines, pts, threshold, block=512):
+        """The vmap pass's own indices, counted against the loop's, which
+        it returns: batch 0's single key duplicated, the rest as they
+        are."""
+        j = len(flips)
+        n = len(loop_idx) // n_batches
+        want = torch.cat([loop_idx[j].expand(-1, 2, -1)]
+                         + [loop_idx[i * n + j]
+                            for i in range(1, n_batches)])
+        own = real(img, piv_img, lines, pts, threshold, block)
+        f, k, q = torch.nonzero(own != want, as_tuple=True)
+        flips.append(int(f.numel()))
+        for a, b, c in zip(f.tolist(), k.tolist(), q.tolist()):
+            sims = piv_img[a, b] @ img[a, c]  # [S]
+            viol = (lines[a, b, c] @ pts.T).abs() > threshold
+            masked = sims if bool(viol.all()) else torch.where(
+                viol, 0.0, sims)
+            gaps.append(float((masked[own[a, b, c]]
+                               - masked[want[a, b, c]]).abs()))
+        return want
+
+    out = {}
+    try:
+        L.epi_blockwise_argmax = recording
+        out["loop"] = step("loop")
+        L.epi_blockwise_argmax = forced
+        out["forced"] = step("vmap")
+    finally:
+        L.epi_blockwise_argmax = real
+    out["vmap"] = step("vmap")
+    res = dict(
+        loop_ms=cuda_ms(lambda: step("loop"), reps=reps, warmup=1)
+        if dev.type == "cuda" else None,
+        vmap_ms=cuda_ms(lambda: step("vmap"), reps=reps, warmup=1)
+        if dev.type == "cuda" else None,
+        max_abs_diff=float((out["loop"] - out["forced"]).abs().max()),
+        free_max_abs_diff=float((out["loop"] - out["vmap"]).abs().max()),
+        max_abs=float(out["loop"].abs().max()),
+        gathered=sum(int(i.numel()) for i in loop_idx),
+        flips=sum(flips), flip_max_gap=max(gaps, default=0.0))
+    log(f"  one DDIM step of {views} views, loop vs vmap: {res}")
+    if res["flip_max_gap"] > ARGMAX_GAP:
+        raise AssertionError(f"vmap's gather differs from the loop's away "
+                             f"from a tie: gap {res['flip_max_gap']}")
+    if not res["max_abs_diff"] <= VMAP_TOL:
+        raise AssertionError(f"vmap differs from loop by "
+                             f"{res['max_abs_diff']} with the same gather")
+    return res
+
+
+def sds_checks(run, scene0, batch: int, steps: int) -> dict:
+    """Phase 8 (b)'s checks of one ``--train system.edit.use_sds=true``
+    run: finite losses, parameters moved, densification statistics
+    accumulated, no edit frames, spill 0."""
+    from dge_tpu_torch.scene.gaussians import PARAM_NAMES
+
+    system = run.system
+    moved = max(float((getattr(system.scene, k) - getattr(scene0, k)).abs()
+                      .max()) for k in PARAM_NAMES
+                if getattr(scene0, k).numel())
+    denom = float(system.fit_state.denom.max())
+    if not run.losses_finite or moved <= 0.0 or denom <= 0.0:
+        raise AssertionError(f"SDS: losses finite {run.losses_finite}, "
+                             f"moved {moved}, denom max {denom}")
+    if run.edit_frames or run.spill or run.render_spill:
+        raise AssertionError(f"SDS: {len(run.edit_frames)} edit frames, "
+                             f"spill {run.spill} / {run.render_spill}")
+    if run.steps != steps or system.fit_state.step != steps:
+        raise AssertionError(f"SDS: {run.steps} steps")
+    return dict(params_moved_max=moved, denom_max=denom)
+
+
+def sds_grads_vs_plain(system, batch: int, dev) -> dict:
+    """One SDS refit's loss and gradients through the kernels
+    (``cuda_train``: K1, K3, suffix, K4, fold) against the same loss on the
+    plain render (``backend="torch"``, autograd) on the same device, within
+    2e-3·max|g| per field."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p as P
+
+    vids = system.view_list[:batch]
+    cam = system.cameras[vids[0]]
+    rh, rw = P.resize_to_64_multiple(cam.height, cam.width,
+                                     system.guidance.cfg.resize_target)
+    shape = P.latent_shape(system.guidance.models,
+                           torch.zeros(batch, rh, rw, 3))
+    gen = torch.Generator(device=dev).manual_seed(6)
+    target = torch.randn(shape, generator=gen, device=dev)
+    noise = torch.randn(shape, generator=gen, device=dev)
+    loss_k, g_k, _ = system.sds_loss_and_grads(vids, target, noise)
+    loss_p, g_p, _ = system.sds_loss_and_grads(vids, target, noise,
+                                               backend="torch")
+    rel = {k: float((g_k[k] - g_p[k]).abs().max())
+           / max(float(g_p[k].abs().max()), 1e-30) for k in g_p
+           if g_p[k].numel()}
+    res = dict(loss=float(loss_k), plain_loss=float(loss_p), rel_err=rel)
+    log(f"  SDS gradients, kernels vs plain render: {res}")
+    if max(rel.values()) > GRAD_TOL or abs(
+            float(loss_k) - float(loss_p)) > 1e-5 * abs(float(loss_p)):
+        raise AssertionError("SDS gradients: kernels differ from the plain "
+                             "render")
+    return res
+
+
+def vae_encode_fwd_bwd(models, views: int, size: int, dev) -> dict:
+    """The VAE encoder's forward + backward (to the images) at ``views``
+    images of ``size``^2: CUDA-event ms and peak memory."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p as P
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.rand(views, size, size, 3, generator=gen, device=dev,
+                   requires_grad=True)
+    noise = torch.randn(P.latent_shape(models, x), generator=gen,
+                        device=dev)
+
+    def fwd_bwd():
+        lat = P.encode_images_with(models, x, noise)
+        return torch.autograd.grad(lat.square().sum(), x)[0]
+
+    torch.cuda.reset_peak_memory_stats()
+    g = fwd_bwd()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("VAE encoder backward: non-finite gradient")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return dict(ms=cuda_ms(fwd_bwd, reps=3, warmup=1),
+                fwd_ms=cuda_ms(lambda: P.encode_images_with(
+                    models, x.detach(), noise), reps=3, warmup=1),
+                peak_memory_gib=peak)
+
+
+def clip_checks(sim, src, edit) -> dict:
+    """ClipSimilarity over the phase's original and edited frames: four
+    finite arrays of the views' length; identical images score sim_image 1
+    within 1e-5."""
+    import numpy as np
+
+    n = len(src)
+    texts = (["a photo of a man"] * n, ["turn him into a clown"] * n)
+    out = sim(src, edit, *texts)
+    same = sim(src, src, *texts)[3]
+    bad = [i for i, o in enumerate(out)
+           if o.shape != (n,) or not np.isfinite(o).all()]
+    if bad or float(np.abs(same - 1.0).max()) > CLIP_TOL:
+        raise AssertionError(f"CLIP: outputs {bad} bad, identical images "
+                             f"score {same}")
+    return dict(means=[float(np.mean(o)) for o in out],
+                identical_max_err=float(np.abs(same - 1.0).max()))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -1747,6 +2068,7 @@ def main(argv=None) -> int:
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.systems.edit import step_generator
 
     # parity: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2183,7 +2505,7 @@ def main(argv=None) -> int:
         half[:, 128:] = 1.0
         w_full, h_full = R.render_weights(qscene, qcams[0],
                                           torch.ones(256, 256, device=dev),
-                                          **lift_kw)
+                                          **lift_kw)[:2]
         if not torch.equal(w_full, h_full) or float(h_full.sum()) <= 0:
             raise AssertionError("mask lift: full mask weights != hits")
         torch.cuda.synchronize()
@@ -2191,7 +2513,7 @@ def main(argv=None) -> int:
         w_sum = torch.zeros(qscene.capacity, device=dev)
         h_sum = torch.zeros(qscene.capacity, device=dev)
         for cam in qcams:
-            w, h = R.render_weights(qscene, cam, half, **lift_kw)
+            w, h = R.render_weights(qscene, cam, half, **lift_kw)[:2]
             w_sum += w
             h_sum += h
         torch.cuda.synchronize()
@@ -2303,6 +2625,8 @@ def main(argv=None) -> int:
             edit_launches = dict(PC.launch_counts)
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             escene = G.load_ply(trun.ply_path, device=dev)
+            # the run's DGESystem holds the SD-1.5 weights: release them
+            trun = trun._replace(system=None)
         log(f"  launches during the edit path: {edit_launches}")
         frames = [trun.edit_frames[v] for v in sorted(trun.edit_frames)]
         bad = [i for i, f in enumerate(frames)
@@ -2358,9 +2682,121 @@ def main(argv=None) -> int:
             f"{peak_gb:.2f} GiB, host seconds {trun.seconds}, alive "
             f"{escene.n_alive}, caps {trun.caps} ({smi_line})")
 
+    # ---- phase 8: the rest of the edit system ----
+    if 8 in phases:
+        log(f"phase 8: the repo's recipe (--config configs/dge.yaml, batched "
+            f"reuse) as a local edit of the quality-gate scene over "
+            f"{EDIT_VIEWS} views at 256^2 (precomputed masks, "
+            f"{LOCAL_STEPS} refit steps, CLIP metrics on random full-width "
+            f"towers), then {SDS_STEPS} SDS steps over batches of "
+            f"{EDIT_BATCH}, full-width SD-1.5 networks on random weights")
+        scene0 = G.load_ply(QUALITY_PLY, device=dev)
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        ecams = [CameraArrays.from_camera(c, device=dev)
+                 for c in DS.subsample_views(cs.cameras, EDIT_VIEWS)]
+        common = ["--gs_source", QUALITY_PLY, "--source", CAPTURE,
+                  "data.height=256", "data.width=256",
+                  f"data.max_view_num={EDIT_VIEWS}",
+                  f"system.guidance.camera_batch_size={EDIT_BATCH}",
+                  "system.prompt=turn him into a clown"]
+        with tempfile.TemporaryDirectory() as tmp:
+            # (a) the recipe, local, with CLIP metrics
+            t0 = time.time()
+            clip_dir = os.path.join(tmp, "clip")
+            sim = save_random_clip(clip_dir, dev)
+            clip_save_s = time.time() - t0
+            torch.cuda.reset_peak_memory_stats()
+            PC.reset_launch_counts()
+            arun = launch.main([
+                "--train", "--smoke", "--config",
+                os.path.join(ROOT, "configs", "dge.yaml"), "--out",
+                os.path.join(tmp, "a"), *common, "system.seg_prompt=object",
+                "system.segmentor=precomputed", f"system.mask_dir={MASK_DIR}",
+                f"system.clip_checkpoint={clip_dir}",
+                f"system.edit.max_steps={LOCAL_STEPS}",
+                f"system.edit.camera_update_per_step={LOCAL_STEPS + 1}",
+                "system.edit.densify_from=1000000"])
+            local_launches = dict(PC.launch_counts)
+            local_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  launches during the local edit: {local_launches}")
+        local = local_edit_checks(arun, scene0, EDIT_VIEWS, LOCAL_STEPS, 256)
+        need = {k: 2 * EDIT_VIEWS + LOCAL_STEPS
+                for k in FORWARD_FORMS[False][:2]}
+        need.update({k: LOCAL_STEPS for k in BACKWARD_KERNELS})
+        short = {k: (local_launches[k], v) for k, v in need.items()
+                 if local_launches[k] < v}
+        if short:
+            raise AssertionError(f"local edit: kernels launched too few "
+                                 f"times (got, need): {short}")
+        cm = arun.clip_metrics
+        if cm is None or cm["n_views"] != EDIT_VIEWS or not all(
+                math.isfinite(cm[k]) for k in cm):
+            raise AssertionError(f"local edit: CLIP metrics {cm}")
+        local.update(launches=local_launches, seconds=arun.seconds,
+                     edit_round_s=arun.seconds["edit"],
+                     refit_steps_per_s=LOCAL_STEPS / arun.seconds["fit"],
+                     peak_memory_gib=local_peak, clip_metrics=cm,
+                     clip_save_s=clip_save_s,
+                     loop_vs_vmap=loop_vs_vmap_step(
+                         arun.system.guidance.models, ecams, EDIT_VIEWS,
+                         EDIT_BATCH, 64, dev))
+        vids = sorted(arun.edit_frames)
+        src = np.stack([arun.system.origin_frames[v] for v in vids])
+        clip = clip_checks(sim, src,
+                           np.stack([arun.edit_frames[v] for v in vids]))
+        clip["ms_per_image"] = cuda_ms(lambda: sim.image_features(src),
+                                       reps=5, warmup=1) / len(src)
+        log(f"  local edit: {local}")
+        log(f"  CLIP on random ViT-L/14: {clip}")
+        del arun, sim
+
+        # (b) SDS
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.reset_peak_memory_stats()
+            PC.reset_launch_counts()
+            srun = launch.main([
+                "--train", "--smoke", "--out", tmp, *common,
+                "system.edit.use_sds=true",
+                f"system.edit.camera_batch_size={EDIT_BATCH}",
+                f"system.edit.max_steps={SDS_STEPS}"])
+            sds_launches = dict(PC.launch_counts)
+            sds_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  launches during the SDS run: {sds_launches}")
+        sds = sds_checks(srun, scene0, EDIT_BATCH, SDS_STEPS)
+        need = {k: 2 * EDIT_BATCH * SDS_STEPS
+                for k in FORWARD_FORMS[False][:2]}
+        need.update({k: EDIT_BATCH * SDS_STEPS for k in BACKWARD_KERNELS})
+        short = {k: (sds_launches[k], v) for k, v in need.items()
+                 if sds_launches[k] < v}
+        if short:
+            raise AssertionError(f"SDS: kernels launched too few times "
+                                 f"(got, need): {short}")
+        ssys = srun.system
+        # the kernels at the SDS path's shapes: the scene after the run, the
+        # first view
+        inp = stream_inputs(ssys.scene, ssys.cameras[0],
+                            {k: v for k, v in ssys.loop.caps.items()
+                             if k not in ("tile_px", "chunk", "tight_cull")},
+                            ssys.loop.tight_cull, ssys.loop.tile_px,
+                            ssys.loop.chunk)
+        hold(inp, "SDS view 0")
+        step_gen = iter(range(10 ** 6, 10 ** 6 + 100))
+        sds.update(
+            launches=sds_launches, seconds=srun.seconds,
+            host_ms_per_step=1e3 * srun.seconds["sds"] / SDS_STEPS,
+            peak_memory_gib=sds_peak,
+            grads_vs_plain=sds_grads_vs_plain(ssys, EDIT_BATCH, dev),
+            step_ms=cuda_ms(lambda: ssys.sds_step(
+                step_generator(0, next(step_gen), dev)), reps=3, warmup=1),
+            vae_encode_fwd_bwd=vae_encode_fwd_bwd(
+                ssys.guidance.models, EDIT_BATCH, 512, dev))
+        log(f"  SDS: {sds}")
+        del srun, ssys
+        edit_system = dict(local=local, sds=sds, clip=clip)
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "seven")
+            "eight")
         return 0
 
     v0 = fit["view0"]
@@ -2400,6 +2836,9 @@ def main(argv=None) -> int:
             if not log_space:
                 entry["launches_fit"] = fit["launches"][key]
                 entry["launches_edit"] = edit["launches"][key]
+                entry["launches_local_edit"] = edit_system["local"][
+                    "launches"][key]
+                entry["launches_sds"] = edit_system["sds"]["launches"][key]
             forward.append(entry)
     kernels = forward + [{
         "name": "pairs_pass1",
@@ -2408,6 +2847,8 @@ def main(argv=None) -> int:
         "replaces": "dge_tpu/ops/pallas_backward.py:111",
         "launches": fit["launches"]["pairs_pass1"],
         "launches_edit": edit["launches"]["pairs_pass1"],
+        "launches_local_edit": edit_system["local"]["launches"]["pairs_pass1"],
+        "launches_sds": edit_system["sds"]["launches"]["pairs_pass1"],
         "max_abs_err": max(errs["pairs_pass1"]),
         "max_rel_err": max(rels["pairs_pass1"]),  # of the field's max
         "ms": v0["pass1_ms"],  # the row kernel; the whole wrapper below
@@ -2425,6 +2866,8 @@ def main(argv=None) -> int:
         "replaces": "dge_tpu/ops/pallas_backward.py:287",
         "launches": fit["launches"]["pairs_suffix"],
         "launches_edit": edit["launches"]["pairs_suffix"],
+        "launches_local_edit": edit_system["local"]["launches"]["pairs_suffix"],
+        "launches_sds": edit_system["sds"]["launches"]["pairs_suffix"],
         "max_abs_err": max(errs["pairs_suffix"]),
         "max_rel_err": max(rels["pairs_suffix"]),  # of the field's max
         "ms": v0["suffix_ms"],
@@ -2441,6 +2884,8 @@ def main(argv=None) -> int:
         "replaces": "dge_tpu/ops/pallas_backward.py:157",
         "launches": fit["launches"]["pairs_pass2"],
         "launches_edit": edit["launches"]["pairs_pass2"],
+        "launches_local_edit": edit_system["local"]["launches"]["pairs_pass2"],
+        "launches_sds": edit_system["sds"]["launches"]["pairs_pass2"],
         "max_abs_err": max(errs["pairs_pass2"]),
         "max_rel_err": max(rels["pairs_pass2"]),  # of the row's max |grad|
         "ms": v0["pass2_ms"],
@@ -2457,6 +2902,8 @@ def main(argv=None) -> int:
         "replaces": "dge_tpu/ops/pallas_backward.py:341",
         "launches": fit["launches"]["pairs_fold"],
         "launches_edit": edit["launches"]["pairs_fold"],
+        "launches_local_edit": edit_system["local"]["launches"]["pairs_fold"],
+        "launches_sds": edit_system["sds"]["launches"]["pairs_fold"],
         "max_abs_err": max(errs["pairs_fold"]),
         **{k: fit["fold"][k] for k in (
             "ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
@@ -2503,7 +2950,8 @@ def main(argv=None) -> int:
         timeout=60).stdout.strip().splitlines()[0]
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
-              "evaluation": ev, "edit": edit, "card": smi,
+              "evaluation": ev, "edit": edit, "edit_system": edit_system,
+              "card": smi,
               "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -102,6 +102,23 @@ def _chunks(b: int, chunk: Optional[int]):
     return [slice(i, i + step) for i in range(0, b, step)]
 
 
+def latent_shape(models: IP2PModels, rgb: torch.Tensor) -> Tuple[int, ...]:
+    """The latent shape [B, H/8, W/8, 4] of images [B, H, W, 3]."""
+    b, h, w = rgb.shape[:3]
+    f = models.vae.downscale
+    return (b, h // f, w // f, models.vae.config.latent_channels)
+
+
+def encode_images_with(models: IP2PModels, rgb: torch.Tensor,
+                       noise: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, 3] in [0, 1] -> the scaled posterior sample at the standard
+    normal draw ``noise`` [B, H/8, W/8, 4]. Keeps the autograd graph: the
+    SDS refit differentiates through it with the draw that made its target
+    latents (the JAX package reuses the same key, systems/edit.py:405,
+    471)."""
+    return nhwc(models.vae.encode(nchw(rgb) * 2.0 - 1.0, nchw(noise)))
+
+
 @torch.no_grad()
 def encode_images(models: IP2PModels, rgb: torch.Tensor,
                   generator: torch.Generator,
@@ -109,16 +126,10 @@ def encode_images(models: IP2PModels, rgb: torch.Tensor,
     """[B, H, W, 3] in [0, 1] -> sampled scaled latents [B, H/8, W/8, 4]
     (encode_images, dge_guidance.py:190-199); one posterior draw per chunk,
     in chunk order."""
-    vae = models.vae
-    out = []
-    for sl in _chunks(rgb.shape[0], chunk):
-        x = nchw(rgb[sl]) * 2.0 - 1.0
-        b, _, h, w = x.shape
-        f = vae.downscale
-        noise = _normal((b, h // f, w // f, vae.config.latent_channels),
-                        generator)
-        out.append(nhwc(vae.encode(x, nchw(noise))))
-    return torch.cat(out, dim=0)
+    return torch.cat([
+        encode_images_with(models, rgb[sl],
+                           _normal(latent_shape(models, rgb[sl]), generator))
+        for sl in _chunks(rgb.shape[0], chunk)], dim=0)
 
 
 @torch.no_grad()

@@ -7,6 +7,9 @@ InstructPix2Pix directory (``timbrooks/instruct-pix2pix``) loads with
 (``query`` / ``key`` / ``value`` / ``proj_attn``). The orbax ``*_ingested``
 caches of the JAX package are JAX-only and have no counterpart here.
 
+A local transformers ``CLIPModel`` directory (``openai/clip-vit-large-patch14``)
+loads for the edit metrics with ``load_clip_checkpoint``.
+
 ``*_params_from_jax`` turn the JAX packages' parameter trees (numpy leaves)
 into the port's state dicts, the inverse of the JAX ``convert_*``: flax's
 flat module names go back to diffusers' (``down_blocks_0_attentions_1`` ->
@@ -108,6 +111,95 @@ def clip_text_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         return "text_model." + k
 
     return _from_jax(tree, rename)
+
+
+def clip_vision_params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPVisionModel`` params -> port (transformers
+    ``CLIPVisionModelWithProjection``) state dict."""
+
+    def rename(k):
+        if k.startswith("visual_projection."):
+            return k
+        if k == "class_embedding":
+            return "vision_model.embeddings.class_embedding"
+        if k == "position_embedding":
+            return "vision_model.embeddings.position_embedding.weight"
+        if k.startswith("patch_embedding."):
+            return "vision_model.embeddings." + k
+        if k.startswith("layers."):
+            return "vision_model.encoder." + k
+        return "vision_model." + k
+
+    return _from_jax(tree, rename)
+
+
+def _n_layers(sd: Mapping, prefix: str) -> int:
+    return len({k[len(prefix):].split(".")[0] for k in sd
+                if k.startswith(prefix)})
+
+
+def _clip_configs(sd: Mapping, root: str):
+    """The towers' configs from the state dict's shapes; the head counts
+    from the directory's ``config.json`` (a head width of 64, CLIP's,
+    without one)."""
+    import json
+
+    from dge_tpu_torch.models.clip_text import CLIPTextConfig
+    from dge_tpu_torch.models.clip_vision import CLIPVisionConfig
+
+    heads = {}
+    p = os.path.join(root, "config.json")
+    if os.path.exists(p):
+        with open(p) as f:
+            js = json.load(f)
+        heads = {t: js.get(f"{t}_config", {}).get("num_attention_heads")
+                 for t in ("vision", "text")}
+    patch = sd["vision_model.embeddings.patch_embedding.weight"].shape
+    n_pos = sd["vision_model.embeddings.position_embedding.weight"].shape[0]
+    vision = CLIPVisionConfig(
+        image_size=patch[2] * int(round((n_pos - 1) ** 0.5)),
+        patch_size=patch[2], hidden_size=patch[0],
+        num_layers=_n_layers(sd, "vision_model.encoder.layers."),
+        num_heads=heads.get("vision") or patch[0] // 64,
+        intermediate_size=sd["vision_model.encoder.layers.0.mlp.fc1.weight"]
+        .shape[0],
+        projection_dim=sd["visual_projection.weight"].shape[0])
+    tok = sd["text_model.embeddings.token_embedding.weight"].shape
+    text = CLIPTextConfig(
+        vocab_size=tok[0], hidden_size=tok[1],
+        num_layers=_n_layers(sd, "text_model.encoder.layers."),
+        num_heads=heads.get("text") or tok[1] // 64,
+        max_length=sd["text_model.embeddings.position_embedding.weight"]
+        .shape[0],
+        intermediate_size=sd["text_model.encoder.layers.0.mlp.fc1.weight"]
+        .shape[0],
+        projection_dim=sd["text_projection.weight"].shape[0])
+    return vision, text
+
+
+def load_clip_checkpoint(root: str) -> Dict[str, Any]:
+    """A local transformers ``CLIPModel`` directory (``model.safetensors``
+    or ``pytorch_model.bin``, e.g. openai/clip-vit-large-patch14) ->
+    ``{"vision", "text"}`` state dicts in the port's names and the towers'
+    configs ``"vision_config"`` / ``"text_config"`` (load_clip_checkpoint,
+    weights.py:210-247; the reference's metric loads the same towers)."""
+    for fname in ("model.safetensors", "pytorch_model.bin"):
+        p = os.path.join(root, fname)
+        if os.path.exists(p):
+            sd = {k: v for k, v in load_state_dict_file(p).items()
+                  if "position_ids" not in k}
+            break
+    else:
+        raise FileNotFoundError(f"no CLIP checkpoint under {root}")
+    vision_cfg, text_cfg = _clip_configs(sd, root)
+    return {
+        "vision": {k: v for k, v in sd.items()
+                   if k.startswith("vision_model.")
+                   or k == "visual_projection.weight"},
+        "text": {k: v for k, v in sd.items()
+                 if k.startswith("text_model.")
+                 or k == "text_projection.weight"},
+        "vision_config": vision_cfg, "text_config": text_cfg}
 
 
 def _modern_vae_names(sd: Dict[str, Any]) -> Dict[str, Any]:

@@ -20,8 +20,11 @@ launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
 
     python -m dge_tpu_torch.launch --train --gs_source scene.ply \\
         --source capture_dir --out outputs [--smoke] [--resume ckpt] \\
-        system.ip2p_checkpoint=DIR system.prompt="..." \\
-        [system.model_size=tiny] [system.vgg_checkpoint=vgg16.pth] \\
+        [--config configs/dge.yaml] system.ip2p_checkpoint=DIR \\
+        system.prompt="..." [system.model_size=tiny] \\
+        [system.vgg_checkpoint=vgg16.pth] [system.clip_checkpoint=DIR] \\
+        [system.seg_prompt=object system.segmentor=precomputed \\
+         system.mask_dir=DIR] [system.edit.use_sds=true] \\
         [system.guidance.camera_batch_size=5] [system.edit.max_steps=1000] \\
         [data.max_view_num=20] data.height=512 data.width=512
 
@@ -41,8 +44,14 @@ from the capture's COLMAP points and fits it to the capture's images (vanilla
 views, the InstructPix2Pix models from ``system.ip2p_checkpoint`` (a local
 diffusers directory; ``--smoke`` or ``system.allow_random_weights`` runs
 random weights instead and writes ``SMOKE_ONLY.txt``), multi-view edit
-rounds and the L1 + LPIPS refit, writing ``val/``, ``ckpts/``, the edit
-cache under ``<out>/edit_cache/`` and ``last.ply``;
+rounds and the L1 + LPIPS refit (``system.guidance.batch_mode``:
+``loop``, or ``vmap``, the batched reuse ``configs/dge.yaml`` names), or
+with ``system.edit.use_sds=true`` score distillation every step; with
+``system.seg_prompt`` a local edit whose mask the segmentor gives and the
+spill-free lift installs; with ``system.clip_checkpoint`` (a local
+transformers ``CLIPModel`` directory) ``clip_metrics.json``; writing
+``val/``, ``ckpts/``, the edit cache under ``<out>/edit_cache/`` and
+``last.ply``;
 ``system.model_size=tiny`` builds the small test networks. Capture images may be PNG or JPEG at any size:
 they are area-resized to ``data.height`` x ``data.width``. Every mode writes
 ``cmd.txt`` and ``parsed.yaml``, runs on the GPU unless ``--cpu`` is given,
@@ -56,7 +65,7 @@ import argparse
 import logging
 import os
 import sys
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -96,6 +105,10 @@ class TrainRun(NamedTuple):
     seconds: dict  # host seconds by stage (DGESystem.seconds) and "run"
     launches: dict  # kernel launch counts of the run
     trial_dir: str
+    clip_metrics: Optional[dict]  # clip_metrics.json, None without CLIP
+    # the DGESystem after the run: its scene (grad mask), fit state,
+    # lift_spill / lift_caps and the guidance's models
+    system: object
 
 
 class FitRun(NamedTuple):
@@ -442,7 +455,11 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     )()
     guidance = DGEGuidance(
         parse_structured(GuidanceConfig, sys_cfg.get("guidance", {})), models)
-    e_cfg = parse_structured(EditConfig, sys_cfg.get("edit", {}))
+    # configs/dge.yaml sets seg_prompt at the system level, where the JAX
+    # launcher never reads it; system.edit.seg_prompt still wins
+    e_cfg = parse_structured(EditConfig, {
+        "seg_prompt": sys_cfg.get("seg_prompt", ""),
+        **sys_cfg.get("edit", {})})
     seg = build_segmentor(sys_cfg.get("segmentor", "fallback"),
                           sys_cfg.get("mask_dir", ""))
     # the cross-trial edit cache keyed by (gs_source, prompt, #views): a
@@ -478,17 +495,58 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     ply = os.path.join(trial_dir, "last.ply")
     G.save_ply(final, ply)
     log.info("saved edited scene to %s", ply)
-    # CLIP edit-quality metrics (clip_metrics.py:33-50) need the CLIP vision
-    # tower, not ported yet (ROADMAP.md §1)
-    log.info("CLIP edit metrics skipped: models/clip_vision.py is not "
-             "ported yet")
+    # CLIP edit-quality metrics (clip_metrics.py:33-50): the original and
+    # the edited scene's renders against the source and edit prompts
+    clip = _clip_edit_metrics(sys_cfg, system, trial_dir, device)
     with open(metrics.path) as f:
         losses = [json.loads(line).get("train/loss", 0.0) for line in f]
     return TrainRun(
         ply, e_cfg.max_steps, dict(system.edit_frames),
         bool(np.isfinite(losses).all()), system.total_spill,
         system.render_spill, system.loop.caps, seconds,
-        {k: v - before[k] for k, v in PC.launch_counts.items()}, trial_dir)
+        {k: v - before[k] for k, v in PC.launch_counts.items()}, trial_dir,
+        clip, system)
+
+
+def _clip_edit_metrics(sys_cfg, system, trial_dir, device) -> Optional[dict]:
+    """``clip_metrics.json`` (the four similarity means and ``n_views``) of
+    the origin frames against the edited scene's renders, with the CLIP
+    towers of the local transformers ``CLIPModel`` directory
+    ``system.clip_checkpoint`` (tokenizer files from its ``tokenizer/``
+    subdirectory or itself); without one it logs that it skips, since
+    scores from random towers mean nothing. Returns the metrics or None."""
+    ckpt = sys_cfg.get("clip_checkpoint")
+    if not (ckpt and os.path.isdir(ckpt)):
+        log.info("no CLIP checkpoint (system.clip_checkpoint): skipping the "
+                 "CLIP edit metrics (scores from random towers are "
+                 "meaningless)")
+        return None
+    from dge_tpu_torch.diffusion import tokenizer as T
+    from dge_tpu_torch.diffusion import weights as W
+    from dge_tpu_torch.models.clip_vision import build_clip_similarity
+    from dge_tpu_torch.utils import saving
+
+    ck = W.load_clip_checkpoint(ckpt)
+    tok_dir = os.path.join(ckpt, "tokenizer")
+    tok = T.load_tokenizer(tok_dir if os.path.isdir(tok_dir) else ckpt,
+                           max_length=ck["text_config"].max_length)
+    sim = build_clip_similarity(
+        ck, None if isinstance(tok, T.HashTokenizer) else tok,
+        ck["vision_config"], ck["text_config"], device=device)
+    vids = sorted(system.origin_frames)
+    src = np.stack([system.origin_frames[v] for v in vids])
+    edited = np.stack([system._render_np(v) for v in vids])
+    s_src, s_edit, s_dir, s_img = sim(
+        src, edited, [sys_cfg.get("source_prompt", "a photo")] * len(vids),
+        [sys_cfg.get("prompt", "")] * len(vids))
+    out = {"clip_sim_source": float(np.mean(s_src)),
+           "clip_sim_edit": float(np.mean(s_edit)),
+           "clip_sim_direction": float(np.mean(s_dir)),
+           "clip_sim_image": float(np.mean(s_img)),
+           "n_views": len(vids)}
+    saving.save_json(os.path.join(trial_dir, "clip_metrics.json"), out)
+    log.info("CLIP edit metrics: %s", out)
+    return out
 
 
 if __name__ == "__main__":

@@ -48,7 +48,15 @@ class CLIPAttention(nn.Module):
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask=None):
+        """x [B, S, D]; ``mask`` [S, S] bool (True = attend) runs the JAX
+        form with masked dense logits; ``mask=None`` attends to every token
+        through ``layers.attend`` (SDPA on a card: the vision tower)."""
+        if mask is None:
+            from dge_tpu_torch.models.layers import attend
+
+            return self.out_proj(attend(self.q_proj(x), self.k_proj(x),
+                                        self.v_proj(x), self.heads))
         b, s, d = x.shape
         hd = d // self.heads
 
@@ -83,7 +91,7 @@ class CLIPLayer(nn.Module):
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
         self.mlp = CLIPMLP(cfg)
 
-    def forward(self, x, mask):
+    def forward(self, x, mask=None):
         x = x + self.self_attn(self.layer_norm1(x), mask)
         return x + self.mlp(self.layer_norm2(x))
 

@@ -41,6 +41,10 @@ class TileBins(NamedTuple):
     spill: torch.Tensor  # scalar int32 total overflow dropped
     tiles_x: int
     tiles_y: int
+    # [4] int32 (slot, cap, tile, stream) attribution of ``spill`` in
+    # PairBins.spill_parts' layout (the lists have only the slot and tile
+    # caps), or None
+    spill_parts: Optional[torch.Tensor] = None
 
 
 class PairBins(NamedTuple):
@@ -423,10 +427,15 @@ def bin_gaussians(
     lists = ids[pos]
 
     zero = torch.zeros_like(cnt)
-    spill = torch.clamp(ends - starts - max_per_tile, min=0).sum() + \
-        torch.where(vis, torch.clamp(cnt - m, min=0), zero).sum()
+    tile_spill = torch.clamp(ends - starts - max_per_tile, min=0).sum()
+    slot_spill = torch.where(vis, torch.clamp(cnt - m, min=0), zero).sum()
+    parts = torch.stack([slot_spill.to(torch.int32),
+                         torch.zeros((), dtype=torch.int32, device=dev),
+                         tile_spill.to(torch.int32),
+                         torch.zeros((), dtype=torch.int32, device=dev)])
     return TileBins(lists=lists, counts=_i32(counts), order=None,
-                    spill=_i32(spill), tiles_x=tiles_x, tiles_y=tiles_y)
+                    spill=_i32(tile_spill + slot_spill), tiles_x=tiles_x,
+                    tiles_y=tiles_y, spill_parts=parts)
 
 
 def bin_gaussians_scan(

@@ -259,14 +259,24 @@ def render_point_cloud(points, colors, cam, *, point_size: float = 0.01,
     return render(scene, cam, bg, **render_kw)
 
 
+class LiftOut(NamedTuple):
+    weights: torch.Tensor  # [capacity] summed mask weights
+    counts: torch.Tensor  # [capacity] summed hit weights
+    spill: torch.Tensor  # scalar int32 list entries the binning dropped
+    # [4] int32 (slot, cap, tile, stream) attribution of the spill
+    spill_parts: torch.Tensor
+
+
 def render_weights(scene, cam, mask_img, *, tile_px: int = 32,
                    max_per_tile: int = 2048, max_tiles_per_gaussian: int = 32,
-                   chunk: int = 64):
+                   chunk: int = 64) -> LiftOut:
     """Back-project a per-pixel mask ``[H, W]`` to per-Gaussian (weights, hit
     counts), each ``[capacity]`` (GaussianModel.apply_weights,
     gaussian_model.py:817-832, apply_weights.cu): lifts a segmentation mask
     to Gaussian space for local editing. Binning always culls tightly: the
-    lift skips alpha < 1/255 as the colour compositors do."""
+    lift skips alpha < 1/255 as the colour compositors do. Also returns the
+    list binning's spill and its attribution: entries dropped at these caps
+    are missing from the lift (``grow_caps`` takes ``spill_parts``)."""
     with torch.no_grad():
         prep = projection.preprocess(
             scene.xyz, scene.get_scaling, scene.get_rotation,
@@ -276,13 +286,14 @@ def render_weights(scene, cam, mask_img, *, tile_px: int = 32,
                           max_per_tile=max_per_tile,
                           max_tiles_per_gaussian=max_tiles_per_gaussian,
                           tight_cull=True)
-        return composite.lift_weights(
+        w, c = composite.lift_weights(
             bins.lists, bins.counts, bins.order, prep.mean2d, prep.conic,
             prep.opacity,
             torch.as_tensor(mask_img, dtype=torch.float32).to(scene.device),
             num_gaussians=scene.capacity, height=cam.height, width=cam.width,
             tiles_x=bins.tiles_x, tiles_y=bins.tiles_y, tile_px=tile_px,
             chunk=chunk)
+        return LiftOut(w, c, bins.spill, bins.spill_parts)
 
 
 class SpillFreeRenderer:

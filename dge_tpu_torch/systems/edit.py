@@ -1,7 +1,7 @@
 """The DGE editing system: render -> multi-view edit -> direct 3DGS refit.
 
-JAX counterpart: ``dge_tpu/systems/edit.py`` (without its SDS branch, which
-waits: ROADMAP.md §1). Reference analog: threestudio/systems/DGE.py:
+JAX counterpart: ``dge_tpu/systems/edit.py``. Reference analog:
+threestudio/systems/DGE.py:
 
 - render_all_view caches the original renders (:241-264)
 - update_mask lifts SAM masks to per-Gaussian weights and installs the grad
@@ -10,13 +10,17 @@ waits: ROADMAP.md §1). Reference analog: threestudio/systems/DGE.py:
   through the guidance, with ring-ordered cameras and the
   added_noise_schedule annealing (:523-586)
 - training_step fits the Gaussians to the edited frames with L1 +
-  perceptual loss (:617-699), densifying every 100 steps (:266-296)
+  perceptual loss (:617-699), densifying every 100 steps (:266-296); with
+  ``use_sds`` it distils the multi-view guidance's score into the scene
+  instead, every step over a random camera batch (:685-694)
 
 View renders (origin frames, each round's inputs, validation) take the
 CUDA stream kernel K1 on a card and its plain version on the CPU; the refit
-is ``FitLoop.train_step`` (K1, K3, K4 and the ordered fold on a card). All
-per-step randomness comes from ``step_generator(seed, step)`` and the edit
-round's from ``step_generator(seed, 1_000_000 + round_start)`` (the JAX
+is ``FitLoop.train_step`` (K1, K3, K4 and the ordered fold on a card), and an
+SDS step renders its views twice: without a gradient for the guidance, then
+in one autograd graph through the VAE encoder (each render K1 forward and
+K3, K4 and the fold backward). All per-step randomness comes from
+``step_generator(seed, step)`` and the edit round's from ``step_generator(seed, 1_000_000 + round_start)`` (the JAX
 ``fold_in`` pattern), so a resumed run replays the uninterrupted one.
 """
 
@@ -31,11 +35,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from dge_tpu_torch.diffusion import ddim
+from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.ops import render as R
 from dge_tpu_torch.parallel.mesh import stack_cameras
 from dge_tpu_torch.scene.camera_arrays import CameraArrays
 from dge_tpu_torch.scene.gaussians import GaussianScene
 from dge_tpu_torch.systems import fit as F
+from dge_tpu_torch.systems import guidance as GD
 from dge_tpu_torch.systems import optim as O
 from dge_tpu_torch.utils import checkpoint as CK
 from dge_tpu_torch.utils import saving
@@ -61,7 +68,8 @@ class EditConfig:
     seg_prompt: str = ""
     mask_thres: float = 0.8
     use_masked_image: bool = False
-    # SDS mode (DGE.py:685-694): not ported yet (ROADMAP.md §1)
+    # SDS mode (DGE.py:685-694): per-step score distillation through the
+    # multi-view guidance instead of refitting edited frames
     use_sds: bool = False
     lambda_sds: float = 1.0
     # cached original renders / edited frames / Gaussian masks are reloaded
@@ -88,6 +96,19 @@ def step_generator(seed: int, stream: int, device) -> torch.Generator:
     return gen
 
 
+def _choose_views(n: int, k: int, generator: torch.Generator) -> List[int]:
+    """``k`` distinct positions out of ``n`` (an SDS step's camera batch; the
+    JAX system's ``jax.random.choice`` without replacement)."""
+    return torch.randperm(n, generator=generator,
+                          device=generator.device)[:k].tolist()
+
+
+def _timestep(lo: int, hi: int, generator: torch.Generator) -> int:
+    """An SDS step's timestep, uniform in ``[lo, hi]``."""
+    return int(torch.randint(lo, hi + 1, (1,), generator=generator,
+                             device=generator.device))
+
+
 class DGESystem:
     def __init__(self, cfg: EditConfig, scene: GaussianScene,
                  cameras: Sequence[CameraArrays], guidance=None,
@@ -98,9 +119,6 @@ class DGESystem:
                  cache_dir: Optional[str] = None,
                  segmentor: Optional[Callable] = None,
                  camera_pool: Optional[Sequence[CameraArrays]] = None):
-        if cfg.use_sds:
-            raise NotImplementedError(
-                "use_sds is not ported yet (ROADMAP.md §1)")
         self.cfg = cfg
         self.scene = scene
         self.cameras = list(cameras)
@@ -148,7 +166,12 @@ class DGESystem:
         self.total_spill = 0
         # binning spill of the gradient-free view renders
         self.render_spill = 0
-        # host seconds by stage ("origin", "edit", "fit", "validate")
+        # list entries the mask lift dropped after its cap ladder, and the
+        # caps it ended at (None until a mask is lifted)
+        self.lift_spill = 0
+        self.lift_caps: Optional[dict] = None
+        # host seconds by stage ("origin", "edit", "fit", "sds",
+        # "validate")
         self.seconds: Dict[str, float] = defaultdict(float)
         self.device = scene.device
         self._render_backend = R.default_backend(self.device)
@@ -227,7 +250,14 @@ class DGESystem:
     def update_mask(self) -> None:
         """Segment each original view, lift the masks to per-Gaussian
         weights (``render_weights``), threshold, install the grad mask; the
-        mask is cached as ``gs_mask.npy``."""
+        mask is cached as ``gs_mask.npy``.
+
+        The lift's list caps start at ``max_per_tile`` and 32 tiles a
+        Gaussian and grow (``grow_caps``, the classes ``spill_parts``
+        names) until each view's binning drops nothing; the JAX system
+        lifts at its fixed caps and loses the deepest entries of every
+        overflowing tile (ROADMAP.md §3). ``lift_spill`` (0, or this
+        raises) and ``lift_caps`` record the outcome."""
         if not self.cfg.seg_prompt or self.segmentor is None:
             return
         cap = self.scene.capacity
@@ -239,19 +269,33 @@ class DGESystem:
                     self.scene = self.scene.replace(grad_mask=torch.as_tensor(
                         gmask, dtype=torch.float32, device=self.device))
                     return
+        caps = dict(max_per_tile=self.cfg.max_per_tile,
+                    max_tiles_per_gaussian=32)
         weights = torch.zeros(cap, device=self.device)
         counts = torch.zeros(cap, device=self.device)
+        self.lift_spill = 0
         for vid in self.view_list:
             img = self.origin_frames.get(vid)
             if img is None:
                 img = self._render_np(vid)
             mask = self.segmentor(img, self.cfg.seg_prompt)  # [H, W] {0, 1}
-            w, c = R.render_weights(self.scene, self.cameras[vid], mask,
-                                    tile_px=self.cfg.tile_px,
-                                    max_per_tile=self.cfg.max_per_tile,
-                                    chunk=self.cfg.chunk)
-            weights = weights + w
-            counts = counts + c
+            while True:
+                lift = R.render_weights(self.scene, self.cameras[vid], mask,
+                                        tile_px=self.cfg.tile_px,
+                                        chunk=self.cfg.chunk, **caps)
+                spill = int(lift.spill)
+                if spill == 0:
+                    break
+                grown = R.grow_caps(caps, lift.spill_parts)
+                if grown == caps:
+                    raise RuntimeError(f"view {vid}: the mask lift drops "
+                                       f"{spill} entries at the caps' "
+                                       f"ceilings {caps}")
+                caps = grown
+            self.lift_spill += spill
+            weights = weights + lift.weights
+            counts = counts + lift.counts
+        self.lift_caps = caps
         frac = torch.where(counts > 0, weights / counts.clamp(min=1.0), 0.0)
         gmask = (frac > self.cfg.mask_thres) & self.scene.alive
         self.scene = self.scene.replace(grad_mask=gmask.float())
@@ -341,6 +385,105 @@ class DGESystem:
         return {k: (v.cpu().numpy() if v.dim() else v.item())
                 for k, v in aux.items()}
 
+    # ---- SDS mode (use_sds branch, DGE.py:685-694) ----
+    def sds_loss_and_grads(self, vids: Sequence[int], target: torch.Tensor,
+                           noise: torch.Tensor,
+                           backend: Optional[str] = None):
+        """The SDS refit's loss ``lambda_sds · 0.5 Σ(lat - target)² / B`` and
+        its gradients: the ``B`` views rendered in one autograd graph that
+        shares one screen-space offset [N, 2], resized to the guidance's
+        size, encoded with the posterior draw ``noise`` that made the target.
+        ``backend`` defaults to the trainer's (``"cuda_train"`` on a card).
+        Returns (loss, gradients by parameter name and
+        ``"mean2d_offset"``, the renders)."""
+        backend = F._train_backend(backend or self.loop.backend, self.device)
+        params = {k: v.detach().requires_grad_(True)
+                  for k, v in self.scene.params().items()}
+        offset = torch.zeros(self.scene.capacity, 2, dtype=torch.float32,
+                             device=self.device, requires_grad=True)
+        scene = self.scene.with_params(params)
+        bg = torch.zeros(3, device=self.device)
+        outs = [R.render(scene, self.cameras[v], bg, mean2d_offset=offset,
+                         backend=backend, **self.loop.caps) for v in vids]
+        rgb = torch.stack([o.color for o in outs])
+        b, h, w = rgb.shape[:3]
+        rh, rw = P.resize_to_64_multiple(h, w,
+                                         self.guidance.cfg.resize_target)
+        if (rh, rw) != (h, w):
+            rgb = GD._resize(rgb, rh, rw)
+        lat = P.encode_images_with(self.guidance.models, rgb, noise)
+        loss = self.cfg.lambda_sds * 0.5 * ((lat - target) ** 2).sum() / b
+        names = list(params)
+        grads = torch.autograd.grad(loss,
+                                    [params[k] for k in names] + [offset])
+        return (loss.detach(), dict(zip(names + ["mean2d_offset"], grads)),
+                outs)
+
+    def sds_step(self, generator: torch.Generator) -> Dict[str, object]:
+        """One SDS step over a random camera batch: the views rendered
+        without a gradient and encoded, the guidance's multi-view eps at a
+        random ``t`` -> target latents, then the refit through the renders
+        and the encoder, the masked Adam update, the densification
+        statistics (visible in any view, the largest radius, the shared
+        offset's gradient) and ``maybe_densify``. Draws, in order: the
+        views, the posterior sample, ``t``, the noise, the pivot offsets,
+        then the densify's."""
+        g = self.guidance
+        models = g.models
+        cbs = min(self.cfg.camera_batch_size, len(self.view_list))
+        vids = [self.view_list[i] for i in
+                _choose_views(len(self.view_list), cbs, generator)]
+        rgb = torch.stack([self._render(v) for v in vids])
+        cond = torch.stack([torch.from_numpy(self.origin_frames[v])
+                            for v in vids]).to(self.device)
+        b, h, w = rgb.shape[:3]
+        rh, rw = P.resize_to_64_multiple(h, w, g.cfg.resize_target)
+        if (rh, rw) != (h, w):
+            rgb, cond = GD._resize(rgb, rh, rw), GD._resize(cond, rh, rw)
+        enc_noise = P._normal(P.latent_shape(models, rgb), generator)
+        with torch.no_grad():
+            latents = P.encode_images_with(models, rgb, enc_noise)
+        cond_img, _, cond_zero = P.encode_cond_images(models,
+                                                      cond).chunk(3, dim=0)
+        pos = self.text_emb_pos.expand((b,) + self.text_emb_pos.shape[-2:])
+        neg = self.text_emb_neg.expand((b,) + self.text_emb_neg.shape[-2:])
+
+        def triple_for(idx):
+            return (torch.cat([pos[idx], neg[idx], neg[idx]], 0),
+                    torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]],
+                              0))
+
+        t = _timestep(g.min_step, g.max_step, generator)
+        noise = P._normal(tuple(latents.shape), generator)
+        noisy = ddim.add_noise(models.schedule, latents, noise, t)
+        with torch.no_grad():
+            eps = g._predict_eps_multiview(
+                noisy, t, stack_cameras([self.cameras[v] for v in vids]),
+                triple_for, b, b, 1, latents.shape[1], latents.shape[2],
+                generator)
+        target = latents - g.sds_grad(eps, noise, t)
+
+        loss, grads, outs = self.sds_loss_and_grads(vids, target, enc_noise)
+        with torch.no_grad():
+            goffset = grads.pop("mean2d_offset")
+            gparams = O.apply_grad_mask(grads, self.scene.grad_mask,
+                                        self.scene.alive)
+            params, self.opt_state = self.loop.optimizer.update(
+                gparams, self.opt_state, self.scene.params())
+            self.scene = self.scene.with_params(params)
+            vis = torch.stack([o.visible for o in outs]).any(dim=0)
+            radii = torch.stack([o.radii for o in outs]).amax(dim=0)
+            cam = self.cameras[vids[0]]
+            self.fit_state = F.accumulate_stats(self.fit_state, goffset, vis,
+                                                radii, cam.width, cam.height)
+        self.scene, self.opt_state, self.fit_state, _ = \
+            self.loop.maybe_densify(self.scene, self.opt_state,
+                                    self.fit_state, generator)
+        return {"loss": loss.item(), "t": t,
+                "spill": int(sum(int(o.spill) for o in outs)),
+                "spill_parts": torch.stack(
+                    [o.spill_parts for o in outs]).sum(dim=0).cpu().numpy()}
+
     # ---- checkpoint / resume (capture() / restore() analogs) ----
     def save_state(self, path: str, step: int) -> str:
         return CK.save_checkpoint(
@@ -394,29 +537,38 @@ class DGESystem:
             self.render_all_views()
         self.update_mask()
         for step in range(start_step, steps):
-            # re-edit every round boundary, or right after a mid-round
-            # resume (edit frames are not checkpointed)
-            if step % cfg.camera_update_per_step == 0 or not self.edit_frames:
-                round_start = ((step // cfg.camera_update_per_step)
-                               * cfg.camera_update_per_step)
-                # re-draw the view subset after the first round (DGE.py:528)
-                self.edit_all_views(
-                    step_generator(seed, 1_000_000 + round_start, dev),
-                    global_step=round_start, update_camera=round_start > 0)
-                if val_dir:
-                    self.validate(val_dir, step)
-                if ckpt_dir:
-                    self.save_state(os.path.join(ckpt_dir, f"step_{step}"),
-                                    step)
-            vid = self.view_list[np.random.default_rng((7, step)).integers(
-                len(self.view_list))]
-            t0 = time.time()
-            aux = self.fit_step(vid, step_generator(seed, step, dev))
+            gen = step_generator(seed, step, dev)
+            if cfg.use_sds:
+                t0 = time.time()
+                aux = self.sds_step(gen)
+                self.seconds["sds"] += time.time() - t0
+            else:
+                # re-edit every round boundary, or right after a mid-round
+                # resume (edit frames are not checkpointed)
+                if (step % cfg.camera_update_per_step == 0
+                        or not self.edit_frames):
+                    round_start = ((step // cfg.camera_update_per_step)
+                                   * cfg.camera_update_per_step)
+                    # re-draw the view subset after the first round
+                    # (DGE.py:528)
+                    self.edit_all_views(
+                        step_generator(seed, 1_000_000 + round_start, dev),
+                        global_step=round_start,
+                        update_camera=round_start > 0)
+                    if val_dir:
+                        self.validate(val_dir, step)
+                    if ckpt_dir:
+                        self.save_state(
+                            os.path.join(ckpt_dir, f"step_{step}"), step)
+                vid = self.view_list[np.random.default_rng((7, step))
+                                     .integers(len(self.view_list))]
+                t0 = time.time()
+                aux = self.fit_step(vid, gen)
+                self.seconds["fit"] += time.time() - t0
             # training against truncated tile lists corrupts the scene: grow
             # the caps when the spill persists
             spill = int(aux.get("spill", 0))
             self.total_spill += spill
-            self.seconds["fit"] += time.time() - t0
             if self.loop.react_to_spill(spill, self.scene.capacity,
                                         aux.get("spill_parts")):
                 cfg.max_per_tile = self.loop.max_per_tile
@@ -426,8 +578,8 @@ class DGESystem:
                 metrics.log(step, {f"train/{k}": v for k, v in aux.items()
                                    if isinstance(v, (int, float))})
             if step % log_every == 0:
-                log_fn(f"step {step}: loss={aux['loss']:.4f} "
-                       f"psnr={aux['psnr']:.2f}")
+                psnr = f" psnr={aux['psnr']:.2f}" if "psnr" in aux else ""
+                log_fn(f"step {step}: loss={aux['loss']:.4f}{psnr}")
         if self.total_spill:
             log_fn(f"total binning spill over run: {self.total_spill} pairs")
         if ckpt_dir:

@@ -10,8 +10,10 @@ plain attention below t=100 (use_normal_unet :237-244).
 The UNet takes an attention ``mode``, a ``CrossViewState`` and the pivot
 record (a dict this module owns for one step). Closest cameras and epipolar
 constraints are computed once per (step, camera batch) outside the network.
-Only ``batch_mode="loop"`` is ported; the batched / sharded reuse and the
-SDS mode wait (ROADMAP.md §1).
+``batch_mode="loop"`` runs the reuse pass once per camera batch (the
+reference's order, batch 0 with one key); ``"vmap"`` (the name
+``configs/dge.yaml`` uses) runs every batch in one batched UNet call. The
+SDS mode's eps prediction is ``sds_multiview`` / ``compute_grad_sds``.
 
 Images are ``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]`` at this
 module's edges (the JAX layout). Every random draw goes through ``P._normal``
@@ -31,9 +33,6 @@ from dge_tpu_torch.diffusion import ddim, epipolar
 from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.models.layers import CrossViewState
 from dge_tpu_torch.parallel.mesh import index_cameras
-
-_NOT_PORTED = ("not ported yet: ROADMAP.md §1 queues the batched / sharded "
-               "reuse and the SDS mode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,8 +56,11 @@ class GuidanceConfig:
     resize_target: int = 512
     # VAE encode / decode batch
     vae_batch: int = 5
-    # "loop" (sequential camera batches, reference semantics); "vmap" and
-    # "shard" are not ported yet
+    # "loop": one reuse pass per camera batch, reference semantics (batch 0
+    # with one key); "vmap": all batches in one batched reuse pass with a
+    # uniform 2-key state (batch 0 duplicates its closest key with blend 1,
+    # which equals the 1-key gather); "shard" (batches over devices) waits
+    # for multi-GPU (ROADMAP.md §1 item 5)
     batch_mode: str = "loop"
 
 
@@ -128,11 +130,44 @@ def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
                           epi_threshold=threshold)
 
 
+def _two_keys(cv: CrossViewState) -> CrossViewState:
+    """A 1-key state as a 2-key one: the closest key twice, blend 1 (the
+    reference's batch 0 in the batched reuse, guidance.py:398-416)."""
+
+    def dup(d):
+        return None if d is None else {
+            s: torch.stack([m[:, 0], m[:, 0]], dim=1) for s, m in d.items()}
+
+    return dataclasses.replace(
+        cv, closest_cam=torch.stack([cv.closest_cam[:, 0]] * 2, dim=1),
+        blend_w1=torch.ones_like(cv.blend_w1), epipolar=dup(cv.epipolar),
+        epi_lines=dup(cv.epi_lines), n_key=2)
+
+
+def _cat_states(states) -> CrossViewState:
+    """The per-frame states of several camera batches as one state over all
+    their frames (each frame keeps its own keys, blend and lines)."""
+
+    def cat(name):
+        ds = [getattr(st, name) for st in states]
+        return None if ds[0] is None else {
+            s: torch.cat([d[s] for d in ds], dim=0) for s in ds[0]}
+
+    first = states[0]
+    return dataclasses.replace(
+        first, closest_cam=torch.cat([st.closest_cam for st in states]),
+        blend_w1=torch.cat([st.blend_w1 for st in states]),
+        epipolar=cat("epipolar"), epi_lines=cat("epi_lines"))
+
+
 class DGEGuidance:
     def __init__(self, cfg: GuidanceConfig, models: P.IP2PModels):
-        if cfg.batch_mode != "loop":
+        if cfg.batch_mode == "shard":
             raise NotImplementedError(
-                f"batch_mode={cfg.batch_mode!r} is {_NOT_PORTED}")
+                "batch_mode='shard' shards the camera batches over devices: "
+                "it comes with multi-GPU (ROADMAP.md §1 item 5)")
+        if cfg.batch_mode not in ("loop", "vmap"):
+            raise ValueError(f"unknown batch_mode {cfg.batch_mode!r}")
         self.cfg = cfg
         self.models = models
         n = models.schedule.num_train_timesteps
@@ -211,6 +246,10 @@ class DGEGuidance:
                    torch.cat([P.triple(latents[piv]), cl_p], dim=-1), t, te_p,
                    mode="pivot_record", pivot=record)
 
+        if cfg.batch_mode == "vmap":
+            return self._batched_reuse(latents, cams, key_cams, piv_off, t,
+                                       lat_h, lat_w, triple_for, n_batches,
+                                       cbs, record)
         eps_chunks = []
         for i in range(n_batches):
             sl = torch.arange(i * cbs, (i + 1) * cbs, device=dev)
@@ -224,6 +263,35 @@ class DGEGuidance:
                 self.models, inp_b, t, te_b, mode="pivot_reuse",
                 cross_view=cv, pivot=record))
         return self._combine(eps_chunks)
+
+    def _batched_reuse(self, latents, cams, key_cams, piv_off, t, lat_h,
+                       lat_w, triple_for, n_batches, cbs, record):
+        """Every camera batch in one reuse pass (the JAX package vmaps the
+        UNet over the batches, guidance.py:380-477): the batches' frames
+        fold into the UNet's batch as ``[text | image | uncond]`` chunks of
+        all ``n_batches * cbs`` frames, and the reuse attention gets one
+        cross-view state per frame, the batches' 2-key states laid end to
+        end (batch 0's single key duplicated with blend 1). The JAX package
+        builds batch 0's state with two keys and keeps the first, which
+        fails when there is a single key frame (one camera batch, as in an
+        SDS step); the port builds it with one."""
+        cfg = self.cfg
+        dev = latents.device
+        states = []
+        for i in range(n_batches):
+            sl = torch.arange(i * cbs, (i + 1) * cbs, device=dev)
+            cv = make_cross_view_state(
+                index_cameras(cams, sl), key_cams, int(piv_off[i]), lat_h,
+                lat_w, 1 if i == 0 else 2, cfg.epipolar_threshold,
+                cfg.epipolar_mode)
+            states.append(_two_keys(cv) if i == 0 else cv)
+        frames = torch.arange(n_batches * cbs, device=dev)
+        te, cl = triple_for(frames)
+        eps = P.unet_eps(self.models,
+                         torch.cat([P.triple(latents[frames]), cl], dim=-1),
+                         t, te, mode="pivot_reuse",
+                         cross_view=_cat_states(states), pivot=record)
+        return self._combine([eps])
 
     @torch.no_grad()
     def __call__(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,
@@ -262,8 +330,73 @@ class DGEGuidance:
         if max_step_percent is not None:
             self.max_step = int(n * max_step_percent)
 
-    def sds_multiview(self, *args, **kwargs):
-        raise NotImplementedError(f"sds_multiview is {_NOT_PORTED}")
+    @torch.no_grad()
+    def sds_multiview(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,
+                      text_emb_pos: torch.Tensor, text_emb_neg: torch.Tensor,
+                      cams, generator: torch.Generator,
+                      t: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Multi-view SDS (the use_sds path, dge_guidance.py:548-566, and
+        compute_grad_sds :376-475): the latents noised at ``t``, one
+        pivot / epipolar-attended eps prediction over the views, ``grad =
+        (1 - alpha_bar_t)(eps - noise)`` through ``nan_to_num``,
+        and the reference's loss form ``0.5 ||latents - target||^2 / B``
+        with ``target = latents - grad``. Draws: the posterior sample, the
+        noise, then the pivot offsets."""
+        cfg = self.cfg
+        models = self.models
+        b, h, w, _ = rgb.shape
+        rh, rw = P.resize_to_64_multiple(h, w, cfg.resize_target)
+        if (rh, rw) != (h, w):
+            rgb, cond_rgb = _resize(rgb, rh, rw), _resize(cond_rgb, rh, rw)
+        latents = P.encode_images(models, rgb, generator)
+        cond_img, _, cond_zero = P.encode_cond_images(
+            models, cond_rgb).chunk(3, dim=0)
 
-    def compute_grad_sds(self, *args, **kwargs):
-        raise NotImplementedError(f"compute_grad_sds is {_NOT_PORTED}")
+        def triple_for(idx):
+            te = torch.cat([text_emb_pos[idx], text_emb_neg[idx],
+                            text_emb_neg[idx]], 0)
+            cl = torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]], 0)
+            return te, cl
+
+        t = int(t if t is not None else self.max_step - 1)
+        noise = P._normal(tuple(latents.shape), generator)
+        noisy = ddim.add_noise(models.schedule, latents, noise, t)
+        cbs = cfg.camera_batch_size
+        eps = self._predict_eps_multiview(
+            noisy, t, cams, triple_for, b, cbs, max(b // cbs, 1),
+            latents.shape[1], latents.shape[2], generator)
+        grad = self.sds_grad(eps, noise, t)
+        target = latents - grad
+        return {"grad": grad,
+                "loss_sds": 0.5 * ((latents - target) ** 2).sum() / b,
+                "grad_norm": torch.linalg.vector_norm(grad),
+                "latents": latents, "target": target}
+
+    def sds_grad(self, eps: torch.Tensor, noise: torch.Tensor,
+                 t: int) -> torch.Tensor:
+        """The SDS gradient ``(1 - alpha_bar_t)(eps - noise)`` through
+        ``nan_to_num`` (NaN to 0, infinities to the largest finite
+        floats), as the JAX package takes it."""
+        w_t = 1.0 - self.models.schedule.alphas_cumprod[t]
+        return torch.nan_to_num(w_t * (eps - noise))
+
+    @torch.no_grad()
+    def compute_grad_sds(self, text_emb: torch.Tensor, latents: torch.Tensor,
+                         cond_latents: torch.Tensor, t: int,
+                         generator: torch.Generator) -> torch.Tensor:
+        """The single-pass SDS gradient (compute_grad_sds,
+        dge_guidance.py:376-475): text_emb [3B, S, D] (pos, neg, neg),
+        latents [B, h, w, 4], cond_latents [3B, h, w, 4] (img, img, zeros);
+        plain attention, ``(1 - alpha_bar_t)(eps - noise)``."""
+        noise = P._normal(tuple(latents.shape), generator)
+        noisy = ddim.add_noise(self.models.schedule, latents, noise, t)
+        cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
+        inp = torch.cat([P.triple(noisy),
+                         torch.cat([cond_img, cond_img, cond_zero], 0)],
+                        dim=-1)
+        e_t, e_i, e_u = P.unet_eps(self.models, inp, t,
+                                   text_emb).chunk(3, dim=0)
+        eps = P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
+                            self.cfg.condition_scale)
+        w_t = 1.0 - self.models.schedule.alphas_cumprod[t]
+        return w_t * (eps - noise)

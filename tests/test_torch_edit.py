@@ -153,16 +153,17 @@ def test_guidance_call(models, monkeypatch):
 
 
 def test_guidance_unported_modes(models):
+    """Only the sharded reuse is left: it names multi-GPU; an unknown mode
+    is refused; the batched reuse and the SDS mode construct."""
     _, tm = models
-    for mode in ("vmap", "shard"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            TG.DGEGuidance(TG.GuidanceConfig(batch_mode=mode), tm)
-    g = TG.DGEGuidance(TG.GuidanceConfig(), tm)
-    for fn in (g.sds_multiview, g.compute_grad_sds):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            fn()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TE.DGESystem(TE.EditConfig(use_sds=True), None, [])
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        TG.DGEGuidance(TG.GuidanceConfig(batch_mode="shard"), tm)
+    with pytest.raises(ValueError, match="batch_mode"):
+        TG.DGEGuidance(TG.GuidanceConfig(batch_mode="vmpa"), tm)
+    g = TG.DGEGuidance(TG.GuidanceConfig(batch_mode="vmap"), tm)
+    assert TE.DGESystem(TE.EditConfig(use_sds=True), port_scene(
+        make_random_scene(np.random.default_rng(0), n=8)), [],
+        guidance=g).cfg.use_sds
 
 
 class StubGuidance:

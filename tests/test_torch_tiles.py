@@ -446,9 +446,10 @@ def test_render_weights_matches_reference(rng):
     mask = (rng.uniform(size=(32, 48)) > 0.5).astype(np.float32)
     kw = dict(tile_px=16, max_per_tile=128)
     jw, jh = JR.render_weights(js, jcam, jnp.asarray(mask), **kw)
-    tw, th = TR.render_weights(to_port(js),
-                               CameraArrays.from_camera(cam, "cpu"),
-                               t_(mask), **kw)
+    tw, th, spill, _ = TR.render_weights(to_port(js),
+                                         CameraArrays.from_camera(cam, "cpu"),
+                                         t_(mask), **kw)
+    assert int(spill) == 0
     np.testing.assert_array_equal(th.numpy(), np.asarray(jh))
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-4)
     assert float(th.sum()) > 1000 and 0 < float(tw.sum()) < float(th.sum())
@@ -460,8 +461,8 @@ def test_render_weights_behaviour(rng):
     cam, _ = make_test_camera(height=32, width=32)
     tcam = CameraArrays.from_camera(cam, "cpu")
     ts = to_port(make_random_scene(rng, n=32))
-    w, c = TR.render_weights(ts, tcam, torch.ones(32, 32), tile_px=16,
-                             max_per_tile=64)
+    w, c, _, _ = TR.render_weights(ts, tcam, torch.ones(32, 32),
+                                   tile_px=16, max_per_tile=64)
     assert torch.equal(w, c) and float(w.sum()) > 0
     xs = np.linspace(-1.5, 1.5, 8).astype(np.float32)
     line = to_port(JG.from_arrays(
@@ -473,7 +474,8 @@ def test_render_weights_behaviour(rng):
         max_sh_degree=0))
     mask = torch.zeros(32, 32)
     mask[:, 16:] = 1.0
-    w, c = TR.render_weights(line, tcam, mask, tile_px=16, max_per_tile=64)
+    w, c, _, _ = TR.render_weights(line, tcam, mask, tile_px=16,
+                                   max_per_tile=64)
     frac = (w[:8] / torch.clamp(c[:8], min=1)).numpy()
     assert frac[0] > 0.9 and frac[-1] < 0.1
 
