@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -98,11 +98,44 @@ process per source, started together) and runs:
    kernels against the plain render within 2e-3·max|g|, the SDS step and
    the VAE encoder's forward + backward at 5 x 512^2 timed, peak memory;
    (c) ``ClipSimilarity`` at ViT-L/14 width over the original and edited
-   frames: finite, identical images within 1e-5 of 1, ms per image.
+   frames: finite, identical images within 1e-5 of 1, ms per image;
+9. multi-GPU on the one card (dge_tpu_torch/parallel/): (a) ``python -m
+   torch.distributed.run --standalone --nproc_per_node=1 -m
+   dge_tpu_torch.launch --train --smoke --distributed`` with
+   ``system.guidance.batch_mode=shard`` on phase 7's setup (TF32 off, a
+   30-step refit): exit 0, NCCL named in the rank's log, finite losses and
+   edit frames, spill 0, the kernels launched every step; then one DDIM
+   step of the 10 views in ``"shard"`` mode in a one-rank NCCL group
+   equal to the ``"vmap"`` step bit for bit; (b) gloo ranks that share
+   cuda:0 (correctness and launches, not scaling): world 2, the
+   view-sharded train step over capture views 0 and 8 of the quality-gate
+   scene and one shard-mode DDIM step at full SD-1.5 width (each rank's
+   gather indices equal to the vmap pass's except at ties within 1e-5, the
+   step within 2e-4 of vmap's with that gather handed over); world 4, the
+   bench scene at 512^2 in 4 tile bands of 128 rows, gauss x tile 2 x 2
+   and 4 depth slabs through the list kernel K2 (colour and alpha within
+   5e-3, depth 5e-2 of the whole render, spill 0; each band within colour
+   1e-4 / depth 1e-3 / T 2e-4 of the port's own render of that band
+   viewport), the depth-slab train step and the view x tile step 2 x 2
+   with SSIM. The view-sharded step against the single-rank step over the
+   same views (``dryrun.reference_step``), the view x tile step against
+   the view-sharded step (the same ``denom``), the depth-slab step against
+   the same four slabs merged in one process (``slab_step_one_rank``):
+   loss within 1e-5, each field's gradient within 2e-3·max|g| + 1e-7, no
+   gradient of another sign (zero against non-zero counts), parameters
+   within 1e-4 where both gradients are at least 1e-12 (1e3 x Adam's eps;
+   the largest difference over all entries reported), the view step's two
+   replicas equal; the depth-slab step's loss within 1e-5 of the unsharded
+   step (each slab starts at T = 1, so its gradients part past the early
+   stop, as JAX's do, ROADMAP.md §3: reported); every rank's counters of
+   K1, K3, suffix, K4 and the fold
+   (steps) and of K2 and its layout kernel (renders) advanced; per rank
+   and scenario the CUDA-event ms, the collectives' host ms and peak
+   memory.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all eight ran.
+gate's own recipe); the result lines are printed only when all nine ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -157,11 +190,15 @@ BACKENDS_PSNR_TOL = 0.02  # dB between the stream and the list validate run
 # still add is bounded by that residual, so there the images differ by less
 # than 1e-2, and only where the final T is below 1e-2
 LIST_VS_STREAM_TOL = 1e-2
+# K5 against K1: how far (relative) the 1e-4 stop is moved to find the
+# pixels where the two forms' prefixes, which part by a few 1e-5 relative
+# over a block, decide a refusal differently
+STOP_NUDGE = 1e-3
 # where the pair-stream ladder starts on the bench scene at 1920x1080
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -179,6 +216,20 @@ MASK_DIR = os.path.join(ROOT, "outputs", "quality_gate", "20260821-064841",
 VMAP_TOL = 2e-4
 CLIP_TOL = 1e-5  # sim_image of identical images against 1
 ARGMAX_GAP = 1e-5  # dense top-2 gap above which the argmax indices must agree
+# phase 9, multi-GPU on the one card: the capture views of the view-sharded
+# and view x tile steps (one a rank / band row), the refit of the NCCL run
+MULTI_VIEWS = (0, 8)
+NCCL_REFIT_STEPS = 30
+# a sharded render against the whole image (tests/test_parallel.py's
+# tolerances: depth-quantisation ties order differently in a band or slab)
+BAND_TOL = {"color": 5e-3, "alpha": 5e-3, "depth": 5e-2}
+STEP_PARAM_TOL = 1e-4
+# 1e3 x Adam's eps (1e-15): where both gradients are at least this, Adam's
+# first step lr·g/(|g| + eps) changes by less than lr·1e-3 <= 5e-5 over any
+# change of the gradient that keeps its sign; below it the step turns the
+# rounding of a gradient of ~eps into a move of up to ~lr
+ADAM_FLOOR = 1e-12
+STEP_LOSS_TOL = 1e-5
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
@@ -1278,8 +1329,46 @@ def logdot_vs_plain(inp, what: str) -> float:
             raise AssertionError(f"{k} launch counter did not advance")
     err = compare(got, LD.composite_pairs_logdot_reference(*args, **kw),
                   f"{what} K5 vs plain")
-    compare(got, PC.composite_pairs_stream(*args, **kw), f"{what} K5 vs K1")
+    k5_vs_k1(got, PC.composite_pairs_stream(*args, **kw), args, kw,
+             f"{what} K5 vs K1")
     return err
+
+
+def k5_vs_k1(k5, k1, args, kw, what: str) -> int:
+    """K5 against K1 on one stream, ``[T, 5, P]`` each, within ``TOL`` at
+    every pixel but those where rounding decides a refusal. The two forms
+    composite alike but for the block's prefix, ``exp(sum log(1 - alpha))``
+    in K5 and a product in K1, which part by a few 1e-5 relative over a
+    block of hundreds of pairs; a pair whose ``T·cp`` lies that close to
+    the 1e-4 stop can be refused by one form and kept by the other. A pixel
+    that parts beyond ``TOL`` must equal, within ``TOL``, K1's plain
+    version with the stop moved by ``STOP_NUDGE`` (relative) one way or the
+    other: then such a pair, and nothing else, made the difference. Returns
+    how many pixels were so explained."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    def beyond(x):
+        err = (x - k5).abs()
+        return ((err[:, 0:3] > TOL["color"]).any(1)
+                | (err[:, 3] > TOL["depth"]) | (err[:, 4] > TOL["trans"]))
+
+    bad = beyond(k1)
+    if not bad.any():
+        compare(k5, k1, what)
+        return 0
+    left = bad
+    for s in (1.0 + STOP_NUDGE, 1.0 - STOP_NUDGE):
+        left = left & beyond(PC.composite_pairs_reference(
+            *args, stop=PC.T_EPS * s, **kw))
+    n_bad, n_left = int(bad.sum()), int(left.sum())
+    log(f"  {what}: {n_bad} pixels beyond the tolerance, {n_bad - n_left} "
+        f"of them a refusal within {STOP_NUDGE} of the stop")
+    if n_left:
+        raise AssertionError(f"{what}: {n_left} pixels part beyond {TOL} "
+                             "that no refusal at the stop explains")
+    return n_bad
 
 
 def k2_summary(t: dict) -> str:
@@ -2040,11 +2129,449 @@ def clip_checks(sim, src, edit) -> dict:
                 identical_max_err=float(np.abs(same - 1.0).max()))
 
 
+# ---- phase 9: multi-GPU on the one card ----------------------------------
+# The rank functions run in ranks that dge_tpu_torch.parallel.dist.spawn_local
+# starts (gloo, every rank on cuda:0); each returns numpy arrays and its
+# per-scenario report.
+
+def _qg_inputs(dev, views):
+    """The quality-gate scene and the capture's cameras and images of
+    ``views`` at 256^2 (stacked)."""
+    import torch
+
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene import gaussians as G
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.utils import saving
+
+    cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+    cams = [cs.cameras[v] for v in views]
+    targets = torch.stack([torch.from_numpy(saving.load_image(os.path.join(
+        CAPTURE, "images", c.image_name + ".png"))) for c in cams]).to(dev)
+    return (G.load_ply(QUALITY_PLY, device=dev),
+            stack_cameras([CameraArrays.from_camera(c, device=dev)
+                           for c in cams]), targets)
+
+
+def _scenario(report, name, fn):
+    """Run ``fn`` once with the launch counters and collective stats set to
+    0 just before (its result is what the gates hold), then once more
+    timed with CUDA events; record launches, ms, collective ms and calls of
+    the timed run, and peak memory, under ``report[name]``."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.parallel import dist as D
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PC.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(PC.launch_counts)
+    D.reset_collective_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    report[name] = dict(
+        launches=launches, ms=start.elapsed_time(end),
+        collective_ms=1e3 * D.collective_stats["seconds"],
+        collectives=D.collective_stats["calls"],
+        peak_memory_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def _params_np(scene):
+    from dge_tpu_torch.scene.gaussians import PARAM_NAMES
+
+    return {k: getattr(scene, k).detach().cpu().numpy() for k in PARAM_NAMES}
+
+
+def _step_np(res):
+    """One train step's result from a fresh Adam state: the parameters, the
+    gradients (the first moment after one step is (1 - b1)·g), the loss,
+    the spill and ``denom``."""
+    from dge_tpu_torch.systems.optim import B1
+
+    scene, opt_state, fit_state, aux = res
+    return dict(params=_params_np(scene), loss=float(aux["loss"]),
+                grads={k: st["mu"].cpu().numpy() / (1.0 - B1)
+                       for k, st in opt_state.items()},
+                spill=int(aux.get("spill", 0)),
+                denom=fit_state.denom.cpu().numpy())
+
+
+def _fresh_opt(scene):
+    from dge_tpu_torch.systems import optim as O
+    from dge_tpu_torch.systems.fit import FitState
+
+    opt = O.make_optimizer(O.OptimConfig.scaled(100))
+    return opt, opt.init(scene.params()), FitState.create(scene.capacity,
+                                                          scene.device)
+
+
+def multi_world2(dev, qg_caps, views):
+    """World 2: the view-sharded step (one capture view a rank, SSIM on)
+    and one shard-mode DDIM step at full SD-1.5 width."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p
+    from dge_tpu_torch.parallel import mesh as M
+    from dge_tpu_torch.parallel import shard as S
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report, out = {}, {}
+    scene, cams, targets = _qg_inputs(dev, views)
+    bg = torch.zeros(3, device=dev)
+    opt, st, fs = _fresh_opt(scene)
+    step = S.make_sharded_train_step(opt, M.make_view_mesh(2), **qg_caps)
+    out["view_step"] = _step_np(_scenario(
+        report, "view_step", lambda: step(scene, st, fs, cams, targets, bg)))
+    cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+    ecams = [CameraArrays.from_camera(c, device=dev)
+             for c in DS.subsample_views(cs.cameras, EDIT_VIEWS)]
+    models = ip2p.build_models(device=dev)
+    out["shard_edit"] = shard_vs_vmap_step(models, ecams, EDIT_VIEWS,
+                                           EDIT_BATCH, 64, dev, report)
+    return dict(out=out, report=report)
+
+
+def multi_world4(dev, bench_caps, qg_caps, views):
+    """World 4: the bench scene at 512^2 in 4 tile bands, in gauss x tile
+    2 x 2 and in 4 depth slabs; the depth-slab train step (capture view
+    ``views[0]``) and the view x tile step (2 x 2, SSIM on) on the
+    quality-gate scene."""
+    import torch
+
+    from dge_tpu_torch.parallel import gauss_shard as GS
+    from dge_tpu_torch.parallel import mesh as M
+    from dge_tpu_torch.parallel import tile_shard as TS
+    from dge_tpu_torch.scene import gaussians as G
+
+    report, out = {}, {}
+    bench = G.load_ply(BENCH_PLY, device=dev)
+    cam = bench_camera(512, 512, dev)
+    bg = torch.zeros(3, device=dev)
+
+    def np_render(res):
+        return [x.cpu().numpy() if torch.is_tensor(x) and x.dim() else int(x)
+                for x in res]
+
+    fn = TS.make_tile_sharded_render(TS.make_tile_mesh(4), 512, 512,
+                                     **bench_caps)
+    out["tile_render"] = np_render(_scenario(report, "tile_render",
+                                             lambda: fn(bench, cam, bg)))
+    gt = TS.make_gauss_tile_mesh(2, 2)
+    blk = GS.shard_scene(bench, gt)
+    fn2 = TS.make_gauss_tile_render(gt, 512, 512, **bench_caps)
+    out["gauss_tile_render"] = np_render(_scenario(
+        report, "gauss_tile_render", lambda: fn2(blk, cam, bg)))
+    gm = GS.make_gauss_mesh(4)
+    sblk = GS.shard_scene(bench, gm)
+    fn3 = GS.make_depth_slab_render(gm, 512, 512, **bench_caps)
+    out["slab_render"] = np_render(_scenario(
+        report, "slab_render", lambda: fn3(sblk, cam, bg)))
+    del bench, blk, sblk
+
+    scene, cams, targets = _qg_inputs(dev, views)
+    opt, st, fs = _fresh_opt(scene)
+    sstep = GS.make_depth_slab_train_step(opt, gm, 256, 256, **qg_caps)
+    qblk = GS.shard_scene(scene, gm)
+    st_b = GS.shard_rows(st, scene.capacity, gm)
+    fs_b = GS.shard_rows(fs, scene.capacity, gm)
+    res = _scenario(report, "slab_step", lambda: sstep(
+        qblk, st_b, fs_b, M.index_cameras(cams, 0), targets[0], bg))
+    out["slab_step"] = _step_np((GS.gather_scene(res[0], gm),
+                                 GS.gather_rows(res[1], gm),
+                                 GS.gather_rows(res[2], gm), res[3]))
+    opt, st, fs = _fresh_opt(scene)
+    vt = TS.make_view_tile_train_step(opt, TS.make_view_tile_mesh(2, 2),
+                                      256, 256, **qg_caps)
+    out["view_tile_step"] = _step_np(_scenario(
+        report, "view_tile_step",
+        lambda: vt(scene, st, fs, cams, targets, bg)))
+    return dict(out=out, report=report)
+
+
+def shard_vs_vmap_step(models, cams, views: int, batch: int, lat: int, dev,
+                       report=None) -> dict:
+    """One DDIM step over ``views`` views at t = 500 in ``"vmap"`` mode on
+    this rank and in ``"shard"`` mode over the process group, from the same
+    draws (``loop_vs_vmap_step``'s inputs). With one rank the two are the
+    same computation and must be equal bit for bit; with more, each rank's
+    reuse gather indices are held against the vmap pass's rows of its
+    frames (a difference only at a tie within ``ARGMAX_GAP``), and the shard
+    step with the vmap indices handed over must be within ``VMAP_TOL``."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ddim
+    from dge_tpu_torch.models import layers as L
+    from dge_tpu_torch.parallel import dist as D
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = models.unet.config.cross_attention_dim
+    x = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    cond = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    te = torch.randn(2 * views, 77, d, generator=gen, device=dev)
+    cams_all = stack_cameras(cams[:views])
+    n_batches = views // batch
+    world, me = D.world_size(), D.rank()
+    nd = max(k for k in range(1, world + 1) if n_batches % k == 0)
+    lo = me * (n_batches // nd) * batch if me < nd else 0
+    hi = lo + (n_batches // nd) * batch
+
+    def triple_for(idx):
+        return (torch.cat([te[idx], te[views + idx], te[views + idx]]),
+                torch.cat([cond[idx], cond[idx], torch.zeros_like(
+                    cond[idx])]))
+
+    guides = {mode: GD.DGEGuidance(GD.GuidanceConfig(
+        camera_batch_size=batch, batch_mode=mode), models)
+        for mode in ("vmap", "shard")}
+
+    def step(mode):
+        with torch.no_grad():
+            eps = guides[mode]._predict_eps_multiview(
+                x, 500, cams_all, triple_for, views, batch, n_batches, lat,
+                lat, torch.Generator(device=dev).manual_seed(4))
+            return ddim.step(models.schedule, eps, 500, x, 20)
+
+    real = L.epi_blockwise_argmax
+    vmap_idx, flips, gaps = [], [], []
+
+    def recording(*args, **kw):
+        vmap_idx.append(real(*args, **kw))
+        return vmap_idx[-1]
+
+    def forced(img, piv_img, lines, pts, threshold, block=512):
+        """This rank's own indices, counted against the vmap pass's rows of
+        its frames, which it returns."""
+        want = vmap_idx[len(flips)][lo:hi]
+        own = real(img, piv_img, lines, pts, threshold, block)
+        f, k, q = torch.nonzero(own != want, as_tuple=True)
+        flips.append(int(f.numel()))
+        for a, b, c in zip(f.tolist(), k.tolist(), q.tolist()):
+            sims = piv_img[a, b] @ img[a, c]
+            viol = (lines[a, b, c] @ pts.T).abs() > threshold
+            masked = sims if bool(viol.all()) else torch.where(
+                viol, 0.0, sims)
+            gaps.append(float((masked[own[a, b, c]]
+                               - masked[want[a, b, c]]).abs()))
+        return want
+
+    out = {}
+    try:
+        L.epi_blockwise_argmax = recording
+        out["vmap"] = step("vmap")
+        L.epi_blockwise_argmax = forced
+        out["forced"] = step("shard")
+    finally:
+        L.epi_blockwise_argmax = real
+    rep = {} if report is None else report
+    out["shard"] = _scenario(rep, "shard_ddim_step", lambda: step("shard"))
+    vmap_ms = cuda_ms(lambda: step("vmap"), reps=3, warmup=1)
+    res = dict(
+        world=world, shard_ms=rep["shard_ddim_step"]["ms"],
+        vmap_ms=vmap_ms,
+        max_abs_diff=float((out["vmap"] - out["forced"]).abs().max()),
+        free_max_abs_diff=float((out["vmap"] - out["shard"]).abs().max()),
+        bit_identical=bool(torch.equal(out["vmap"], out["shard"])),
+        max_abs=float(out["vmap"].abs().max()),
+        gathered=sum(int(i[lo:hi].numel()) for i in vmap_idx),
+        flips=sum(flips), flip_max_gap=max(gaps, default=0.0))
+    if res["flip_max_gap"] > ARGMAX_GAP:
+        raise AssertionError(f"shard's gather differs from vmap's away from "
+                             f"a tie: gap {res['flip_max_gap']}")
+    if not res["max_abs_diff"] <= VMAP_TOL:
+        raise AssertionError(f"shard differs from vmap by "
+                             f"{res['max_abs_diff']} with the same gather")
+    if world == 1 and not res["bit_identical"]:
+        raise AssertionError("one rank: shard step != vmap step bit for bit")
+    return res
+
+
+def _max_param_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    return max(float(np.abs(a[k] - b[k]).max(initial=0.0)) for k in a)
+
+
+def step_vs(got: dict, want: dict) -> dict:
+    """A train step held against another from the same fresh state: the
+    loss difference; each field's gradient difference over
+    ``max|g| + 1e-7 / GRAD_TOL`` (the kernels' gradient rule); the entries
+    whose two gradients differ in sign, zero against non-zero included
+    (Adam's first step moves each entry by lr·g/(|g| + eps), about ±lr, so
+    such an entry alone parts the parameters by up to 2·lr); the largest
+    parameter difference where both gradients are at least ``ADAM_FLOOR``
+    (``params_max``), and over all entries, with the gradient of the entry
+    (``params_max_all``, ``grad_at_max_all``): below the floor Adam's step
+    turns the last bits of a gradient of ~eps into up to ~lr."""
+    import numpy as np
+
+    gerr, flips, worst, worst_all, g_all = 0.0, 0, 0.0, 0.0, 0.0
+    for k, w in want["grads"].items():
+        g = got["grads"][k]
+        gerr = max(gerr, float(np.abs(g - w).max(initial=0.0))
+                   / (float(np.abs(w).max(initial=0.0)) + 1e-7 / GRAD_TOL))
+        flips += int((np.sign(g) != np.sign(w)).sum())
+        d = np.abs(got["params"][k] - want["params"][k])
+        small = np.minimum(np.abs(g), np.abs(w))
+        worst = max(worst, float(d[small >= ADAM_FLOOR].max(initial=0.0)))
+        if d.size and float(d.max()) > worst_all:
+            worst_all = float(d.max())
+            g_all = float(small.flat[int(d.argmax())])
+    return dict(loss=abs(got["loss"] - want["loss"]), grad_rel=gerr,
+                sign_flips=flips, params_max=worst,
+                params_max_all=worst_all, grad_at_max_all=g_all)
+
+
+def slab_step_one_rank(optimizer, scene, opt_state, fit_state, cam, target,
+                       bg, n_slabs: int, *, lambda_dssim: float = 0.0,
+                       backend=None, chunk: int = 64, **render_kw):
+    """The depth-slab step's arithmetic in one process: the ``n_slabs``
+    slabs composited one after another and merged with the over operator,
+    one Adam step on the whole capacity. It isolates what the sharded step
+    adds (the gathers, the sharded parameters and Adam state) from what the
+    decomposition itself changes: each slab starts at T = 1, so its early
+    stop is not the whole image's (ROADMAP.md §3)."""
+    import torch
+
+    from dge_tpu_torch.ops import losses as L
+    from dge_tpu_torch.parallel import dryrun
+    from dge_tpu_torch.parallel import gauss_shard as GS
+    from dge_tpu_torch.parallel import tile_shard as TS
+    from dge_tpu_torch.systems import fit as F
+
+    use = F._train_backend(backend, scene.device)
+    params = {k: v.detach().requires_grad_(True)
+              for k, v in scene.params().items()}
+    offset = torch.zeros(scene.capacity, 2, device=scene.device,
+                         requires_grad=True)
+    prep = TS.preprocess_scene(scene.with_params(params), cam)
+    prep = prep._replace(mean2d=prep.mean2d + offset)
+    colors, trans = [], []
+    for k in range(n_slabs):
+        vis = GS.slab_visible(prep, n_slabs, k)
+        c, _, t, _ = GS._slab_composite(prep, vis, cam, height=cam.height,
+                                        width=cam.width, backend=use,
+                                        chunk=chunk, **render_kw)
+        colors.append(c)
+        trans.append(t)
+    c, _, t = GS._merge_slabs(colors, trans, trans, n_slabs)
+    c = c + t[..., None] * bg[None, None, :]
+    loss = L.l1_loss(c, target)
+    if lambda_dssim:
+        loss = loss + lambda_dssim * (1.0 - L.ssim(c, target))
+    radii = torch.where(prep.visible, prep.radius.detach(),
+                        torch.zeros_like(prep.radius))
+    out = dryrun.adam_and_stats(optimizer, scene, opt_state, fit_state,
+                                params, offset, loss, prep.visible.float(),
+                                radii, cam.width, cam.height)
+    return out + (float(loss.detach()),)
+
+
+def nccl_world1_train(dev) -> dict:
+    """Phase 9 (a): ``--train --smoke --distributed`` with
+    ``batch_mode=shard`` under ``torch.distributed.run`` with one rank
+    (NCCL on cuda:0) on phase 7's setup, TF32 off; its log, metrics and
+    edit frames checked; then one shard-mode DDIM step against the vmap
+    step in a one-rank NCCL group in this process, bit for bit."""
+    import glob
+    import json
+
+    import numpy as np
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p
+    from dge_tpu_torch.parallel import dist as D
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.utils import saving
+
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0",
+                   PYTHONPATH=os.pathsep.join(
+                       [ROOT, os.environ.get("PYTHONPATH", "")]))
+        t0 = time.time()
+        run = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=1", "-m", "dge_tpu_torch.launch", "--train",
+             "--smoke", "--distributed", "--gs_source", QUALITY_PLY,
+             "--source", CAPTURE, "--out", tmp, "data.height=256",
+             "data.width=256", f"data.max_view_num={EDIT_VIEWS}",
+             f"system.guidance.camera_batch_size={EDIT_BATCH}",
+             "system.guidance.batch_mode=shard",
+             "system.prompt=turn him into a clown",
+             f"system.edit.max_steps={NCCL_REFIT_STEPS}",
+             f"system.edit.camera_update_per_step={NCCL_REFIT_STEPS + 1}"],
+            cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        seconds = time.time() - t0
+        text = run.stdout + run.stderr
+        if run.returncode != 0:
+            log(text[-6000:])
+            raise AssertionError(f"--train --distributed exited with "
+                                 f"{run.returncode}")
+        if "backend nccl" not in text:
+            raise AssertionError("the rank's log names no NCCL backend")
+        with open(glob.glob(os.path.join(tmp, "dge", "*",
+                                         "metrics.jsonl"))[0]) as f:
+            rows = [json.loads(line) for line in f]
+        frames = [saving.load_image(p) for p in sorted(glob.glob(
+            os.path.join(tmp, "edit_cache", "*", "edit_0", "*.png")))]
+        launches = json.loads(text.split("kernel launches: ")[1].split(
+            "\n")[0].replace("'", '"'))
+        peak = float(text.split("peak memory ")[1].split(" GiB")[0])
+    losses = [r["train/loss"] for r in rows]
+    if (len(rows) != NCCL_REFIT_STEPS or not np.isfinite(losses).all()
+            or any(r["train/spill"] for r in rows)):
+        raise AssertionError(f"--train --distributed: {len(rows)} steps, "
+                             f"losses {losses[:3]}..., spill "
+                             f"{[r['train/spill'] for r in rows]}")
+    if len(frames) != EDIT_VIEWS or any(
+            f.shape != (256, 256, 3) or not np.isfinite(f).all()
+            for f in frames):
+        raise AssertionError(f"--train --distributed: {len(frames)} edit "
+                             "frames, or one not finite 256x256x3")
+    short = [k for k in FORWARD_FORMS[False][:2] + BACKWARD_KERNELS
+             if launches[k] < NCCL_REFIT_STEPS]
+    if short:
+        raise AssertionError(f"--train --distributed: too few launches of "
+                             f"{short}: {launches}")
+    # one DDIM step, shard against vmap, in a one-rank NCCL group here
+    cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+    ecams = [CameraArrays.from_camera(c, device=dev)
+             for c in DS.subsample_views(cs.cameras, EDIT_VIEWS)]
+    models = ip2p.build_models(device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        D.dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'store')}",
+            rank=0, world_size=1, timeout=D.TIMEOUT)
+        try:
+            step = shard_vs_vmap_step(models, ecams, EDIT_VIEWS, EDIT_BATCH,
+                                      64, dev)
+        finally:
+            D.dist.destroy_process_group()
+    del models
+    torch.cuda.empty_cache()
+    return dict(seconds=seconds, steps=len(rows), launches=launches,
+                peak_memory_gib=peak, final_loss=losses[-1],
+                ddim_step=step)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -2794,9 +3321,161 @@ def main(argv=None) -> int:
         del srun, ssys
         edit_system = dict(local=local, sds=sds, clip=clip)
 
+    # ---- phase 9: multi-GPU on the one card ----
+    multi = {}
+    if 9 in phases:
+        log("phase 9: multi-GPU on one card: (a) --train --distributed "
+            "with batch_mode=shard under torch.distributed.run, one rank, "
+            "NCCL; (b) gloo ranks sharing cuda:0 (they measure correctness "
+            "and launches, not scaling): world 2 (view-sharded step, shard "
+            "DDIM step at full SD-1.5 width), world 4 (the bench scene in 4 "
+            "tile bands, gauss x tile 2 x 2 and 4 depth slabs at 512^2; the "
+            "depth-slab and view x tile steps on the quality-gate scene)")
+        from dge_tpu_torch.parallel import dist as D
+        from dge_tpu_torch.parallel import tile_shard as TS
+        from dge_tpu_torch.parallel.dryrun import reference_step
+        from dge_tpu_torch.parallel.mesh import index_cameras
+        from dge_tpu_torch.systems import fit as F
+
+        t9 = time.time()
+        multi["card"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip().splitlines()[0]
+        log(f"  {multi['card']}")
+        multi["nccl_world1"] = nccl_world1_train(dev)
+        log(f"  (a) NCCL world 1: {multi['nccl_world1']}")
+        bg0 = torch.zeros(3, device=dev)
+        bench9 = G.load_ply(BENCH_PLY, device=dev)
+        cam512 = bench_camera(512, 512, dev)
+        r = R.SpillFreeRenderer(bench9, bg0, backend="cuda_tiles")
+        if r.probe(cam512):
+            raise AssertionError("bench scene: list spill at the ceilings")
+        bench_caps = dict(r.caps, tile_px=32, tight_cull=r.tight_cull)
+        qg, qcams, qtargets = _qg_inputs(dev, MULTI_VIEWS)
+        r = R.SpillFreeRenderer(qg, bg0)
+        for v in range(len(MULTI_VIEWS)):
+            if r.probe(index_cameras(qcams, v)):
+                raise AssertionError("quality-gate scene: spill at ceilings")
+        qg_caps = dict(r.caps, tile_px=32, tight_cull=r.tight_cull)
+        w2 = D.spawn_local(multi_world2, 2, device="cuda", backend="gloo",
+                           args=(qg_caps, MULTI_VIEWS))
+        w4 = D.spawn_local(multi_world4, 4, device="cuda", backend="gloo",
+                           args=(bench_caps, qg_caps, MULTI_VIEWS))
+        reports = {"world2": [w["report"] for w in w2],
+                   "world4": [w["report"] for w in w4]}
+        o2, o4 = w2[0]["out"], w4[0]["out"]
+        # every rank's kernels advanced in every scenario
+        for world, reps in reports.items():
+            for rank_, rep in enumerate(reps):
+                for scn, rr in rep.items():
+                    need = (K2_COUNTERS[:2] if scn.endswith("render") else
+                            FORWARD_FORMS[False][:2] + BACKWARD_KERNELS
+                            if scn.endswith("step") and "ddim" not in scn
+                            else ())
+                    idle = [k for k in need if rr["launches"][k] < 1]
+                    if idle:
+                        raise AssertionError(f"{world} rank {rank_} {scn}: "
+                                             f"no launch of {idle}")
+                    log(f"  {world} rank {rank_} {scn}: {rr['ms']:.2f} ms, "
+                        f"collectives {rr['collective_ms']:.2f} ms in "
+                        f"{rr['collectives']} calls, peak "
+                        f"{rr['peak_memory_gib']:.3f} GiB, launches "
+                        f"{ {k: v for k, v in rr['launches'].items() if v} }")
+        # the renders against the whole image and each band against the
+        # port's own render of that band viewport
+        whole = R.render(bench9, cam512, bg0, backend="cuda_tiles",
+                         **bench_caps)
+        want = (whole.color.cpu().numpy(), whole.depth.cpu().numpy(),
+                whole.alpha.cpu().numpy())
+        renders = {}
+        for scn in ("tile_render", "gauss_tile_render", "slab_render"):
+            color, depth, alpha, spill = o4[scn]
+            errs9 = dict(color=float(np.abs(color - want[0]).max()),
+                         depth=float(np.abs(depth - want[1]).max()),
+                         alpha=float(np.abs(alpha - want[2]).max()),
+                         spill=spill)
+            if (spill or errs9["color"] > BAND_TOL["color"]
+                    or errs9["alpha"] > BAND_TOL["alpha"]
+                    or errs9["depth"] > BAND_TOL["depth"]):
+                raise AssertionError(f"{scn} vs the whole render: {errs9}")
+            if scn != "slab_render":
+                band = []
+                for i in range(512 // 128 if scn == "tile_render" else 2):
+                    px = 128 if scn == "tile_render" else 256
+                    c, d, t, _ = TS._band_render(
+                        bench9, cam512, bg0, px, i * px, chunk=64,
+                        backend="cuda_tiles", **bench_caps)
+                    rows = slice(i * px, (i + 1) * px)
+                    band.append(dict(
+                        color=float(np.abs(color[rows]
+                                           - c.cpu().numpy()).max()),
+                        depth=float(np.abs(depth[rows]
+                                           - d.cpu().numpy()).max()),
+                        trans=float(np.abs(1.0 - alpha[rows]
+                                           - t.cpu().numpy()).max())))
+                    bad = {k: v for k, v in band[-1].items() if v > TOL[k]}
+                    if bad:
+                        raise AssertionError(f"{scn} band {i} vs its own "
+                                             f"unsharded render: {bad}")
+                errs9["bands_vs_own"] = band
+            renders[scn] = errs9
+        log(f"  renders vs the whole image (bands vs their own viewport): "
+            f"{renders}")
+        # the steps: the view-sharded step against the single-rank step
+        # over the same views, the view x tile step against the
+        # view-sharded step, the depth-slab step against the same slabs
+        # merged in one process; each within the step gates. The slab step
+        # against the unsharded step: the loss (each slab starts at T = 1,
+        # so its early stop, and with it the gradients of pixels past it,
+        # differ, as JAX's do; ROADMAP.md §3: reported)
+        def counterpart(fn, *a, **kw):
+            opt, st, fs = _fresh_opt(qg)
+            res = fn(opt, qg, st, fs, *a, **kw)
+            return _step_np(res[:3] + (dict(loss=res[3]),))
+
+        cam0 = index_cameras(qcams, 0)
+        opt, st, fs = _fresh_opt(qg)
+        unsharded = _step_np(F.make_train_step(
+            opt, lambda_dssim=0.0, backend="cuda_train", **qg_caps)(
+            qg, st, fs, cam0, qtargets[0], bg0))
+        views = counterpart(reference_step, qcams, qtargets, bg0,
+                            lambda_dssim=0.2, backend="cuda_train",
+                            **qg_caps)
+        steps = dict(
+            view_step=step_vs(o2["view_step"], views),
+            view_tile_step=step_vs(o4["view_tile_step"], o2["view_step"]),
+            slab_step=step_vs(o4["slab_step"], counterpart(
+                slab_step_one_rank, cam0, qtargets[0], bg0, 4,
+                backend="cuda_train", **qg_caps)))
+        steps["view_step"]["replicas"] = _max_param_diff(
+            w2[0]["out"]["view_step"]["params"],
+            w2[1]["out"]["view_step"]["params"])
+        steps["view_tile_step"]["denom_equal"] = bool(np.array_equal(
+            o4["view_tile_step"]["denom"], o2["view_step"]["denom"]))
+        unsharded = dict(slab_step=step_vs(o4["slab_step"], unsharded))
+        log(f"  steps (view vs one rank, view x tile vs view-sharded, "
+            f"slabs vs one-rank slabs): {steps}")
+        log(f"  the slab step vs the unsharded step: {unsharded}")
+        for scn, e in steps.items():
+            if (e["loss"] > STEP_LOSS_TOL or e["grad_rel"] > GRAD_TOL
+                    or e["params_max"] > STEP_PARAM_TOL or e["sign_flips"]
+                    or e.get("replicas", 0.0) != 0.0
+                    or not e.get("denom_equal", True)):
+                raise AssertionError(f"{scn}: {e}")
+        if unsharded["slab_step"]["loss"] > STEP_LOSS_TOL:
+            raise AssertionError(f"slab step vs unsharded: {unsharded}")
+        multi.update(world2=reports["world2"], world4=reports["world4"],
+                     renders=renders, steps=steps, vs_unsharded=unsharded,
+                     shard_edit=[w["out"]["shard_edit"] for w in w2],
+                     seconds=time.time() - t9)
+        log(f"  shard-mode DDIM step (world 2): {multi['shard_edit']}")
+        log(f"  phase 9 took {multi['seconds']:.1f} s")
+        del bench9, qg, whole
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "eight")
+            "nine")
         return 0
 
     v0 = fit["view0"]
@@ -2944,6 +3623,16 @@ def main(argv=None) -> int:
         "library_ms": None,  # no single PyTorch call computes this function
         "cells": ev["list_cells"],
     }]
+    # phase 9: each kernel's launches per scenario, one count a rank
+    per_rank = {"nccl_world1_train": [multi["nccl_world1"]["launches"]]}
+    for world in ("world2", "world4"):
+        for scn in multi[world][0]:
+            per_rank[f"{world}_{scn}"] = [rep[scn]["launches"]
+                                          for rep in multi[world]]
+    for entry in kernels:
+        entry["launches_multi_gpu"] = {
+            scn: [counts[entry["name"]] for counts in ranks_]
+            for scn, ranks_ in per_rank.items()}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -2951,6 +3640,7 @@ def main(argv=None) -> int:
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
+              "multi_gpu": multi,
               "card": smi,
               "seconds": time.time() - t_start}
     if args.json:

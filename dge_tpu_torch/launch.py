@@ -52,7 +52,20 @@ spill-free lift installs; with ``system.clip_checkpoint`` (a local
 transformers ``CLIPModel`` directory) ``clip_metrics.json``; writing
 ``val/``, ``ckpts/``, the edit cache under ``<out>/edit_cache/`` and
 ``last.ply``;
-``system.model_size=tiny`` builds the small test networks. Capture images may be PNG or JPEG at any size:
+``system.model_size=tiny`` builds the small test networks.
+``--distributed`` joins the process group torchrun describes (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--cpu``) and logs rank, world, device and
+backend; ``--train`` with ``system.guidance.batch_mode=shard`` then splits
+the edit round's camera batches over the ranks. Every rank runs the edit
+alike and only rank 0 writes files: with more than one rank no rank reads
+the edit cache, and after the run the ranks compare a checksum of their
+scenes. The other modes run on rank 0 alone::
+
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \
+        -m dge_tpu_torch.launch --train --distributed --gs_source scene.ply \
+        --source capture_dir --out outputs system.guidance.batch_mode=shard
+
+Capture images may be PNG or JPEG at any size:
 they are area-resized to ``data.height`` x ``data.width``. Every mode writes
 ``cmd.txt`` and ``parsed.yaml``, runs on the GPU unless ``--cpu`` is given,
 and raises without a card and without ``--cpu``. Dotted overrides apply with or without
@@ -95,20 +108,21 @@ class ExportRun(NamedTuple):
 
 
 class TrainRun(NamedTuple):
-    ply_path: str  # last.ply, the edited scene
+    ply_path: Optional[str]  # last.ply, the edited scene (None: no writer)
     steps: int
     edit_frames: dict  # view index -> [H, W, 3] float32 edited frame
-    losses_finite: bool  # every refit step's L1 loss was finite
+    losses_finite: bool  # every step's loss was finite
     spill: int  # refit binning spill over the run (0 = spill-free)
     render_spill: int  # binning spill of the view renders
     caps: dict  # binning caps in effect at the end (FitLoop.caps)
     seconds: dict  # host seconds by stage (DGESystem.seconds) and "run"
     launches: dict  # kernel launch counts of the run
-    trial_dir: str
+    trial_dir: Optional[str]  # None on a rank that writes nothing
     clip_metrics: Optional[dict]  # clip_metrics.json, None without CLIP
     # the DGESystem after the run: its scene (grad mask), fit state,
     # lift_spill / lift_caps and the guidance's models
     system: object
+    scene_checksum: str  # the same on every rank (DGESystem.check_replicas)
 
 
 class FitRun(NamedTuple):
@@ -154,6 +168,9 @@ def parse_args(argv=None):
     p.add_argument("--source", type=str, default=None, help="COLMAP scene dir")
     p.add_argument("--out", type=str, default="outputs")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the torchrun process group (NCCL on "
+                   "cuda:LOCAL_RANK, gloo with --cpu)")
     p.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     # intermixed: dotted overrides may stand anywhere among the options
     return p.parse_intermixed_args(argv)
@@ -163,20 +180,41 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
     from dge_tpu_torch import resolve_device
-    from dge_tpu_torch.utils import config as C
-    from dge_tpu_torch.utils import saving
 
     if not (args.render or args.test or args.validate or args.export
             or args.fit or args.train):
         log.error("choose a mode: --render / --test / --validate / "
                   "--export / --fit / --train")
         sys.exit(2)
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    if args.distributed:
+        from dge_tpu_torch.parallel import dist as D
+
+        device = D.init_from_env(cpu=args.cpu)
+        rank = D.rank()
+        log.info("distributed: rank %d / world %d, device %s, backend %s",
+                 rank, D.world_size(), device, D.dist.get_backend())
+        try:
+            if rank == 0 or args.train:
+                return _run_mode(args, argv, device, writer=rank == 0)
+            log.info("rank %d: only rank 0 runs this mode", rank)
+            return None
+        finally:
+            D.dist.destroy_process_group()
+    return _run_mode(args, argv, resolve_device("cpu" if args.cpu else "cuda"))
+
+
+def _run_mode(args, argv, device, writer: bool = True):
+    """The chosen mode; only a ``writer`` makes the trial directory."""
+    from dge_tpu_torch.utils import config as C
+    from dge_tpu_torch.utils import saving
+
     cfg = C.load_config(args.config, args.overrides)
-    trial_dir = C.make_trial_dir(args.out, cfg.get("name", "dge"),
-                                 cfg.get("tag", "run"))
-    saving.save_run_info(trial_dir, ["dge_tpu_torch.launch"] + argv, cfg)
-    log.info("trial dir: %s", trial_dir)
+    trial_dir = None
+    if writer:
+        trial_dir = C.make_trial_dir(args.out, cfg.get("name", "dge"),
+                                     cfg.get("tag", "run"))
+        saving.save_run_info(trial_dir, ["dge_tpu_torch.launch"] + argv, cfg)
+        log.info("trial dir: %s", trial_dir)
 
     gs_source = args.gs_source or cfg.get("system", {}).get("gs_source")
     source = args.source or cfg.get("data", {}).get("source")
@@ -370,9 +408,8 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
 def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
               resume=None, out_root="outputs") -> TrainRun:
     """The DGE edit loop (BASELINE.md config 4): render -> multi-view edit
-    -> refit."""
+    -> refit. ``trial_dir`` None: a rank of a group that writes nothing."""
     import hashlib
-    import json
     import time
 
     from dge_tpu_torch.diffusion import ip2p
@@ -383,6 +420,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     from dge_tpu_torch.models.unet import UNetConfig
     from dge_tpu_torch.models.vae import VAEConfig
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.parallel import dist as D
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
@@ -410,10 +448,11 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
         log.warning("SMOKE RUN: no IP2P checkpoint configured "
                     "(system.ip2p_checkpoint): RANDOM weights, the edits are "
                     "noise; outputs are marked smoke-only")
-        with open(os.path.join(trial_dir, "SMOKE_ONLY.txt"), "w") as f:
-            f.write("this trial ran with random diffusion weights: edit "
-                    "outputs are noise, usable only for pipeline smoke "
-                    "testing\n")
+        if trial_dir:
+            with open(os.path.join(trial_dir, "SMOKE_ONLY.txt"), "w") as f:
+                f.write("this trial ran with random diffusion weights: "
+                        "edit outputs are noise, usable only for pipeline "
+                        "smoke testing\n")
     else:
         log.error("--train needs real diffusion weights: set "
                   "system.ip2p_checkpoint to a local diffusers "
@@ -449,7 +488,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     prompt = sys_cfg.get("prompt", "")
     po = PromptProcessor(
         tok, lambda ids: ip2p.encode_text(models, ids),
-        cache_dir=os.path.join(trial_dir, "text_cache"),
+        cache_dir=trial_dir and os.path.join(trial_dir, "text_cache"),
         cfg=PromptConfig(prompt=prompt,
                          negative_prompt=sys_cfg.get("negative_prompt", "")),
     )()
@@ -469,6 +508,13 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
                             f"{len(cams)}".encode()).hexdigest()[:16]
     cache_dir = os.path.join(out_root, "edit_cache", cache_key)
     log.info("edit cache: %s", cache_dir)
+    if D.world_size() > 1:
+        # ranks that read the cache at different moments could take
+        # different paths through the collectives: none reads it, and
+        # only the writer fills it
+        log.info("%d ranks: the edit cache is not read", D.world_size())
+        e_cfg.cache_overwrite = True
+        cache_dir = cache_dir if trial_dir else None
     system = DGESystem(
         e_cfg, scene, cams, guidance=guidance,
         text_emb_pos=torch.from_numpy(po.cond).to(device),
@@ -479,33 +525,40 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     if resume:
         start_step = system.restore_state(resume)
         log.info("resumed from %s at step %d", resume, start_step)
-    metrics = MetricsLogger(
+    metrics = trial_dir and MetricsLogger(
         trial_dir,
         tensorboard=bool(cfg.get("trainer", {}).get("tensorboard", False)))
     before = dict(PC.launch_counts)
     t0 = time.time()
     final = system.run(seed, log_fn=log.info, start_step=start_step,
-                       ckpt_dir=os.path.join(trial_dir, "ckpts"),
-                       val_dir=os.path.join(trial_dir, "val"),
+                       ckpt_dir=trial_dir and os.path.join(trial_dir, "ckpts"),
+                       val_dir=trial_dir and os.path.join(trial_dir, "val"),
                        metrics=metrics)
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = dict(system.seconds, run=time.time() - t0)
-    metrics.close()
-    ply = os.path.join(trial_dir, "last.ply")
-    G.save_ply(final, ply)
-    log.info("saved edited scene to %s", ply)
-    # CLIP edit-quality metrics (clip_metrics.py:33-50): the original and
-    # the edited scene's renders against the source and edit prompts
-    clip = _clip_edit_metrics(sys_cfg, system, trial_dir, device)
-    with open(metrics.path) as f:
-        losses = [json.loads(line).get("train/loss", 0.0) for line in f]
+    launches = {k: v - before[k] for k, v in PC.launch_counts.items()}
+    log.info("kernel launches: %s", launches)
+    if device.type == "cuda":
+        log.info("peak memory %.3f GiB on %s",
+                 torch.cuda.max_memory_allocated(device) / 2 ** 30, device)
+    checksum = system.check_replicas()
+    log.info("scene checksum %s (rank %d of %d)", checksum, D.rank(),
+             D.world_size())
+    ply = clip = None
+    if trial_dir:
+        metrics.close()
+        ply = os.path.join(trial_dir, "last.ply")
+        G.save_ply(final, ply)
+        log.info("saved edited scene to %s", ply)
+        # CLIP edit-quality metrics (clip_metrics.py:33-50): the original
+        # and the edited scene's renders against the source and edit prompts
+        clip = _clip_edit_metrics(sys_cfg, system, trial_dir, device)
     return TrainRun(
         ply, e_cfg.max_steps, dict(system.edit_frames),
-        bool(np.isfinite(losses).all()), system.total_spill,
-        system.render_spill, system.loop.caps, seconds,
-        {k: v - before[k] for k, v in PC.launch_counts.items()}, trial_dir,
-        clip, system)
+        system.losses_finite, system.total_spill,
+        system.render_spill, system.loop.caps, seconds, launches, trial_dir,
+        clip, system, checksum)
 
 
 def _clip_edit_metrics(sys_cfg, system, trial_dir, device) -> Optional[dict]:

@@ -60,6 +60,9 @@ class PairBins(NamedTuple):
     # slot = max_tiles_per_gaussian, cap = big_capacity / small_slots,
     # tile = max_per_tile, stream = max_pairs
     spill_parts: torch.Tensor = None
+    # 0-dim: the end of the last tile's range before the caps cut it (a
+    # tile's range starts after every earlier tile's pairs, capped or not)
+    length: torch.Tensor = None
 
 
 def _i32(x):
@@ -271,6 +274,16 @@ def _quantize_depth(depth, vis, num_tiles):
                                    (1 << depth_bits) - 1)
 
 
+def _depth_keys(depth, vis, num_tiles, depth_keys):
+    """``_quantize_depth`` for this viewport, or for the image of
+    ``depth_keys=(tiles, seen)``: ``tiles`` tiles (at least this
+    viewport's), ``seen`` the Gaussians on its screen."""
+    if depth_keys is None:
+        return _quantize_depth(depth, vis, num_tiles)
+    tiles, seen = depth_keys
+    return _quantize_depth(depth, seen, max(num_tiles, tiles))
+
+
 def _tile_ranges(keys, num_tiles, depth_bits):
     """[start, end) of each tile's run in the sorted keys
     (identifyTileRanges analog)."""
@@ -285,7 +298,7 @@ def _tile_ranges(keys, num_tiles, depth_bits):
 def _pair_sort(
     mean2d, depth, radius, visible, *, height, width, tile_px, max_per_tile,
     max_tiles_per_gaussian, max_pairs, small_slots=4, big_capacity=None,
-    conic=None, opacity=None,
+    conic=None, opacity=None, depth_keys=None,
 ) -> PairBins:
     """Pair-stream binning body (the JAX ``emission="bucketed"`` branch)."""
     n = mean2d.shape[0]
@@ -296,7 +309,7 @@ def _pair_sort(
     x0, x1, y0, y1, vis = tile_rects(
         mean2d, radius, visible, tile_px, tiles_x, tiles_y
     )
-    depth_bits, dq = _quantize_depth(depth, vis, num_tiles)
+    depth_bits, dq = _depth_keys(depth, vis, num_tiles, depth_keys)
 
     w = x1 - x0
     h = y1 - y0
@@ -326,6 +339,7 @@ def _pair_sort(
         tiles_y=tiles_y,
         spill_parts=_i32(torch.stack(
             [spill_slot, spill_cap, tile_spill, stream_spill])),
+        length=ends[-1],
     )
 
 
@@ -345,13 +359,18 @@ def bin_gaussians_pairs(
     small_slots: int = 4,
     conic: torch.Tensor = None,
     opacity: torch.Tensor = None,
+    depth_keys=None,
 ) -> PairBins:
     """The sorted pair stream truncated to ``max_pairs`` (valid pairs sort
     before the sentinel tile, so the prefix is the concatenation of all
     tiles' depth-ordered lists). ``max_pairs=0`` is max(2^18, 2N) rounded up
     to a power of two; ``big_capacity=0`` is N/32 rounded up (at least 64).
     Every cap reports its overflow in ``spill`` / ``spill_parts``. Passing
-    ``conic`` + ``opacity`` enables exact tight tile culling."""
+    ``conic`` + ``opacity`` enables exact tight tile culling.
+    ``depth_keys=(tiles, seen)`` quantises depth as an image of ``tiles``
+    tiles in which ``seen`` [N] bool are the Gaussians on screen would: a
+    band of a larger image passes the whole image's (``tile_rects``'s
+    visibility), so its depths quantise, and its ties order, as there."""
     n = mean2d.shape[0]
     if max_pairs <= 0:
         max_pairs = max(1 << 18, 1 << int(2 * n - 1).bit_length())
@@ -360,7 +379,7 @@ def bin_gaussians_pairs(
         tile_px=tile_px, max_per_tile=max_per_tile,
         max_tiles_per_gaussian=max_tiles_per_gaussian, max_pairs=max_pairs,
         small_slots=small_slots, big_capacity=big_capacity or None,
-        conic=conic, opacity=opacity,
+        conic=conic, opacity=opacity, depth_keys=depth_keys,
     )
 
 
@@ -377,6 +396,7 @@ def bin_gaussians(
     max_tiles_per_gaussian: int = 32,
     conic: torch.Tensor = None,
     opacity: torch.Tensor = None,
+    depth_keys=None,
 ) -> TileBins:
     """Duplicate-and-sort binning into capped per-tile lists: each Gaussian
     emits up to ``max_tiles_per_gaussian`` keys ``tile << depth_bits | dq``
@@ -387,7 +407,8 @@ def bin_gaussians(
     tile's run in the sorted stream: mask by slot, never by id. ``spill``
     counts both caps: list entries beyond ``max_per_tile`` and rect tiles
     beyond ``max_tiles_per_gaussian`` (raw, before culling). Passing
-    ``conic`` + ``opacity`` enables exact tight tile culling."""
+    ``conic`` + ``opacity`` enables exact tight tile culling; ``depth_keys``
+    as in ``bin_gaussians_pairs``."""
     dev = mean2d.device
     n = mean2d.shape[0]
     tiles_x = -(-width // tile_px)
@@ -398,7 +419,7 @@ def bin_gaussians(
     x0, x1, y0, y1, vis = tile_rects(
         mean2d, radius, visible, tile_px, tiles_x, tiles_y
     )
-    depth_bits, dq = _quantize_depth(depth, vis, num_tiles)
+    depth_bits, dq = _depth_keys(depth, vis, num_tiles, depth_keys)
 
     w = x1 - x0
     cnt = w * (y1 - y0)

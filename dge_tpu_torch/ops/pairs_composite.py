@@ -150,13 +150,14 @@ def _prefix(one_minus, log_space: bool):
     return torch.cumprod(one_minus, dim=1)
 
 
-def _block_walk(f, alpha, keep, trans, log_space: bool):
+def _block_walk(f, alpha, keep, trans, log_space: bool, stop: float = T_EPS):
     """One block entered at ``trans`` [G, 1, P] → (rgbd added [G, 4, P],
-    the factor [G, 1, P] that takes ``trans`` to the committed T)."""
+    the factor [G, 1, P] that takes ``trans`` to the committed T); a pair
+    is applied while ``trans·cp >= stop``."""
     eff = torch.where(keep, alpha, torch.zeros_like(alpha))
     one_minus = 1.0 - eff
     cp = _prefix(one_minus, log_space)  # inclusive, [G, C, P]
-    applied = trans * cp >= T_EPS
+    applied = trans * cp >= stop
     w = torch.where(applied, eff * trans * (cp / one_minus),
                     torch.zeros_like(cp))
     add = torch.stack([(w * f[6 + r]).sum(dim=1) for r in range(4)], dim=1)
@@ -178,7 +179,8 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
                               tile_px: int, chunk: int,
                               log_prefix: bool = False,
                               boundary_rows: Optional[Tuple[torch.Tensor,
-                                                            int]] = None):
+                                                            int]] = None,
+                              stop: float = T_EPS):
     """Plain PyTorch version of the whole forward, on any device → [T, 5, P],
     or (that, boundary_T [n_rows, P]) with ``boundary_rows=(blk_off,
     n_rows)`` (rows not in use are 0).
@@ -188,7 +190,9 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
     a pair applied iff ``T_block·cp >= 1e-4``, ``w = eff·T_block·cp/(1-eff)``;
     the committed T after the block is ``T_block·cp`` at its last applied
     pair. ``log_prefix`` forms ``cp`` as ``exp(cumsum(log(1-eff)))`` instead:
-    the plain version of the log-space kernel of tools/proto_logdot.py."""
+    the plain version of the log-space kernel of tools/proto_logdot.py.
+    ``stop`` replaces the early stop's 1e-4: a check moves it a little to
+    find the pixels where rounding decides a refusal."""
     dev = data.device
     num_tiles = starts.shape[0]
     p = tile_px * tile_px
@@ -223,7 +227,8 @@ def composite_pairs_reference(data, starts, counts, *, tiles_x: int,
             idx = (fb + k)[:, None] * chunk + slot[None, :]  # [G, C]
             in_range = (idx >= s[:, None]) & (idx < e[:, None])
             add, factor = _block_walk(*_block_alpha(data, idx, in_range, px,
-                                                    py), trans, log_prefix)
+                                                    py), trans, log_prefix,
+                                      stop)
             acc = acc + add
             trans = trans * factor
         out[tiles, 0:4] = acc

@@ -153,23 +153,65 @@ def render(
     mean2d = prep.mean2d
     if mean2d_offset is not None:
         mean2d = mean2d + mean2d_offset
+    color, depth, final_t, spill, parts = rasterize(
+        prep, mean2d, cam.height, cam.width, bg, backend=backend,
+        tile_px=tile_px, max_per_tile=max_per_tile,
+        max_tiles_per_gaussian=max_tiles_per_gaussian, max_pairs=max_pairs,
+        big_capacity=big_capacity, small_slots=small_slots, chunk=chunk,
+        tight_cull=tight_cull)
+    return RenderOut(
+        color=color,
+        depth=depth,
+        alpha=1.0 - final_t,
+        radii=prep.radius.detach(),
+        visible=prep.visible,
+        spill=spill,
+        spill_parts=parts,
+    )
+
+
+def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
+              tile_px: int = 32, max_per_tile: int = 2048,
+              max_tiles_per_gaussian: int = 32, max_pairs: int = 0,
+              big_capacity: int = 0, small_slots: int = 4, chunk: int = 64,
+              tight_cull: bool = False, depth_keys=None,
+              stream_base=None):
+    """Binning and compositing of preprocessed Gaussians (``prep``, with
+    screen positions ``mean2d``) against a ``height`` x ``width`` viewport
+    whose top left is pixel (0, 0) → (color, depth, final_T, spill,
+    spill_parts). ``render`` calls it with the camera's size; a tile band
+    shifts ``mean2d`` by its first row and passes its own height
+    (parallel/tile_shard.py), and a depth slab passes a narrower
+    ``prep.visible`` (parallel/gauss_shard.py).
+
+    A band composites as the whole image does only if each tile sees the
+    same pairs in the same order and, on the pair-stream backends, the same
+    stream blocks: a pixel's early stop holds to the end of a block
+    (ops/pairs_composite.py), so where a tile's range is cut into blocks
+    decides which pairs a saturated pixel refuses. ``depth_keys`` (the
+    whole image's tile count and on-screen Gaussians,
+    ``binning.bin_gaussians_pairs``) makes the depth keys, and so the order
+    of ties, the whole image's. ``stream_base`` maps this viewport's stream
+    length (a 0-dim tensor, ``PairBins.length``) to the whole image's
+    stream position of its first pair; the stream is then shifted by that
+    position modulo the block size, so that every tile's range is cut where
+    the whole image's is. The list backends cut each tile's list from its
+    own first entry and need no shift."""
     if backend in LIST_BACKENDS:
         color, depth, final_t, spill = _render_lists(
-            backend, prep, mean2d, cam, bg, tile_px=tile_px,
+            backend, prep, mean2d, height, width, bg, tile_px=tile_px,
             max_per_tile=max_per_tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=chunk,
-            tight_cull=tight_cull)
-        return RenderOut(color=color, depth=depth, alpha=1.0 - final_t,
-                         radii=prep.radius.detach(), visible=prep.visible,
-                         spill=spill)
+            tight_cull=tight_cull, depth_keys=depth_keys)
+        return color, depth, final_t, spill, None
     with torch.no_grad():
         pb = binning.bin_gaussians_pairs(
             mean2d.detach(),
             prep.depth.detach(),
             prep.radius.detach(),
             prep.visible,
-            height=cam.height,
-            width=cam.width,
+            height=height,
+            width=width,
             tile_px=tile_px,
             max_per_tile=max_per_tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
@@ -178,9 +220,12 @@ def render(
             small_slots=small_slots,
             conic=prep.conic.detach() if tight_cull else None,
             opacity=prep.opacity.detach() if tight_cull else None,
+            depth_keys=depth_keys,
         )
-    geom = dict(height=cam.height, width=cam.width, tiles_x=pb.tiles_x,
+    geom = dict(height=height, width=width, tiles_x=pb.tiles_x,
                 tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
+    if stream_base is not None:
+        pb = _shift_stream(pb, int(stream_base(pb.length)) % geom["chunk"])
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
     if backend == "cuda_train":
         # kernel forward (which hands boundary_T over) and kernel backward;
@@ -193,34 +238,39 @@ def render(
         color, depth, final_t = pairs_composite.composite_pairs(
             pb.pair_ids, pb.starts, pb.counts, *feats, bg=bg,
             use_kernel=backend == "cuda_stream", **geom)
-    return RenderOut(
-        color=color,
-        depth=depth,
-        alpha=1.0 - final_t,
-        radii=prep.radius.detach(),
-        visible=prep.visible,
-        spill=pb.spill,
-        spill_parts=pb.spill_parts,
-    )
+    return color, depth, final_t, pb.spill, pb.spill_parts
 
 
-def _bin_lists(prep, mean2d, cam, *, tile_px, max_per_tile,
-               max_tiles_per_gaussian, tight_cull) -> binning.TileBins:
+def _shift_stream(pb: binning.PairBins, shift: int) -> binning.PairBins:
+    """``pb`` with ``shift`` unused positions before its first pair (id 0,
+    in no tile's range, so never composited and given no gradient)."""
+    if not shift:
+        return pb
+    pad = pb.pair_ids.new_zeros(shift)
+    return pb._replace(pair_ids=torch.cat([pad, pb.pair_ids]),
+                       starts=pb.starts + shift)
+
+
+def _bin_lists(prep, mean2d, height, width, *, tile_px, max_per_tile,
+               max_tiles_per_gaussian, tight_cull,
+               depth_keys=None) -> binning.TileBins:
     with torch.no_grad():
         return binning.bin_gaussians(
             mean2d.detach(), prep.depth.detach(), prep.radius.detach(),
-            prep.visible, height=cam.height, width=cam.width, tile_px=tile_px,
+            prep.visible, height=height, width=width, tile_px=tile_px,
             max_per_tile=max_per_tile,
             max_tiles_per_gaussian=max_tiles_per_gaussian,
             conic=prep.conic.detach() if tight_cull else None,
-            opacity=prep.opacity.detach() if tight_cull else None)
+            opacity=prep.opacity.detach() if tight_cull else None,
+            depth_keys=depth_keys)
 
 
-def _render_lists(backend, prep, mean2d, cam, bg, *, chunk, **bin_kw):
+def _render_lists(backend, prep, mean2d, height, width, bg, *, chunk,
+                  **bin_kw):
     """The per-tile-list backends → (color, depth, final_T, spill)."""
-    bins = _bin_lists(prep, mean2d, cam, **bin_kw)
+    bins = _bin_lists(prep, mean2d, height, width, **bin_kw)
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
-    geom = dict(height=cam.height, width=cam.width, tiles_x=bins.tiles_x,
+    geom = dict(height=height, width=width, tiles_x=bins.tiles_x,
                 tiles_y=bins.tiles_y, tile_px=bin_kw["tile_px"], bg=bg)
     if backend == "cuda_tiles":
         color, depth, final_t = tiles_composite.composite_tiles(
@@ -282,7 +332,8 @@ def render_weights(scene, cam, mask_img, *, tile_px: int = 32,
             scene.xyz, scene.get_scaling, scene.get_rotation,
             scene.get_opacity, scene.get_features, scene.alive, cam,
             scene.active_sh_degree, scene.max_sh_degree)
-        bins = _bin_lists(prep, prep.mean2d, cam, tile_px=tile_px,
+        bins = _bin_lists(prep, prep.mean2d, cam.height, cam.width,
+                          tile_px=tile_px,
                           max_per_tile=max_per_tile,
                           max_tiles_per_gaussian=max_tiles_per_gaussian,
                           tight_cull=True)

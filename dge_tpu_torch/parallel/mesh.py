@@ -1,17 +1,27 @@
-"""Camera batching: stack per-view cameras along a leading axis.
+"""The view mesh and camera batching: stack per-view cameras along a
+leading axis.
 
-JAX counterpart: ``dge_tpu/parallel/mesh.py`` (``stack_cameras``,
-``index_cameras``); its device mesh waits for the multi-GPU slice
-(ROADMAP.md §1 item 5).
+JAX counterpart: ``dge_tpu/parallel/mesh.py`` (``VIEW_AXIS``,
+``make_view_mesh``, ``stack_cameras``, ``index_cameras``). A mesh here is a
+grid of the group's ranks (``dist.Mesh``), each rank running the same code.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from dge_tpu_torch.parallel import dist
 from dge_tpu_torch.scene.camera_arrays import CameraArrays
+
+VIEW_AXIS = "view"
+
+
+def make_view_mesh(n: Optional[int] = None) -> dist.Mesh:
+    """1-D mesh over the view (camera) axis; ``n`` defaults to the group's
+    size and must equal it."""
+    return dist.Mesh((n or dist.world_size(),), (VIEW_AXIS,))
 
 
 def stack_cameras(cams: Sequence[CameraArrays]) -> CameraArrays:

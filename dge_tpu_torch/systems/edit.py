@@ -22,11 +22,17 @@ in one autograd graph through the VAE encoder (each render K1 forward and
 K3, K4 and the fold backward). All per-step randomness comes from
 ``step_generator(seed, step)`` and the edit round's from ``step_generator(seed, 1_000_000 + round_start)`` (the JAX
 ``fold_in`` pattern), so a resumed run replays the uninterrupted one.
+
+Under a process group (``batch_mode: "shard"``) every rank runs the system
+alike: the same draws, the same gathered noise predictions, the same refit.
+``check_replicas`` compares a checksum of the ranks' scenes after a run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
 import os
 import time
 from collections import defaultdict
@@ -38,6 +44,7 @@ import torch
 from dge_tpu_torch.diffusion import ddim
 from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.ops import render as R
+from dge_tpu_torch.parallel import dist as D
 from dge_tpu_torch.parallel.mesh import stack_cameras
 from dge_tpu_torch.scene.camera_arrays import CameraArrays
 from dge_tpu_torch.scene.gaussians import GaussianScene
@@ -164,6 +171,7 @@ class DGESystem:
         self.edit_frames: Dict[int, np.ndarray] = {}
         self.view_list = list(range(len(self.cameras)))
         self.total_spill = 0
+        self.losses_finite = True  # every step's loss so far
         # binning spill of the gradient-free view renders
         self.render_spill = 0
         # list entries the mask lift dropped after its cap ladder, and the
@@ -569,6 +577,7 @@ class DGESystem:
             # the caps when the spill persists
             spill = int(aux.get("spill", 0))
             self.total_spill += spill
+            self.losses_finite &= math.isfinite(aux["loss"])
             if self.loop.react_to_spill(spill, self.scene.capacity,
                                         aux.get("spill_parts")):
                 cfg.max_per_tile = self.loop.max_per_tile
@@ -587,6 +596,22 @@ class DGESystem:
         if val_dir:
             self.validate(val_dir, steps)
         return self.scene
+
+    def check_replicas(self) -> str:
+        """A checksum of the scene's buffers, compared over the ranks of the
+        process group (raises if two differ; one rank has nothing to
+        compare). Returns it."""
+        h = hashlib.sha256()
+        for k in ("xyz", "features_dc", "features_rest", "opacity",
+                  "scaling", "rotation", "alive", "grad_mask"):
+            h.update(getattr(self.scene, k).detach().cpu().numpy().tobytes())
+        mine = h.hexdigest()[:16]
+        if D.world_size() > 1:
+            seen = [None] * D.world_size()
+            D.dist.all_gather_object(seen, mine)
+            if len(set(seen)) != 1:
+                raise RuntimeError(f"the ranks' scenes differ: {seen}")
+        return mine
 
 
 def _quantize_u8(img: np.ndarray) -> np.ndarray:

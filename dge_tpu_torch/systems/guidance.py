@@ -12,7 +12,10 @@ record (a dict this module owns for one step). Closest cameras and epipolar
 constraints are computed once per (step, camera batch) outside the network.
 ``batch_mode="loop"`` runs the reuse pass once per camera batch (the
 reference's order, batch 0 with one key); ``"vmap"`` (the name
-``configs/dge.yaml`` uses) runs every batch in one batched UNet call. The
+``configs/dge.yaml`` uses) runs every batch in one batched UNet call;
+``"shard"`` splits that call's camera batches into contiguous blocks over
+the ranks of the process group (parallel/dist.py) and gathers the noise
+predictions in batch order, so every rank holds the same ``eps``. The
 SDS mode's eps prediction is ``sds_multiview`` / ``compute_grad_sds``.
 
 Images are ``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]`` at this
@@ -32,6 +35,7 @@ import torch.nn.functional as F
 from dge_tpu_torch.diffusion import ddim, epipolar
 from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.models.layers import CrossViewState
+from dge_tpu_torch.parallel import dist as D
 from dge_tpu_torch.parallel.mesh import index_cameras
 
 
@@ -59,8 +63,8 @@ class GuidanceConfig:
     # "loop": one reuse pass per camera batch, reference semantics (batch 0
     # with one key); "vmap": all batches in one batched reuse pass with a
     # uniform 2-key state (batch 0 duplicates its closest key with blend 1,
-    # which equals the 1-key gather); "shard" (batches over devices) waits
-    # for multi-GPU (ROADMAP.md §1 item 5)
+    # which equals the 1-key gather); "shard": the vmap pass with its camera
+    # batches split over the ranks of the process group
     batch_mode: str = "loop"
 
 
@@ -162,11 +166,7 @@ def _cat_states(states) -> CrossViewState:
 
 class DGEGuidance:
     def __init__(self, cfg: GuidanceConfig, models: P.IP2PModels):
-        if cfg.batch_mode == "shard":
-            raise NotImplementedError(
-                "batch_mode='shard' shards the camera batches over devices: "
-                "it comes with multi-GPU (ROADMAP.md §1 item 5)")
-        if cfg.batch_mode not in ("loop", "vmap"):
+        if cfg.batch_mode not in ("loop", "vmap", "shard"):
             raise ValueError(f"unknown batch_mode {cfg.batch_mode!r}")
         self.cfg = cfg
         self.models = models
@@ -246,7 +246,7 @@ class DGEGuidance:
                    torch.cat([P.triple(latents[piv]), cl_p], dim=-1), t, te_p,
                    mode="pivot_record", pivot=record)
 
-        if cfg.batch_mode == "vmap":
+        if cfg.batch_mode in ("vmap", "shard"):
             return self._batched_reuse(latents, cams, key_cams, piv_off, t,
                                        lat_h, lat_w, triple_for, n_batches,
                                        cbs, record)
@@ -274,24 +274,44 @@ class DGEGuidance:
         end (batch 0's single key duplicated with blend 1). The JAX package
         builds batch 0's state with two keys and keeps the first, which
         fails when there is a single key frame (one camera batch, as in an
-        SDS step); the port builds it with one."""
+        SDS step); the port builds it with one.
+
+        ``"shard"`` (guidance.py:439-457): ``nd``, the largest divisor of
+        ``n_batches`` not above the group's size, ranks each take a
+        contiguous block of the batches; ranks from ``nd`` on compute
+        nothing. The pivot record is the same on every rank (each ran the
+        pivot pass); the blocks' noise predictions are gathered in batch
+        order. With one rank, or no process group, it is ``"vmap"``."""
         cfg = self.cfg
         dev = latents.device
+        nd = 1
+        if cfg.batch_mode == "shard":
+            nd = max(d for d in range(1, D.world_size() + 1)
+                     if n_batches % d == 0)
+        per = n_batches // nd
+        mine = D.rank() if nd > 1 else 0
+        if mine >= nd:  # a rank past the blocks sends a placeholder
+            eps = latents.new_zeros((3 * per * cbs,)
+                                    + tuple(latents.shape[1:]))
+            return self._combine(list(D.all_gather_stack(eps)[:nd]))
         states = []
-        for i in range(n_batches):
+        for i in range(mine * per, (mine + 1) * per):
             sl = torch.arange(i * cbs, (i + 1) * cbs, device=dev)
             cv = make_cross_view_state(
                 index_cameras(cams, sl), key_cams, int(piv_off[i]), lat_h,
                 lat_w, 1 if i == 0 else 2, cfg.epipolar_threshold,
                 cfg.epipolar_mode)
             states.append(_two_keys(cv) if i == 0 else cv)
-        frames = torch.arange(n_batches * cbs, device=dev)
+        frames = torch.arange(mine * per * cbs, (mine + 1) * per * cbs,
+                              device=dev)
         te, cl = triple_for(frames)
         eps = P.unet_eps(self.models,
                          torch.cat([P.triple(latents[frames]), cl], dim=-1),
                          t, te, mode="pivot_reuse",
                          cross_view=_cat_states(states), pivot=record)
-        return self._combine([eps])
+        if nd == 1:
+            return self._combine([eps])
+        return self._combine(list(D.all_gather_stack(eps)[:nd]))
 
     @torch.no_grad()
     def __call__(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,

@@ -153,11 +153,12 @@ def test_guidance_call(models, monkeypatch):
 
 
 def test_guidance_unported_modes(models):
-    """Only the sharded reuse is left: it names multi-GPU; an unknown mode
-    is refused; the batched reuse and the SDS mode construct."""
+    """Every mode of the JAX guidance constructs: the sharded reuse (which
+    runs as the batched one without a process group), the batched reuse
+    and the SDS mode; an unknown mode is refused."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        TG.DGEGuidance(TG.GuidanceConfig(batch_mode="shard"), tm)
+    assert TG.DGEGuidance(TG.GuidanceConfig(batch_mode="shard"),
+                          tm).cfg.batch_mode == "shard"
     with pytest.raises(ValueError, match="batch_mode"):
         TG.DGEGuidance(TG.GuidanceConfig(batch_mode="vmpa"), tm)
     g = TG.DGEGuidance(TG.GuidanceConfig(batch_mode="vmap"), tm)
