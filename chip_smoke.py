@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -131,11 +131,30 @@ process per source, started together) and runs:
    K1, K3, suffix, K4 and the fold
    (steps) and of K2 and its layout kernel (renders) advanced; per rank
    and scenario the CUDA-event ms, the collectives' host ms and peak
-   memory.
+   memory;
+10. the capture and checkpoint paths, counters set to 0 before each run:
+   (a) the committed capture written as a Blender capture
+   (``transforms_train.json``) and ``launch --render`` of the quality-gate
+   scene over it: mean PSNR within 1e-3 dB of phase 2's (41.8454 dB when
+   phase 2 is not in the run), spill 0, K1's two kernels launched at least
+   once a view; (b) ``dge_tpu_torch.tools.make_bench_capture --style
+   aniso`` at 512^2 with 24 views (spill 0 on every view, K1 launched on
+   every view), then ``launch --fit`` of that capture with its
+   ``cfg.yaml`` (SH degree 0) for 1,000 steps: every loss finite, K1's two
+   kernels, K3, suffix, K4 and the fold launched at least once a step, the
+   points read by the native parser; steps/s, peak memory, the alive count
+   and the train PSNR of the last 100 steps printed; (c) full-width SD-1.5
+   networks with random weights written as a diffusers directory of
+   ``.bin`` files, ingested (``tools/ingest_checkpoint``), and one DDIM
+   step of 5 views from the raw and from the ingested directory: equal bit
+   for bit; write, ingest and load seconds printed; (d) the native
+   ``points3D.bin`` parser used on the committed capture and equal to the
+   Python loop; the kernels against their plain versions at the bench
+   capture's view 0.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all nine ran.
+gate's own recipe); the result lines are printed only when all ten ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -198,7 +217,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9}
+ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -230,6 +249,15 @@ STEP_PARAM_TOL = 1e-4
 # rounding of a gradient of ~eps into a move of up to ~lr
 ADAM_FLOOR = 1e-12
 STEP_LOSS_TOL = 1e-5
+# phase 10, the capture and checkpoint paths: phase 2's render PSNR (chip
+# runs of PRs 1-9), held when phase 2 is not in the run; the bench capture's
+# fit; the views of one DDIM step from the ingested checkpoint
+RENDER_PSNR_DB = 41.8454
+BLENDER_PSNR_TOL = 1e-3
+BENCH_VIEWS = 24
+BENCH_SIZE = 512
+BENCH_FIT_STEPS = 1000
+INGEST_VIEWS = 5
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
@@ -2567,11 +2595,209 @@ def nccl_world1_train(dev) -> dict:
                 ddim_step=step)
 
 
+def write_random_ip2p(root: str, dev) -> dict:
+    """Full-width SD-1.5 InstructPix2Pix networks with random weights (seed
+    0) written as a diffusers directory of torch ``.bin`` files (unet/,
+    vae/, text_encoder/); returns the bytes written a model."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p
+
+    models = ip2p.build_models(seed=0, device=dev)
+    sizes = {}
+    for sub, net, fname in (
+            ("unet", models.unet, "diffusion_pytorch_model.bin"),
+            ("vae", models.vae, "diffusion_pytorch_model.bin"),
+            ("text_encoder", models.text_encoder, "pytorch_model.bin")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+        path = os.path.join(root, sub, fname)
+        torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
+        sizes[sub] = os.path.getsize(path)
+    del models
+    return sizes
+
+
+def one_ddim_step(models, cams, views: int, dev):
+    """One DDIM step of ``views`` views in one camera batch at t = 500 (the
+    pivot pass, the reuse, CFG and the update) from seeded draws."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ddim
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    lat = 64
+    d = models.unet.config.cross_attention_dim
+    x = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    cond = torch.randn(views, lat, lat, 4, generator=gen, device=dev)
+    te = torch.randn(2 * views, 77, d, generator=gen, device=dev)
+
+    def triple_for(idx):
+        return (torch.cat([te[idx], te[views + idx], te[views + idx]]),
+                torch.cat([cond[idx], cond[idx], torch.zeros_like(
+                    cond[idx])]))
+
+    guide = GD.DGEGuidance(GD.GuidanceConfig(camera_batch_size=views),
+                           models)
+    with torch.no_grad():
+        eps = guide._predict_eps_multiview(
+            x, 500, stack_cameras(cams[:views]), triple_for, views, views, 1,
+            lat, lat, torch.Generator(device=dev).manual_seed(4))
+        return ddim.step(models.schedule, eps, 500, x, 20)
+
+
+def capture_paths(launch, dev, render_psnr) -> dict:
+    """Phase 10: (a) ``--render`` of the quality-gate scene over the
+    committed capture written as a Blender capture; (b) the bench capture
+    generated at 512^2 and fitted; (c) a full-width checkpoint ingested and
+    loaded both ways; (d) the native points parser. Counters are set to 0
+    just before each run and read just after."""
+    import numpy as np
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p
+    from dge_tpu_torch.diffusion import weights as W
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.scene import colmap as CM
+    from dge_tpu_torch.scene import dataset as DS
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.tools import ingest_checkpoint, make_bench_capture
+
+    out = {}
+    k1 = FORWARD_FORMS[False][:2]
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the Blender capture: the committed capture's cameras in OpenGL
+        # axes, its images by their paths
+        cs = DS.ColmapScene(CAPTURE, height=256, width=256)
+        blender = os.path.join(tmp, "blender")
+        DS.write_transforms(cs.cameras, blender, [
+            os.path.join(CAPTURE, "images", c.image_name)
+            for c in cs.cameras])
+        PC.reset_launch_counts()
+        run = launch.main(["--render", "--gs_source", QUALITY_PLY, "--source",
+                           blender, "--out", tmp, "data.height=256",
+                           "data.width=256"])
+        launches = dict(PC.launch_counts)
+        psnr, _ = mean_psnr_against_capture(run.frames, run.image_names)
+        want = RENDER_PSNR_DB if render_psnr is None else render_psnr
+        out["blender"] = dict(psnr_db=psnr, want_db=want, spill=run.spill,
+                              views=len(run.frames), launches=launches)
+        log(f"  (a) Blender --render: {len(run.frames)} views, mean PSNR "
+            f"{psnr:.6f} dB (phase 2: {want:.6f}), spill {run.spill}, "
+            f"launches {launches}")
+        if (len(run.frames) != 16 or run.spill
+                or abs(psnr - want) > BLENDER_PSNR_TOL
+                or min(launches[k] for k in k1) < len(run.frames)):
+            raise AssertionError(f"Blender render: {out['blender']}")
+
+        # (b) the bench capture at 512^2, then its fit (SH degree 0)
+        cap = os.path.join(tmp, "bench_capture")
+        PC.reset_launch_counts()
+        t0 = time.time()
+        made = make_bench_capture.main([
+            "--out", cap, "--views", str(BENCH_VIEWS), "--size",
+            str(BENCH_SIZE), "--style", "aniso"])
+        gen_s = time.time() - t0
+        launches = dict(PC.launch_counts)
+        out["bench_capture"] = dict(
+            n_gaussians=made.n_gaussians, spills=made.spills, caps=made.caps,
+            render_s=made.seconds, seconds=gen_s, launches=launches)
+        log(f"  (b) bench capture: {made.n_gaussians} gaussians, "
+            f"{len(made.spills)} views at {BENCH_SIZE}^2, spills "
+            f"{made.spills}, caps {made.caps}, renders {made.seconds:.2f} s "
+            f"of {gen_s:.1f} s, launches {launches}")
+        if (len(made.spills) != BENCH_VIEWS or any(made.spills)
+                or min(launches[k] for k in k1) < BENCH_VIEWS):
+            raise AssertionError(f"bench capture: {out['bench_capture']}")
+        native0 = CM.points_parser_counts["native"]
+        torch.cuda.reset_peak_memory_stats()
+        PC.reset_launch_counts()
+        fit = launch.main(["--fit", "--source", cap, "--config",
+                           os.path.join(cap, "cfg.yaml"), "--out", tmp,
+                           f"trainer.max_steps={BENCH_FIT_STEPS}"])
+        launches = dict(PC.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["bench_fit"] = dict(
+            steps=fit.steps, seconds=fit.seconds,
+            steps_per_s=fit.steps / fit.seconds, train_psnr=fit.last_psnr,
+            n_alive=fit.n_alive, losses_finite=fit.losses_finite,
+            peak_memory_gib=peak, caps=fit.caps, launches=launches,
+            native_parser=CM.points_parser_counts["native"] - native0)
+        log(f"  (b) bench fit: {fit.steps} steps in {fit.seconds:.1f} s "
+            f"({fit.steps / fit.seconds:.2f} steps/s), peak {peak:.3f} GiB, "
+            f"{fit.n_alive} alive, train PSNR (last 100) "
+            f"{fit.last_psnr:.3f} dB, launches {launches}")
+        idle = [k for k in k1 + BACKWARD_KERNELS
+                if launches[k] < BENCH_FIT_STEPS]
+        if idle or not fit.losses_finite or not out["bench_fit"][
+                "native_parser"]:
+            raise AssertionError(f"bench fit: {out['bench_fit']}, kernels "
+                                 f"launched fewer times than steps: {idle}")
+        del made, fit
+
+        # (c) a full-width checkpoint as .bin files, its ingest cache, and
+        # one DDIM step of 5 views from each: bit for bit
+        src, cache = os.path.join(tmp, "ip2p"), os.path.join(tmp, "cache")
+        t0 = time.time()
+        sizes = write_random_ip2p(src, dev)
+        write_s = time.time() - t0
+        t0 = time.time()
+        ingest_checkpoint.ingest(src, cache, vendor_tokenizer=False)
+        ingest_s = time.time() - t0
+        cams = [CameraArrays.from_camera(c, device=dev) for c in
+                DS.ColmapScene(CAPTURE, height=512, width=512).cameras]
+        steps, load_s = {}, {}
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            for name, load in (("raw", W.load_ip2p_checkpoint),
+                               ("ingested", W.load_ingested)):
+                t0 = time.time()
+                models = ip2p.build_models(params=load(
+                    src if name == "raw" else cache), device=dev)
+                torch.cuda.synchronize()
+                load_s[name] = time.time() - t0
+                steps[name] = one_ddim_step(models, cams, INGEST_VIEWS, dev)
+                del models
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        same = torch.equal(steps["raw"], steps["ingested"])
+        out["ingest"] = dict(
+            bytes=sizes, write_s=write_s, ingest_s=ingest_s, load_s=load_s,
+            equal=same, finite=bool(torch.isfinite(steps["raw"]).all()),
+            is_ingested=W.is_ingested(cache))
+        log(f"  (c) checkpoint {sum(sizes.values()) / 2 ** 30:.2f} GiB "
+            f"written in {write_s:.1f} s, ingested in {ingest_s:.1f} s, "
+            f"loaded raw / ingested in {load_s['raw']:.1f} / "
+            f"{load_s['ingested']:.1f} s; DDIM step of {INGEST_VIEWS} views "
+            f"bit for bit: {same}")
+        if not (same and out["ingest"]["finite"]
+                and out["ingest"]["is_ingested"]):
+            raise AssertionError(f"ingest: {out['ingest']}")
+        del steps
+
+    # (d) the native points parser against the Python loop
+    pts = os.path.join(CAPTURE, "sparse", "0", "points3D.bin")
+    before = dict(CM.points_parser_counts)
+    got = CM.read_points3d_binary(pts)
+    loop = CM.read_points3d_binary_python(pts)
+    used = CM.points_parser_counts["native"] - before["native"]
+    equal = all(np.array_equal(a, b) for a, b in zip(got, loop))
+    out["points_parser"] = dict(native=used, equal=equal,
+                                points=int(got[0].shape[0]))
+    log(f"  (d) points3D.bin: native parser used {used}x, equal to the "
+        f"Python loop: {equal} ({got[0].shape[0]} points)")
+    if used != 1 or not equal:
+        raise AssertionError(f"points parser: {out['points_parser']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -3473,9 +3699,30 @@ def main(argv=None) -> int:
         log(f"  phase 9 took {multi['seconds']:.1f} s")
         del bench9, qg, whole
 
+    # ---- phase 10: the capture and checkpoint paths ---------------------
+    capture = None
+    if 10 in phases:
+        log("phase 10: capture and checkpoint paths (a Blender --render, the "
+            "bench capture at 512^2 and its fit, a full-width checkpoint "
+            "ingested, the native points parser)")
+        t10 = time.time()
+        capture = capture_paths(launch, dev, mean_psnr)
+        # the kernels against their plain versions at the bench capture's
+        # shapes: its ground truth from view 0 at the caps its renders grew
+        from dge_tpu_torch.tools import make_bench_capture as MB
+
+        gt = MB.gt_scene(MB.build_gt_scene(0), dev)
+        gcam = CameraArrays.from_camera(MB.ring_cameras(
+            BENCH_VIEWS, BENCH_SIZE, BENCH_SIZE)[0], device=dev)
+        hold(stream_inputs(gt, gcam, capture["bench_capture"]["caps"], True,
+                           32, 64), "bench capture view 0")
+        del gt
+        capture["seconds"] = time.time() - t10
+        log(f"  phase 10 took {capture['seconds']:.1f} s")
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "nine")
+            "ten")
         return 0
 
     v0 = fit["view0"]
@@ -3633,6 +3880,10 @@ def main(argv=None) -> int:
         entry["launches_multi_gpu"] = {
             scn: [counts[entry["name"]] for counts in ranks_]
             for scn, ranks_ in per_rank.items()}
+        # phase 10: the Blender render, the bench capture's renders, its fit
+        entry["launches_capture"] = {
+            run_: capture[run_]["launches"][entry["name"]]
+            for run_ in ("blender", "bench_capture", "bench_fit")}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -3640,7 +3891,7 @@ def main(argv=None) -> int:
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
-              "multi_gpu": multi,
+              "multi_gpu": multi, "capture": capture,
               "card": smi,
               "seconds": time.time() - t_start}
     if args.json:

@@ -8,6 +8,10 @@ module's docstring names its JAX counterpart. It imports ``torch`` and never
 
 Entry points take ``device`` and default to ``"cuda"``. The CPU is used only
 when the caller asks for it; ``device="cuda"`` without a card raises.
+
+``register`` and ``find`` are the component registry (threestudio's plain
+dict, threestudio/__init__.py:1-13): ``"dge-guidance"`` and ``"dge-system"``
+name ``systems.guidance.DGEGuidance`` and ``systems.edit.DGESystem``.
 """
 
 from __future__ import annotations
@@ -25,3 +29,30 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' (or --cpu) to run on the CPU"
         )
     return dev
+
+
+__modules__: dict = {}
+
+
+def register(name: str):
+    """Class decorator: register the class under the public ``name``; a
+    second class under a taken name raises."""
+
+    def decorator(cls):
+        if name in __modules__ and __modules__[name] is not cls:
+            raise ValueError(f"component '{name}' already registered")
+        __modules__[name] = cls
+        return cls
+
+    return decorator
+
+
+def find(name: str):
+    """The class registered under ``name``, importing the modules that
+    register on first use; an unknown name raises ``KeyError``."""
+    if name not in __modules__:
+        import dge_tpu_torch.systems.edit  # noqa: F401  (both register)
+    if name not in __modules__:
+        raise KeyError(
+            f"component '{name}' not registered; known: {sorted(__modules__)}")
+    return __modules__[name]

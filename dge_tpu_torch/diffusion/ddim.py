@@ -71,15 +71,23 @@ def step(sched: DDIMSchedule, model_output: torch.Tensor, t: int,
     a_t = sched.alphas_cumprod[int(t)]
     a_prev = (sched.alphas_cumprod[prev_t] if prev_t >= 0
               else sched.final_alpha_cumprod)
-    pred_x0 = (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)
+    x0 = pred_x0(sched, model_output, int(t), sample)
     if eta > 0.0:
         var = (1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev)
         sigma = eta * torch.sqrt(var)
     else:
         sigma = 0.0
     dir_xt = torch.sqrt(1.0 - a_prev - sigma ** 2) * model_output
-    prev = torch.sqrt(a_prev) * pred_x0 + dir_xt
+    prev = torch.sqrt(a_prev) * x0 + dir_xt
     if eta > 0.0 and noise is not None:
         prev = prev + sigma * noise
     return prev
 
+
+def pred_x0(sched: DDIMSchedule, model_output: torch.Tensor,
+            t: Union[int, torch.Tensor], sample: torch.Tensor
+            ) -> torch.Tensor:
+    """The clean sample that the predicted noise ``model_output`` implies at
+    timestep ``t`` (a scalar): ``(x_t - sqrt(1 - a_t)·eps) / sqrt(a_t)``."""
+    a_t = sched.alphas_cumprod[t]
+    return (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)

@@ -4,8 +4,17 @@ JAX counterpart: ``dge_tpu/diffusion/weights.py``. The port's parameter
 names are the diffusers / transformers names, so a local diffusers
 InstructPix2Pix directory (``timbrooks/instruct-pix2pix``) loads with
 ``load_state_dict`` after one rename: the old diffusers VAE attention names
-(``query`` / ``key`` / ``value`` / ``proj_attn``). The orbax ``*_ingested``
-caches of the JAX package are JAX-only and have no counterpart here.
+(``query`` / ``key`` / ``value`` / ``proj_attn``).
+
+The ingest cache (``save_ingested`` / ``is_ingested`` / ``load_ingested``,
+written by ``python -m dge_tpu_torch.tools.ingest_checkpoint``) is the
+port's own format: ``manifest.json`` (``format`` ``INGEST_FORMAT``, the
+``kind``, the source and each model's parameter count) and one ``torch.save``
+state dict a model in the port's names, which ``torch.load(...,
+weights_only=True)`` reads back with no ``safetensors`` installed. The JAX
+package's orbax cache (``"dge_tpu_ip2p_orbax_v1"``) needs JAX to read:
+``is_ingested`` is False for it and ``check_not_jax_ingest`` names the
+port's tool instead. ``load_checkpoint`` takes either kind of directory.
 
 A local transformers ``CLIPModel`` directory (``openai/clip-vit-large-patch14``)
 loads for the edit metrics with ``load_clip_checkpoint``.
@@ -22,7 +31,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -242,3 +251,87 @@ def load_ip2p_checkpoint(root: str) -> Dict[str, Dict[str, torch.Tensor]]:
             if "position_ids" not in k}
     return {"unet": load_sd("unet"), "vae": _modern_vae_names(load_sd("vae")),
             "text_encoder": text}
+
+
+INGEST_FORMAT = "dge_tpu_torch_ip2p_v1"
+JAX_INGEST_FORMAT = "dge_tpu_ip2p_orbax_v1"
+
+
+def _manifest(path: str) -> Dict[str, Any]:
+    import json
+
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def is_ingested(path: str) -> bool:
+    """True if ``path`` is a cache that ``save_ingested`` wrote (a JAX orbax
+    cache is not)."""
+    return _manifest(path).get("format") == INGEST_FORMAT
+
+
+def check_not_jax_ingest(path: str) -> None:
+    """Raise if ``path`` holds the JAX package's orbax cache, which this
+    package cannot read."""
+    if _manifest(path).get("format") == JAX_INGEST_FORMAT:
+        raise ValueError(
+            f"{path} is an orbax cache of the JAX package (format "
+            f"{JAX_INGEST_FORMAT!r}), which needs JAX to read; ingest the "
+            "diffusers checkpoint with python -m "
+            "dge_tpu_torch.tools.ingest_checkpoint, or give the diffusers "
+            "directory itself")
+
+
+def save_ingested(out_dir: str, params: Dict[str, Any],
+                  meta: Optional[Dict] = None) -> str:
+    """Write ``params`` (``{"unet", "vae", "text_encoder"}`` or
+    ``{"vision", "text", "vision_config", "text_config"}`` as the loaders
+    return them) as the port's ingest cache under ``out_dir``."""
+    import dataclasses
+    import json
+
+    out_dir = os.path.abspath(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    counts, configs = {}, {}
+    for name, value in params.items():
+        if dataclasses.is_dataclass(value):
+            configs[name] = dataclasses.asdict(value)
+            continue
+        sd = {k: v.detach().cpu().contiguous() for k, v in value.items()}
+        torch.save(sd, os.path.join(out_dir, f"{name}.pt"))
+        counts[name] = int(sum(v.numel() for v in sd.values()))
+    manifest = {"format": INGEST_FORMAT, "param_counts": counts,
+                "configs": configs, **(meta or {})}
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return out_dir
+
+
+def load_ingested(out_dir: str) -> Dict[str, Any]:
+    """The parameters (and, for a CLIP cache, the towers' configs) that
+    ``save_ingested`` wrote, on the CPU."""
+    from dge_tpu_torch.models.clip_text import CLIPTextConfig
+    from dge_tpu_torch.models.clip_vision import CLIPVisionConfig
+
+    mf = _manifest(out_dir)
+    if mf.get("format") != INGEST_FORMAT:
+        check_not_jax_ingest(out_dir)
+        raise ValueError(f"{out_dir} holds no ingest cache of this package")
+    out: Dict[str, Any] = {
+        name: torch.load(os.path.join(out_dir, f"{name}.pt"),
+                         map_location="cpu", weights_only=True)
+        for name in mf["param_counts"]}
+    kinds = {"vision_config": CLIPVisionConfig, "text_config": CLIPTextConfig}
+    for name, fields in mf.get("configs", {}).items():
+        out[name] = kinds[name](**fields)
+    return out
+
+
+def load_checkpoint(path: str, load_raw) -> Dict[str, Any]:
+    """The ingest cache at ``path``, or ``load_raw(path)`` for a checkpoint
+    directory; a JAX orbax cache raises (never random weights instead)."""
+    check_not_jax_ingest(path)
+    return load_ingested(path) if is_ingested(path) else load_raw(path)

@@ -28,10 +28,13 @@ launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
         [system.guidance.camera_batch_size=5] [system.edit.max_steps=1000] \\
         [data.max_view_num=20] data.height=512 data.width=512
 
-``--render`` loads the PLY and the COLMAP capture, probes the spill-free
-binning caps on view 0 (tile_px 32), renders every view and writes
-``<out>/<name>/<tag>@<time>/renders/NNNN.png``; ``--test`` is the same
-mode. ``--validate`` renders every view the same way and scores PSNR / SSIM
+``--render`` loads the PLY and the capture (COLMAP ``sparse/``, or a
+Blender ``transforms_train.json``: ``scene/dataset.load_scene``), probes the
+spill-free binning caps on view 0 (tile_px 32), renders every view and
+writes ``<out>/<name>/<tag>@<time>/renders/NNNN.png``; ``--test`` is the
+same mode. The other modes read a COLMAP capture only (they need its point
+cloud or its images directory) and refuse a Blender one. ``--validate``
+renders every view the same way and scores PSNR / SSIM
 / LPIPS against the capture's images into ``eval/results.json``
 (tools/full_eval.py). ``--export`` writes a turntable orbit
 (``orbit_frames/NNNN.png``, ``orbit.mp4`` where imageio is installed) and a
@@ -42,14 +45,16 @@ from the capture's COLMAP points and fits it to the capture's images (vanilla
 ``trainer.tensorboard=true``). ``--train`` is the DGE edit
 (systems/edit.DGESystem): the PLY and up to ``data.max_view_num`` capture
 views, the InstructPix2Pix models from ``system.ip2p_checkpoint`` (a local
-diffusers directory; ``--smoke`` or ``system.allow_random_weights`` runs
+diffusers directory, or the cache ``dge_tpu_torch.tools.ingest_checkpoint``
+wrote from one; ``--smoke`` or ``system.allow_random_weights`` runs
 random weights instead and writes ``SMOKE_ONLY.txt``), multi-view edit
 rounds and the L1 + LPIPS refit (``system.guidance.batch_mode``:
 ``loop``, or ``vmap``, the batched reuse ``configs/dge.yaml`` names), or
 with ``system.edit.use_sds=true`` score distillation every step; with
 ``system.seg_prompt`` a local edit whose mask the segmentor gives and the
 spill-free lift installs; with ``system.clip_checkpoint`` (a local
-transformers ``CLIPModel`` directory) ``clip_metrics.json``; writing
+transformers ``CLIPModel`` directory or its ingest cache)
+``clip_metrics.json``; writing
 ``val/``, ``ckpts/``, the edit cache under ``<out>/edit_cache/`` and
 ``last.ply``;
 ``system.model_size=tiny`` builds the small test networks.
@@ -165,7 +170,8 @@ def parse_args(argv=None):
                    "(default: the device's own)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--gs_source", type=str, default=None, help="pretrained PLY")
-    p.add_argument("--source", type=str, default=None, help="COLMAP scene dir")
+    p.add_argument("--source", type=str, default=None,
+                   help="capture dir (COLMAP; Blender for --render / --test)")
     p.add_argument("--out", type=str, default="outputs")
     p.add_argument("--cpu", action="store_true", help="run on the CPU")
     p.add_argument("--distributed", action="store_true",
@@ -232,6 +238,17 @@ def _run_mode(args, argv, device, writer: bool = True):
     return run_render(cfg, gs_source, source, trial_dir, device, args.backend)
 
 
+def _colmap_only(source, mode: str) -> None:
+    """Refuse a Blender capture in a mode that needs COLMAP's point cloud or
+    images directory."""
+    if (source and not os.path.isdir(os.path.join(source, "sparse"))
+            and os.path.exists(os.path.join(source,
+                                            "transforms_train.json"))):
+        raise ValueError(
+            f"{mode} reads a COLMAP capture (sparse/ and images/); {source} "
+            "is a Blender capture, which only --render / --test read")
+
+
 def _size(cfg):
     data_cfg = cfg.get("data", {})
     return int(data_cfg.get("height", 512)), int(data_cfg.get("width", 512))
@@ -244,6 +261,7 @@ def run_validate(cfg, gs_source, source, trial_dir, device,
     scene)."""
     from dge_tpu_torch.tools import full_eval
 
+    _colmap_only(source, "--validate")
     h, w = _size(cfg)
     eval_dir = os.path.join(trial_dir, "eval")
     argv = ["--pairs", f"{gs_source}:{source}", "--out", eval_dir,
@@ -288,10 +306,10 @@ def run_render(cfg, gs_source, source, trial_dir, device,
 
     h, w = _size(cfg)
     scene = G.load_ply(gs_source, device=device)
-    cs = DS.ColmapScene(source, height=h, width=w)
+    cs = DS.load_scene(source, height=h, width=w)
     cams = [CameraArrays.from_camera(c, device=device) for c in cs.cameras]
-    log.info("loaded %d gaussians, %d cameras on %s", scene.n_alive,
-             len(cams), device)
+    log.info("loaded %d gaussians, %d cameras (%s) on %s", scene.n_alive,
+             len(cams), type(cs).__name__, device)
 
     bg = torch.zeros(3, device=device)
     # evaluation must not truncate: probe-and-grow the caps until spill == 0
@@ -331,6 +349,7 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
     from dge_tpu_torch.utils import saving
     from dge_tpu_torch.utils.logger import MetricsLogger
 
+    _colmap_only(source, "--fit")
     h, w = _size(cfg)
     cs = DS.ColmapScene(source, height=h, width=w)
     pts, cols = cs.point_cloud()
@@ -432,6 +451,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     from dge_tpu_torch.utils.logger import MetricsLogger
 
     sys_cfg = cfg.get("system", {})
+    _colmap_only(source, "--train")
     h, w = _size(cfg)
     scene = G.load_ply(gs_source, device=device)
     cs = DS.ColmapScene(source, height=h, width=w)
@@ -443,7 +463,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     params = None
     if ckpt_dir and os.path.isdir(ckpt_dir):
         log.info("loading IP2P weights from %s", ckpt_dir)
-        params = W.load_ip2p_checkpoint(ckpt_dir)
+        params = W.load_checkpoint(ckpt_dir, W.load_ip2p_checkpoint)
     elif smoke or sys_cfg.get("allow_random_weights", False):
         log.warning("SMOKE RUN: no IP2P checkpoint configured "
                     "(system.ip2p_checkpoint): RANDOM weights, the edits are "
@@ -579,7 +599,7 @@ def _clip_edit_metrics(sys_cfg, system, trial_dir, device) -> Optional[dict]:
     from dge_tpu_torch.models.clip_vision import build_clip_similarity
     from dge_tpu_torch.utils import saving
 
-    ck = W.load_clip_checkpoint(ckpt)
+    ck = W.load_checkpoint(ckpt, W.load_clip_checkpoint)
     tok_dir = os.path.join(ckpt, "tokenizer")
     tok = T.load_tokenizer(tok_dir if os.path.isdir(tok_dir) else ckpt,
                            max_length=ck["text_config"].max_length)

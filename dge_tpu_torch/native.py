@@ -1,12 +1,14 @@
-"""The port's own ctypes bridge to ``native/dge_native.cpp``, for the KNN
-scale initialisation only.
+"""The port's own ctypes bridge to ``native/dge_native.cpp``: the KNN scale
+initialisation and the COLMAP ``points3D.bin`` parser.
 
-JAX counterpart: ``dge_tpu/native.py:77-97`` (``knn_mean_sq_dist``). The
+JAX counterpart: ``dge_tpu/native.py`` (``knn_mean_sq_dist``,
+``colmap_points3d``; its PLY block reader has no caller there either). The
 library is built with ``g++`` at first use into ``build/`` at the repository
 root, keyed by a hash of the source (``native/`` holds the JAX package's own
 library and is left alone). Both routes are host code: the native grid-hash
 KNN when a toolchain is present, scipy's ``cKDTree`` otherwise, as in the
-reference.
+reference; the points parser falls back to the Python record loop of
+``scene/colmap.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import os
 import subprocess
 import tempfile
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -71,6 +73,13 @@ def get_lib() -> Optional[ctypes.CDLL]:
             ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int,
             ctypes.POINTER(ctypes.c_float),
         ]
+        lib.dge_colmap_points3d_count.restype = ctypes.c_int64
+        lib.dge_colmap_points3d_count.argtypes = [ctypes.c_char_p]
+        lib.dge_colmap_points3d_read.restype = ctypes.c_int
+        lib.dge_colmap_points3d_read.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_uint8),
+        ]
         _lib = lib
         return _lib
 
@@ -104,3 +113,24 @@ def knn_mean_sq_dist(points: np.ndarray, k: int = 3) -> np.ndarray:
     otherwise."""
     out = knn_native(points, k)
     return out if out is not None else knn_scipy(points, k)
+
+
+def colmap_points3d(path: str) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """The native ``points3D.bin`` parse → (xyz [N, 3] float64, rgb [N, 3]
+    float32 in [0, 1]); None when the library is unavailable or refuses the
+    file."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = lib.dge_colmap_points3d_count(path.encode())
+    if n < 0:
+        return None
+    xyz = np.empty((n, 3), np.float64)
+    rgb = np.empty((n, 3), np.uint8)
+    rc = lib.dge_colmap_points3d_read(
+        path.encode(), n,
+        xyz.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        rgb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+    if rc != 0:
+        return None
+    return xyz, rgb.astype(np.float32) / 255.0

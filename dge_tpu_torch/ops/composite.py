@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, T_EPS,
+                                               ordered_prod, ordered_sum,
                                                untile)
 
 
@@ -114,10 +115,10 @@ def composite_lists(lists, counts, mean2d, conic, rgb, depth, opac, *,
             applied = trans * cp >= T_EPS
             w = torch.where(applied, eff * trans * ex, torch.zeros_like(cp))
             feats = torch.cat([rgb[idx], depth[idx][..., None]], dim=-1)
-            acc = acc + torch.einsum("gcp,gcd->gdp", w, feats)
-            trans = trans * torch.where(
-                applied, one_minus, torch.ones_like(cp)).prod(
-                    dim=1, keepdim=True)
+            acc = acc + torch.stack([ordered_sum(w * feats[..., d, None], 1)
+                                     for d in range(4)], dim=1)
+            trans = trans * ordered_prod(torch.where(
+                applied, one_minus, torch.ones_like(cp)), 1)[:, None]
         out_rgbd = out_rgbd.index_copy(0, tiles, acc)
         out_t = out_t.index_copy(0, tiles, trans[:, 0])
     return torch.cat([out_rgbd, out_t[:, None, :]], dim=1)
@@ -189,7 +190,6 @@ def lift_weights(lists, counts, order, mean2d_s, conic_s, opac_s, mask_img, *,
             weights.index_add_(0, orig, torch.einsum(
                 "gcp,gp->gc", contrib, m[tiles]).reshape(-1))
             hits.index_add_(0, orig, contrib.sum(dim=2).reshape(-1))
-            trans = trans * torch.where(
-                applied, one_minus, torch.ones_like(one_minus)).prod(
-                    dim=1, keepdim=True)
+            trans = trans * ordered_prod(torch.where(
+                applied, one_minus, torch.ones_like(one_minus)), 1)[:, None]
     return weights, hits

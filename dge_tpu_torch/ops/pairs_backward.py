@@ -153,7 +153,8 @@ def pass1_reference(data, starts, counts, blk_off, n_rows: int, cot, *,
             has = k < nb
             boundary_t[(row0 + k)[has]] = trans[has, 0]
             # 0 for a tile whose range ended before block k
-            totals.append((st["w"] * _pair_g(st["f"], cot_g)).sum(dim=1))
+            totals.append(PC.ordered_sum(st["w"] * _pair_g(st["f"], cot_g),
+                                         1))
             trans = trans * torch.where(
                 st["applied"], st["cp"], torch.ones_like(st["cp"])).amin(
                     dim=1, keepdim=True)
@@ -201,7 +202,7 @@ def row_totals_reference(data, starts, counts, blk_off, row_tile, cot,
         st, tiles, _, _ = _row_state(data, starts, ends, blk_off, row_tile, r,
                                      boundary_t, tiles_x=tiles_x,
                                      tile_px=tile_px, chunk=chunk)
-        totals[r] = (st["w"] * _pair_g(st["f"], cot[tiles])).sum(dim=1)
+        totals[r] = PC.ordered_sum(st["w"] * _pair_g(st["f"], cot[tiles]), 1)
     return totals
 
 
@@ -257,7 +258,7 @@ def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
         g = _pair_g(f, cot_g)
         wg = w * g
         suf_in = torch.flip(torch.cumsum(torch.flip(wg, [1]), 1), [1]) - wg
-        later = suffix[r][:, None, :] - wg.sum(dim=1, keepdim=True)
+        later = suffix[r][:, None, :] - PC.ordered_sum(wg, 1)[:, None, :]
         tfin_term = (cot_g[:, 4] * fwd_out[tiles, 4])[:, None, :]
         contrib = (st["eff"] > 0.0) & st["applied"]
         dalpha = torch.where(
@@ -268,18 +269,18 @@ def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
         da = torch.where((st["raw"] < ALPHA_MAX) & st["keep"], dalpha,
                          torch.zeros_like(g))
         dpow = da * st["raw"]
-        vals = torch.stack([
-            (dpow * (-(f[2] * dx + f[3] * dy))).sum(-1),
-            (dpow * (-(f[4] * dy + f[3] * dx))).sum(-1),
-            (dpow * (-0.5) * dx * dx).sum(-1),
-            (dpow * (-(dx * dy))).sum(-1),
-            (dpow * (-0.5) * dy * dy).sum(-1),
-            (da * st["ex"]).sum(-1),
-            (w * cot_g[:, None, 0]).sum(-1),
-            (w * cot_g[:, None, 1]).sum(-1),
-            (w * cot_g[:, None, 2]).sum(-1),
-            (w * cot_g[:, None, 3]).sum(-1),
-        ])  # [FEAT, G, C]
+        vals = torch.stack([PC.ordered_sum(x, -1) for x in (
+            dpow * (-(f[2] * dx + f[3] * dy)),
+            dpow * (-(f[4] * dy + f[3] * dx)),
+            dpow * (-0.5) * dx * dx,
+            dpow * (-(dx * dy)),
+            dpow * (-0.5) * dy * dy,
+            da * st["ex"],
+            w * cot_g[:, None, 0],
+            w * cot_g[:, None, 1],
+            w * cot_g[:, None, 2],
+            w * cot_g[:, None, 3],
+        )])  # [FEAT, G, C]
         grads[:, idx[in_range]] = vals[:, in_range]
     return grads
 

@@ -14,7 +14,10 @@ the TPU kernel, why the walk splits exactly, and their bounds.
   forward's two kernels and the backward's all work on them.
 - ``composite_pairs_reference`` is the plain version of the whole function:
   a loop over the chunk-aligned stream blocks with ``torch.cumprod`` inside
-  a block, over groups of tiles to bound memory.
+  a block, over groups of tiles to bound memory. The plain versions here and
+  in ``pairs_backward`` / ``composite`` sum over pairs and pixels with
+  ``ordered_sum`` (and multiply with ``ordered_prod``), so that they repeat
+  their bits from call to call.
 - ``rows_forward`` (row kernel → scratch ``[R, 7, P]``, each row as if
   entered with T = 1, and a keep mask, one bit per (row, 32 pixels, pair))
   and ``rows_combine`` (combine kernel → ``[T, 5, P]`` and optionally
@@ -130,6 +133,26 @@ def pixel_coords(tiles, tiles_x: int, tile_px: int, dev):
     return px.float()[:, None, :], py.float()[:, None, :]
 
 
+def ordered_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` in one fixed order: the last element of
+    ``torch.cumsum``, a serial scan of each line (on the CPU in double; on a
+    card, along any but the innermost dim, in the kernels' own pair order).
+    The plain versions reduce over pairs and pixels with it: PyTorch's
+    ``sum`` / ``prod`` / ``einsum`` choose how they split and group a
+    reduction at run time, so their bits need not repeat from call to
+    call."""
+    if x.shape[dim] == 0:
+        return x.sum(dim)
+    return torch.cumsum(x, dim).select(dim, -1)
+
+
+def ordered_prod(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``ordered_sum`` with products (``torch.cumprod``)."""
+    if x.shape[dim] == 0:
+        return x.prod(dim)
+    return torch.cumprod(x, dim).select(dim, -1)
+
+
 def _block_alpha(data, idx, in_range, px, py):
     """Features of the stream positions ``idx`` [G, C] (``f`` [FEAT, G, C,
     1]), their alpha at the pixels ``px``/``py`` [G, 1, P] and whether each
@@ -160,7 +183,8 @@ def _block_walk(f, alpha, keep, trans, log_space: bool, stop: float = T_EPS):
     applied = trans * cp >= stop
     w = torch.where(applied, eff * trans * (cp / one_minus),
                     torch.zeros_like(cp))
-    add = torch.stack([(w * f[6 + r]).sum(dim=1) for r in range(4)], dim=1)
+    add = torch.stack([ordered_sum(w * f[6 + r], 1) for r in range(4)],
+                      dim=1)
     return add, torch.where(applied, cp, torch.ones_like(cp)).amin(
         dim=1, keepdim=True)
 
@@ -320,7 +344,7 @@ def rows_forward_reference(data, starts, counts, blk_off, row_tile, *,
                         torch.ones_like(cp_last)),
             torch.where(any_keep, j0_slot - (lo - base)[:, None],
                         n[:, None]).float()]
-        fields += [(w * f[6 + c]).sum(dim=1) for c in range(4)]
+        fields += [ordered_sum(w * f[6 + c], 1) for c in range(4)]
         if log_space:
             fields.append(torch.where((n_stop == 0) | first_stop, cp,
                                       torch.full_like(cp, float("inf"))

@@ -153,6 +153,15 @@ class Camera:
     def camera_center(self) -> np.ndarray:
         return self.c2w[:3, 3]
 
+    # --- the reference's transposed (row-vector) forms, cameras.py:92-95 ---
+    @property
+    def world_view_transform_t(self) -> np.ndarray:
+        return self.w2c.T
+
+    @property
+    def full_proj_transform_t(self) -> np.ndarray:
+        return self.full_proj.T
+
     # --- intrinsics ---
     @property
     def tan_half_fovx(self) -> float:
@@ -169,6 +178,29 @@ class Camera:
     @property
     def focal_y(self) -> float:
         return fov2focal(self.fovy, self.height)
+
+    @classmethod
+    def from_c2w(cls, c2w: np.ndarray, fovy: float, height: int, width: int,
+                 **kw) -> "Camera":
+        """From a camera-to-world matrix (C2W_Camera / MiniCam analog,
+        scene/cameras.py:102-154); ``fovx`` follows from ``fovy`` and the
+        aspect."""
+        w2c = np.linalg.inv(np.asarray(c2w, np.float64))
+        fovx = focal2fov(fov2focal(fovy, height), width)
+        return cls(R=w2c[:3, :3].T, T=w2c[:3, 3], fovx=fovx, fovy=fovy,
+                   height=height, width=width, **kw)
+
+    def resized(self, height: int, width: int) -> "Camera":
+        """The same pose and FoV at another resolution (HW_scale,
+        cameras.py:97-99)."""
+        return dataclasses.replace(self, height=height, width=width)
+
+
+def camera_arrays(cam: Camera, device="cuda"):
+    """``cam`` as the rasterizer's ``CameraArrays`` on ``device``."""
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+
+    return CameraArrays.from_camera(cam, device=device)
 
 
 def look_at_camera(

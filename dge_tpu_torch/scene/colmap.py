@@ -1,9 +1,10 @@
 """COLMAP sparse-reconstruction parsing (binary and text).
 
-JAX counterpart: ``dge_tpu/scene/colmap.py`` (numpy only; a copy). The
-native points3D parser of ``dge_tpu/native.py`` is not ported: only the fit
-init reads points, here in a Python loop, which a capture of the repo's size
-reads in well under a second.
+JAX counterpart: ``dge_tpu/scene/colmap.py`` (numpy only; a copy).
+``read_points3d_binary`` takes the port's native parser
+(``dge_tpu_torch/native.py``, built from ``native/dge_native.cpp``) and falls
+back to the Python record loop on a machine without a compiler;
+``points_parser_counts`` counts which of the two read each file.
 
 Reference analog: gaussiansplatting/scene/colmap_loader.py (282 LoC). The
 formats are COLMAP's public on-disk layout; parsing is re-implemented with
@@ -91,9 +92,25 @@ def read_images_binary(path: str) -> Dict[int, ColmapImage]:
     return images
 
 
+# files read by each points3D.bin parser since the process started
+points_parser_counts = {"native": 0, "python": 0}
+
+
 def read_points3d_binary(path: str) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (xyz [N,3] float64, rgb [N,3] float32 in [0,1]) through the
-    pure-Python record loop."""
+    native parser, or the Python record loop where it cannot load."""
+    from dge_tpu_torch.native import colmap_points3d
+
+    native = colmap_points3d(path)
+    if native is not None:
+        points_parser_counts["native"] += 1
+        return native
+    points_parser_counts["python"] += 1
+    return read_points3d_binary_python(path)
+
+
+def read_points3d_binary_python(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """``read_points3d_binary`` through the pure-Python record loop."""
     with open(path, "rb") as f:
         (n,) = _read(f, "<Q")
         xyz = np.zeros((n, 3))

@@ -1,24 +1,30 @@
 """Scene dataset: COLMAP capture -> camera list + scene extent.
 
-JAX counterpart: ``dge_tpu/scene/dataset.py`` (numpy only). Ported:
-``ColmapScene``, ``nerfpp_norm``, ``_fovs_for_target`` and
-``subsample_views``; the Blender loader, ``load_scene`` and
-``sort_cameras_ring`` have no caller on the ported paths.
+JAX counterpart: ``dge_tpu/scene/dataset.py`` (numpy only; a copy of its
+arithmetic): ``ColmapScene``, ``BlenderScene``, ``load_scene``,
+``nerfpp_norm``, ``_fovs_for_target``, ``subsample_views`` and
+``sort_cameras_ring``. ``--render`` / ``--test`` read their capture through
+``load_scene``; the modes that need a point cloud or an images directory
+(``--fit``, ``--validate``, ``--train``) read COLMAP only.
 
 Reference analogs: CamScene (gaussiansplatting/scene/camera_scene.py:17-42),
 readColmapCameras_hw with its aspect-preserving FoV rescale
-(dataset_readers.py:69-122) and getNerfppNorm (dataset_readers.py:46-67).
+(dataset_readers.py:69-122), getNerfppNorm (dataset_readers.py:46-67),
+readCamerasFromTransforms (dataset_readers.py:199-359) and
+DGE.sort_the_cameras_idx (threestudio/systems/DGE.py:588-600).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
 
 from dge_tpu_torch.scene import colmap
-from dge_tpu_torch.scene.cameras import Camera, focal2fov, qvec2rotmat
+from dge_tpu_torch.scene.cameras import (Camera, focal2fov, fov2focal,
+                                         qvec2rotmat)
 
 
 def nerfpp_norm(cameras: Sequence[Camera]) -> dict:
@@ -109,6 +115,72 @@ class ColmapScene:
         return colmap.read_points3d_text(os.path.join(sparse, "points3D.txt"))
 
 
+class BlenderScene:
+    """NeRF-synthetic (Blender) loader: ``transforms_{split}.json`` with
+    ``camera_angle_x`` and camera-to-world ``transform_matrix`` frames in
+    OpenGL axes (y up, z back), turned into the COLMAP convention. It holds
+    no point cloud and no images directory: ``image_paths`` lists each
+    frame's ``file_path`` under the capture (as written, no extension
+    added)."""
+
+    def __init__(self, source_path: str, split: str = "train",
+                 height: int = 800, width: int = 800):
+        path = os.path.join(source_path, f"transforms_{split}.json")
+        with open(path) as f:
+            meta = json.load(f)
+        fovx = float(meta["camera_angle_x"])
+        cameras: List[Camera] = []
+        self.image_paths: List[str] = []
+        for uid, frame in enumerate(meta["frames"]):
+            c2w = np.array(frame["transform_matrix"], dtype=np.float64)
+            # OpenGL -> COLMAP: flip the camera frame's y and z axes
+            c2w[:3, 1:3] *= -1
+            w2c = np.linalg.inv(c2w)
+            fovy = focal2fov(fov2focal(fovx, width), height)
+            cameras.append(Camera(
+                R=w2c[:3, :3].T, T=w2c[:3, 3], fovx=fovx, fovy=fovy,
+                height=height, width=width, uid=uid,
+                image_name=os.path.basename(frame["file_path"])))
+            self.image_paths.append(
+                os.path.join(source_path, frame["file_path"]))
+        self.cameras = cameras
+        self.cameras_extent = nerfpp_norm(cameras)["radius"]
+        self.source_path = source_path
+
+
+def write_transforms(cameras: Sequence[Camera], source_path: str,
+                     file_paths: Sequence[str], split: str = "train") -> str:
+    """Write ``cameras`` as a Blender ``transforms_{split}.json`` under
+    ``source_path`` (``camera_angle_x`` from the first camera, one frame a
+    camera with its camera-to-world matrix in OpenGL axes and its
+    ``file_path``), the inverse of ``BlenderScene``; returns the path."""
+    frames = []
+    for cam, fp in zip(cameras, file_paths):
+        w2c = np.eye(4)
+        w2c[:3, :3] = cam.R.T
+        w2c[:3, 3] = cam.T
+        c2w = np.linalg.inv(w2c)
+        c2w[:3, 1:3] *= -1  # COLMAP -> OpenGL, BlenderScene's flip undone
+        frames.append({"file_path": fp, "transform_matrix": c2w.tolist()})
+    os.makedirs(source_path, exist_ok=True)
+    path = os.path.join(source_path, f"transforms_{split}.json")
+    with open(path, "w") as f:
+        json.dump({"camera_angle_x": float(cameras[0].fovx),
+                   "frames": frames}, f, indent=1)
+    return path
+
+
+def load_scene(source_path: str, height: int = 512, width: int = 512):
+    """The capture's scene by its layout (sceneLoadTypeCallbacks,
+    dataset_readers.py:361-365): COLMAP ``sparse/`` first, else Blender
+    ``transforms_train.json``."""
+    if os.path.isdir(os.path.join(source_path, "sparse")):
+        return ColmapScene(source_path, height=height, width=width)
+    if os.path.exists(os.path.join(source_path, "transforms_train.json")):
+        return BlenderScene(source_path, height=height, width=width)
+    raise FileNotFoundError(f"unrecognized scene type at {source_path}")
+
+
 def subsample_views(cameras: Sequence[Camera], max_views: int,
                     seed: int = 0) -> List[Camera]:
     """An evenly spread subset of at most ``max_views`` cameras
@@ -119,3 +191,15 @@ def subsample_views(cameras: Sequence[Camera], max_views: int,
         return list(cameras)
     idx = np.linspace(0, n - 1, max_views).round().astype(int)
     return [cameras[i] for i in idx]
+
+
+def sort_cameras_ring(cameras: Sequence[Camera]) -> List[int]:
+    """Camera indices in order of their angle around the ring: the centres
+    projected onto the two principal directions of their spread, sorted by
+    ``arctan2`` (DGE's ring order for multi-view editing)."""
+    centers = np.stack([c.camera_center for c in cameras], axis=0)
+    rel = centers - centers.mean(axis=0)
+    _, _, vt = np.linalg.svd(rel - rel.mean(0, keepdims=True),
+                             full_matrices=False)
+    uv = rel @ vt[:2].T
+    return list(np.argsort(np.arctan2(uv[:, 1], uv[:, 0])))

@@ -41,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import dge_tpu_torch
 from dge_tpu_torch.diffusion import ddim
 from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.ops import render as R
@@ -116,6 +117,7 @@ def _timestep(lo: int, hi: int, generator: torch.Generator) -> int:
                              device=generator.device))
 
 
+@dge_tpu_torch.register("dge-system")
 class DGESystem:
     def __init__(self, cfg: EditConfig, scene: GaussianScene,
                  cameras: Sequence[CameraArrays], guidance=None,

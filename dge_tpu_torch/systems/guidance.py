@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+import dge_tpu_torch
 from dge_tpu_torch.diffusion import ddim, epipolar
 from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.models.layers import CrossViewState
@@ -164,6 +165,7 @@ def _cat_states(states) -> CrossViewState:
         epipolar=cat("epipolar"), epi_lines=cat("epi_lines"))
 
 
+@dge_tpu_torch.register("dge-guidance")
 class DGEGuidance:
     def __init__(self, cfg: GuidanceConfig, models: P.IP2PModels):
         if cfg.batch_mode not in ("loop", "vmap", "shard"):
