@@ -49,8 +49,10 @@ process per source, started together) and runs:
    views; every loss finite, at least one launch per step of each of K1's
    two kernels and of K3, suffix, K4 and the ordered fold, more than 8,000
    Gaussians alive, train PSNR (last 100 steps) and evaluation PSNR at
-   least 30 dB; the fold at the fit's view 0 (bit-identical repeats and
-   plain version, ``index_add_`` within 1e-5·max|g|, times); then two
+   least 30 dB; the fold at the fit's view 0 (its layout and fold
+   kernels and no sort; bit-identical repeats, plain version and
+   ``index_add_`` on a CPU copy; ``index_add_`` on the card within
+   1e-5·max|g|; times); then two
    700-step fits with seed 0, which must log the same losses and alive
    counts and save the same PLY;
 5. full width, training: on the bench scene at 512^2 with a seeded random
@@ -523,7 +525,7 @@ def stream_inputs(scene, cam, caps, tight_cull, tile_px, chunk):
     prep = preprocess()
     pb = binning(prep)
     return dict(data=assembly(prep, pb), pair_ids=pb.pair_ids,
-                starts=pb.starts.contiguous(),
+                layout=pb.fold_layout(), starts=pb.starts.contiguous(),
                 counts=pb.counts.contiguous(), tiles_x=pb.tiles_x,
                 tiles_y=pb.tiles_y, pairs=int(pb.counts.sum()),
                 chunk=max(chunk, 128), tile_px=tile_px)
@@ -813,20 +815,25 @@ def backward_times(a, plain_reps: int = 2):
     return out
 
 
-def fold_cell(a, pair_ids, num_gaussians: int, what: str) -> dict:
-    """The ordered fold on one stream's pass-2 gradients: two launches
-    bit-identical and equal to its plain version (the same adds in the same
-    order) bit for bit, within 1e-5·max|g| of ``index_add_`` (whose atomics
-    add in another order); CUDA-event and device times of the fold (sort,
-    segments and kernel; the kernel alone), of its plain version and of
-    ``index_add_``, the library call that computes the same function; its
-    bound (bytes: the used positions' gradients and ids read, [10, N]
-    written)."""
+def fold_cell(a, num_gaussians: int, what: str) -> dict:
+    """The ordered fold on one stream's pass-2 gradients, through the
+    binning's layout: one call advances only the fold's counter and
+    launches its two kernels (layout, fold) and no sort (a profiler listing
+    of ten calls); two calls bit-identical; equal bit for bit to its plain
+    version (the same adds in the same order) and to ``index_add_`` on a
+    CPU copy (serial, in stream order); within 1e-5·max|g| of
+    ``index_add_`` on the card (whose atomics add in another order);
+    CUDA-event and device times of the fold, of each of its kernels, of its
+    plain version and of ``index_add_``, the library call that computes the
+    same function; the function's bound (bytes: the used positions'
+    gradients and ids read, [10, N] written) and the layout kernel's own
+    (E·12 bytes)."""
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
     from dge_tpu_torch.ops import pairs_composite as PC
 
+    pair_ids, layout = a["pair_ids"], a["layout"]
     pair_grads = PB.pairs_pass2(
         a["data"], a["starts"], a["counts"], a["blk_off"], a["row_tile"],
         a["cot"], a["fwd"], a["boundary_t"], a["suffix"], **a["kw"])
@@ -834,7 +841,8 @@ def fold_cell(a, pair_ids, num_gaussians: int, what: str) -> dict:
     used = (a["starts"] + a["counts"]).max()
 
     def fold():
-        return PB.fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used)
+        return PB.fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used,
+                                    layout=layout)
 
     before = dict(PC.launch_counts)
     got = fold()
@@ -842,9 +850,20 @@ def fold_cell(a, pair_ids, num_gaussians: int, what: str) -> dict:
     for k in PC.launch_counts:
         if PC.launch_counts[k] != before[k] + (k == "pairs_fold"):
             raise AssertionError(f"{what} fold: launch counter {k} advanced")
+    # the trace of 10 calls names every kernel they launched; it may drop
+    # a few records on this card's profiler, never add one
+    calls = 10
+    events, _ = profiled_kernels(fold, calls)
+    listing = [(e.key[:60], e.count / calls) for e in events]
+    names = [name for name, _ in listing]
+    if (len(names) != 2 or max(c for _, c in listing) > 1
+            or not any("fold_layout_kernel" in k for k in names)
+            or not any("fold_kernel" in k for k in names)):
+        raise AssertionError(f"{what} fold: one call launched {listing}")
     again = fold()
-    perm, seg = PB.fold_segments(pair_ids, num_gaussians, used)
-    plain = PB.fold_reference(pair_grads, perm, seg)
+    plain = PB.fold_reference(pair_grads, layout, used)
+    cpu = torch.zeros(got.shape).index_add_(1, pair_ids.cpu().long(),
+                                            pair_grads.cpu())
 
     def index_add():
         return torch.zeros_like(got).index_add_(1, pair_ids.long(),
@@ -853,30 +872,40 @@ def fold_cell(a, pair_ids, num_gaussians: int, what: str) -> dict:
     scale = float(pair_grads.abs().max())
     e_lib = float((got - index_add()).abs().max())
     e_plain = float((got - plain).abs().max())
-    if not (torch.equal(got, again) and torch.equal(got, plain)
-            and e_lib <= 1e-5 * scale):
-        raise AssertionError(f"{what} fold: repeat {torch.equal(got, again)}"
-                             f", vs plain {e_plain}, vs index_add_ {e_lib} "
-                             f"(max|g| {scale})")
-    pc = pair_ids.numel()
+    same = {"repeat": torch.equal(got, again),
+            "plain": torch.equal(got, plain),
+            "cpu index_add_": torch.equal(got.cpu(), cpu)}
+    if not all(same.values()) or not e_lib <= 1e-5 * scale:
+        raise AssertionError(f"{what} fold: bit for bit {same}, vs plain "
+                             f"{e_plain}, vs index_add_ {e_lib} (max|g| "
+                             f"{scale})")
     # the function's bytes: the gradients and ids of the positions before
-    # ``used`` read, [10, N] written (the sentinel tail past ``used``, the
-    # int64 permutation and the segments are the design's own)
+    # ``used`` read, [10, N] written; the layout kernel reads the E slots'
+    # int64 sort indices and writes their int32 positions
     n_used = int(used)
+    slots = layout.perm.shape[0]
     t_bytes = (n_used * 44 + num_gaussians * 40) / HBM_BYTES_PER_S
     t_ops = n_used * 10 / F32_FLOPS
+    kernel_ms = kernel_device_ms(fold, dict(k="fold_kernel",
+                                            layout="fold_layout_kernel"))
     res = dict(
-        pairs=pc, used=int(used), longest_segment=int((seg[1:] - seg[:-1])
-                                                      .max()),
-        gaussians=num_gaussians, ms=cuda_ms(fold, reps=20),
-        device_ms=sum_device_ms(fold),
-        kernel_device_ms=kernel_device_ms(fold, dict(k="fold_kernel"))["k"],
-        plain_ms=cuda_ms(lambda: PB.fold_reference(pair_grads, perm, seg),
+        pairs=pair_ids.numel(), used=n_used, slots=slots,
+        emission=list(layout.emission),
+        tier2=int((layout.tier2_ids < num_gaussians).sum()),
+        gaussians=num_gaussians,
+        launches_per_fold=listing, bit_identical=sorted(same),
+        ms=cuda_ms(fold, reps=20),
+        # per launch, each kernel launched once a call
+        device_ms=kernel_ms["k"] + kernel_ms["layout"],
+        kernel_device_ms=kernel_ms["k"],
+        layout_device_ms=kernel_ms["layout"],
+        plain_ms=cuda_ms(lambda: PB.fold_reference(pair_grads, layout, used),
                          reps=3, warmup=1),
         library_ms=cuda_ms(index_add, reps=20),
         library_device_ms=sum_device_ms(index_add),
         bound_ms=max(t_bytes, t_ops) * 1e3,
         bound_by="bytes" if t_bytes >= t_ops else "operations",
+        layout_bound_ms=slots * 12 / HBM_BYTES_PER_S * 1e3,
         max_abs_err=e_plain, vs_index_add_rel=e_lib / max(scale, 1e-30))
     log(f"  {what} fold: {res}")
     return res
@@ -917,7 +946,8 @@ def composite_grads_vs_autograd(scene, cam, what: str, chunk: int = 64,
                   for k in names]
         if kind == "kernels":
             color, depth, tfin = PB.stream_composite(
-                *leaves, pb.pair_ids, starts, counts, **geom)
+                *leaves, pb.pair_ids, starts, counts,
+                layout=pb.fold_layout(), **geom)
         else:
             color, depth, tfin = PC.composite_pairs(
                 pb.pair_ids, starts, counts, *leaves,
@@ -1043,6 +1073,7 @@ def train_cell(scene, cam, caps, tight_cull, a, times):
         a["data"], a["starts"], a["counts"], a["blk_off"], a["row_tile"],
         a["cot"], a["fwd"], a["boundary_t"], a["suffix"], **a["kw"])
     pair_ids = a["pair_ids"]
+    used = (a["starts"] + a["counts"]).max()
 
     # one step's gradients twice: every parameter group bit-identical
     # (the fold adds in stream order; no other op of the step may add in an
@@ -1057,8 +1088,9 @@ def train_cell(scene, cam, caps, tight_cull, a, times):
         "gradients of every parameter group bit-identical")
     stages = dict(
         preprocess_fwd_bwd_ms=cuda_ms(prep_fwd_bwd),
-        fold_ms=cuda_ms(lambda: PB.fold_to_gaussians(pair_grads, pair_ids,
-                                                     scene.capacity)),
+        fold_ms=cuda_ms(lambda: PB.fold_to_gaussians(
+            pair_grads, pair_ids, scene.capacity, used,
+            layout=a["layout"])),
         loss_fwd_bwd_ms=cuda_ms(loss_fwd_bwd),
         adam_ms=cuda_ms(lambda: optimizer.update(grads, opt_state, params)),
         render_fwd_bwd_ms=cuda_ms(render_fwd_bwd),
@@ -1143,9 +1175,13 @@ def device_busy(step, steps: int) -> dict:
 
 def sum_device_ms(step, steps: int = 10) -> float:
     """Device time of every kernel ``step`` launches, per call, in ms, from
-    a torch.profiler trace (no host time)."""
+    a torch.profiler trace (no host time): each kernel's time per launch
+    times its launches a call, rounded. The card's profiler may drop a few
+    records of a trace; the per-launch means stay fair, a plain sum would
+    come out low."""
     events, _ = profiled_kernels(step, steps)
-    return sum(dev_us(e) for e in events) / steps / 1e3
+    return sum(dev_us(e) / e.count * max(1, round(e.count / steps))
+               for e in events if e.count) / 1e3
 
 
 def kernel_device_ms(step, kernels: dict, steps: int = 10) -> dict:
@@ -3135,8 +3171,7 @@ def main(argv=None) -> int:
         inp = stream_inputs(fscene, fcam, fcaps, frun.caps["tight_cull"],
                             frun.caps["tile_px"], frun.caps["chunk"])
         a = hold(inp, "fit view 0")
-        fold_fit = fold_cell(a, inp["pair_ids"], fscene.capacity,
-                             "fit view 0")
+        fold_fit = fold_cell(a, fscene.capacity, "fit view 0")
         errs["pairs_fold"].append(fold_fit["max_abs_err"])
         fb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
                              32)
@@ -3166,7 +3201,7 @@ def main(argv=None) -> int:
             raise AssertionError("512x512: spill after the ladder")
         inp = stream_inputs(bench, cam512, r.caps, r.tight_cull, 32, 64)
         a = hold(inp, "512x512")
-        fold512 = fold_cell(a, inp["pair_ids"], bench.capacity, "512x512")
+        fold512 = fold_cell(a, bench.capacity, "512x512")
         errs["pairs_fold"].append(fold512["max_abs_err"])
         times = backward_times(a)
         tb = backward_bounds(inp["pairs"], inp["starts"].shape[0], a["rows"],
@@ -3413,8 +3448,7 @@ def main(argv=None) -> int:
         inp = stream_inputs(escene, ecams[0], ecaps, trun.caps["tight_cull"],
                             trun.caps["tile_px"], trun.caps["chunk"])
         a = hold(inp, "edit refit view 0")
-        fold_edit = fold_cell(a, inp["pair_ids"], escene.capacity,
-                              "edit refit view 0")
+        fold_edit = fold_cell(a, escene.capacity, "edit refit view 0")
         errs["pairs_fold"].append(fold_edit["max_abs_err"])
         smi_line = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3832,9 +3866,11 @@ def main(argv=None) -> int:
         "launches_sds": edit_system["sds"]["launches"]["pairs_fold"],
         "max_abs_err": max(errs["pairs_fold"]),
         **{k: fit["fold"][k] for k in (
-            "ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_device_ms")},
-        "cells": [dict(cell="512x512", **train["fold"])],
+            "ms", "device_ms", "kernel_device_ms", "layout_device_ms",
+            "plain_ms", "bound_ms", "bound_by", "layout_bound_ms",
+            "library_ms", "library_device_ms", "launches_per_fold")},
+        "cells": [dict(cell="512x512", **train["fold"]),
+                  dict(cell="edit refit view 0", **edit["fold"])],
     }, {
         "name": "list_stream",
         "route": "cuda",

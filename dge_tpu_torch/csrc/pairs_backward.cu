@@ -53,8 +53,9 @@
 //           max|g| gradient tolerance.) Every stream position belongs to
 //           one row, so the ten per-pair gradients are written once to the
 //           stream-ordered [10, Pc] buffer with no global atomics;
-//   fold (`fold_kernel`, one thread a Gaussian): each Gaussian's gradient
-//           is the sum of its pairs' gradients in stream order, from 0.
+//   fold (`fold_layout_kernel`, then `fold_kernel`): each Gaussian's
+//           gradient is the sum of its pairs' gradients in stream order,
+//           from 0.
 //
 // What bounds it on this card, and what the design does about it. Both
 // passes are bound by operations (about 35 and 70 per (pair, pixel) against
@@ -110,20 +111,37 @@
 //           about 70 operations per (pair, pixel);
 //   fold:   its function reads U*(40 + 4) bytes (the gradients and ids of
 //           the U positions before `used`) and writes N*40 bytes; one add
-//           per (pair, feature): bound by bytes. The kernel itself also
-//           reads the 8-byte permutation and the segments, its own layout.
+//           per (pair, feature): bound by bytes. The layout kernel, the
+//           design's own, reads the E emission slots' 8-byte sort indices
+//           and writes their 4-byte positions: E*12 bytes.
 // Pass 1 and pass 2 are bound by operations at every operating point of the
 // repo.
 //
 // The fold. The TPU version scatter-adds the [10, Pc] gradients into
 // [10, N] with one `.at[].add`; on the card an index_add_ does that with
 // atomics, which add in the order the threads arrive, so two runs of one
-// fit part after the first densify. Here the wrapper takes a stable sort of
-// pair_ids (perm) and each Gaussian's segment [seg[g], seg[g+1]) of it
-// (searchsorted, no host read), and one thread per Gaussian adds its pairs'
-// ten gradients in stream order, starting from 0: the result depends only
-// on the stream, and equals index_add_ on the CPU, which adds serially in
-// stream order, bit for bit.
+// fit part after the first densify. Here each Gaussian's sum is taken over
+// its pairs in stream order, from 0: the result depends only on the stream,
+// and equals index_add_ on the CPU, which adds serially in stream order,
+// bit for bit. The order comes from the binning, with no second sort. It
+// emits Gaussian-major: a tier-1 Gaussian g owns slots g*m1 .. g*m1+m1-1,
+// the Gaussian in tier-2 row s owns n*m1 + s*m2 .. + m2-1, each Gaussian
+// emits real keys into one tier only, in row-major tile order, and all its
+// keys share one depth field, so its pairs lie in the sorted stream in its
+// slot order; its culled and unused slots carry the sentinel tile and sort
+// past `used`. The binning hands over its sort's indices (perm: position
+// -> slot) and the Gaussian of each tier-2 row, both of which it computes
+// for the sort anyway. `fold_layout_kernel` inverts the indices (one
+// thread a slot, every slot written once: pos[perm[p]] = p + shift, the
+// shift of a stream moved to a band's block offsets; it also zeroes the
+// output), and `fold_kernel` reads each Gaussian's own slots in order: one
+// thread for a tier-1
+// Gaussian (at most m1 slots), a warp for each tier-2 row (up to m2 slots;
+// lanes stage 32 slots' ten gradients in shared memory and lanes 0..9 add
+// one feature each, in slot order), so no thread walks a long serial run
+// and the tier-2 rows, whose Gaussians' ids may cluster, spread over the
+// card. What bounds it: each pair gathers ten floats that lie Pc apart in
+// K4's [10, Pc] output, ten sectors for 40 useful bytes.
 
 #include "pair_rows.cuh"
 
@@ -401,29 +419,104 @@ int launch_rows(const float* data, int pc, const int* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The ordered fold: out[f, g] = sum over i in [seg[g], seg[g+1]) of
-// grads[f, perm[i]], added in that order from 0. No atomics.
-__global__ void fold_kernel(const float* __restrict__ grads,  // [kFeat, pc]
-                            int pc,
-                            const int64_t* __restrict__ perm,  // [pc]
-                            const int* __restrict__ seg,       // [n + 1]
-                            int n,
-                            float* __restrict__ out) {         // [kFeat, n]
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n) return;
-  float acc[kFeat];
+// The fold's layout: pos[perm[t]] = t + shift, the stream position of each
+// emission slot (the inverse of the binning's sort; every slot is written
+// once), and the fold's output set to +0.0 (out_size = kFeat * n), which
+// the fold kernel leaves as it is for a Gaussian with no pair below lim.
+__global__ void fold_layout_kernel(const int64_t* __restrict__ perm, int e,
+                                   int shift, int out_size,
+                                   int* __restrict__ pos,
+                                   float* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t < e) pos[perm[t]] = t + shift;
+  if (t < out_size) out[t] = 0.0f;
+}
+
+constexpr int kFoldThreads = 128;
+constexpr int kFoldWarps = kFoldThreads / 32;
+constexpr int kFoldStride = kFeat + 1;  // a lane's staged features, padded
+constexpr int kFoldGroup = 4;           // tier-1 slots gathered together
+
+// The ordered fold: out[f, g] = sum of grads[f, pos[e]] over Gaussian g's
+// emission slots e whose position is below lim = min(used, pc), added in
+// slot order from 0. Adding a +0.0 to a sum that started at +0.0 leaves
+// its bits as they are, so a slot past lim may add a 0 instead of being
+// skipped. No atomics. The first tier1_blocks blocks take the tier-1 slots
+// (g*m1 .. g*m1 + m1 - 1), one thread a Gaussian, four slots' gathers in
+// flight at once; it writes only a Gaussian with a slot below lim, since
+// a tier-2 Gaussian's tier-1 slots carry the sentinel tile and lie past
+// the last tile's range, `used`. The other blocks take
+// the tier-2 rows, one warp a row (slots n*m1 + s*m2 .. + m2 - 1 of the
+// Gaussian tier2_ids[s]; >= n: an empty row), 32 slots at a time: lane j
+// stages slot j's ten gradients in shared memory (0 past lim), then lane
+// f < 10 adds the 32 staged values of feature f in slot order.
+__global__ void __launch_bounds__(kFoldThreads)
+    fold_kernel(const float* __restrict__ grads,  // [kFeat, pc]
+                int pc, const int* __restrict__ pos,
+                const int* __restrict__ tier2_ids,  // [rows]
+                int rows, int n, int m1, int m2, int tier1_blocks,
+                const int* __restrict__ used,  // 0-dim
+                float* __restrict__ out) {     // [kFeat, n]
+  const int lim = min(*used, pc);
+  if (static_cast<int>(blockIdx.x) < tier1_blocks) {
+    const int g = blockIdx.x * kFoldThreads + threadIdx.x;
+    if (g >= n) return;
+    float acc[kFeat];
 #pragma unroll
-  for (int f = 0; f < kFeat; ++f) acc[f] = 0.0f;
-  const int end = seg[g + 1];
-  for (int i = seg[g]; i < end; ++i) {
-    const int64_t j = perm[i];
+    for (int f = 0; f < kFeat; ++f) acc[f] = 0.0f;
+    bool any = false;
+    const int* mine = pos + static_cast<int64_t>(g) * m1;
+    for (int j0 = 0; j0 < m1; j0 += kFoldGroup) {
+      int p[kFoldGroup];
+#pragma unroll
+      for (int k = 0; k < kFoldGroup; ++k) {
+        p[k] = j0 + k < m1 ? mine[j0 + k] : lim;
+        any |= p[k] < lim;
+      }
+      float v[kFoldGroup][kFeat];
+#pragma unroll
+      for (int k = 0; k < kFoldGroup; ++k)
+#pragma unroll
+        for (int f = 0; f < kFeat; ++f)
+          v[k][f] = p[k] < lim ? grads[static_cast<int64_t>(f) * pc + p[k]]
+                               : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kFoldGroup; ++k)
+#pragma unroll
+        for (int f = 0; f < kFeat; ++f) acc[f] += v[k][f];
+    }
+    if (any) {
+#pragma unroll
+      for (int f = 0; f < kFeat; ++f)
+        out[static_cast<int64_t>(f) * n + g] = acc[f];
+    }
+    return;
+  }
+  __shared__ float stage[kFoldWarps][32 * kFoldStride];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int s = (blockIdx.x - tier1_blocks) * kFoldWarps + warp;
+  if (s >= rows) return;  // the whole warp
+  const int g = tier2_ids[s];
+  if (g >= n) return;  // an empty row; the whole warp
+  const int* row = pos + static_cast<int64_t>(n) * m1 +
+                   static_cast<int64_t>(s) * m2;
+  float* st = stage[warp];
+  float acc = 0.0f;
+  for (int c = 0; c < m2; c += 32) {
+    const int p = c + lane < m2 ? row[c + lane] : lim;
 #pragma unroll
     for (int f = 0; f < kFeat; ++f)
-      acc[f] += grads[static_cast<int64_t>(f) * pc + j];
-  }
+      st[lane * kFoldStride + f] =
+          p < lim ? grads[static_cast<int64_t>(f) * pc + p] : 0.0f;
+    __syncwarp();
+    if (lane < kFeat) {
 #pragma unroll
-  for (int f = 0; f < kFeat; ++f)
-    out[static_cast<int64_t>(f) * n + g] = acc[f];
+      for (int k = 0; k < 32; ++k) acc += st[k * kFoldStride + lane];
+    }
+    __syncwarp();
+  }
+  if (lane < kFeat) out[static_cast<int64_t>(lane) * n + g] = acc;
 }
 
 }  // namespace
@@ -469,11 +562,19 @@ extern "C" int pairs_pass2(const float* data, int pc, const int* starts,
 }
 
 extern "C" int pairs_fold(const float* grads, int pc, const int64_t* perm,
-                          const int* seg, int n, float* out, void* stream) {
+                          int e, int shift, const int* tier2_ids, int rows,
+                          int n, int m1, int m2, const int* used, int* pos,
+                          float* out, void* stream) {
   if (n <= 0) return 0;
-  constexpr int kThreads = 128;
-  fold_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(grads, pc, perm, seg, n,
-                                                     out);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int span = max(e, kFeat * n);
+  fold_layout_kernel<<<(span + 255) / 256, 256, 0, st>>>(
+      perm, e, shift, kFeat * n, pos, out);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tier1_blocks = (n + kFoldThreads - 1) / kFoldThreads;
+  const int tier2_blocks = (rows + kFoldWarps - 1) / kFoldWarps;
+  fold_kernel<<<tier1_blocks + tier2_blocks, kFoldThreads, 0, st>>>(
+      grads, pc, pos, tier2_ids, rows, n, m1, m2, tier1_blocks, used, out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,22 @@ class TileBins(NamedTuple):
     spill_parts: Optional[torch.Tensor] = None
 
 
+class FoldLayout(NamedTuple):
+    """Where each Gaussian's pairs lie in a pair stream, for the ordered
+    fold (``pairs_backward.fold_to_gaussians``). The binning emits slot
+    ``g*m1 + j`` for the j-th tile of a tier-1 Gaussian g and slot
+    ``N*m1 + s*m2 + j`` for the j-th tile of the Gaussian in tier-2 row s;
+    one Gaussian's keys share its depth field and rise with its slot, so
+    its pairs lie in the stream in slot order. Emission slot ``perm[p]``
+    sits at stream position ``p + shift``."""
+
+    perm: torch.Tensor  # [E] int64, the sort's indices
+    tier2_ids: torch.Tensor  # [rows] int32 Gaussian of each tier-2 row, >= N
+    # for an empty row
+    emission: tuple  # (N, m1, m2)
+    shift: int = 0  # unused stream positions before the first pair
+
+
 class PairBins(NamedTuple):
     """The depth-ordered (tile, Gaussian) pair stream."""
 
@@ -63,6 +79,17 @@ class PairBins(NamedTuple):
     # 0-dim: the end of the last tile's range before the caps cut it (a
     # tile's range starts after every earlier tile's pairs, capped or not)
     length: torch.Tensor = None
+    # the emission behind the stream (FoldLayout), all of it computed for
+    # the sort anyway: the sort's indices [E] int64, the Gaussian of each
+    # tier-2 row [min(b2, N)] int32 (>= N for an empty row), (N, m1, m2)
+    perm: torch.Tensor = None
+    tier2_ids: torch.Tensor = None
+    emission: tuple = None
+
+    def fold_layout(self, shift: int = 0) -> FoldLayout:
+        """The fold's layout of this stream with ``shift`` unused positions
+        before its first pair (``render._shift_stream``)."""
+        return FoldLayout(self.perm, self.tier2_ids, self.emission, shift)
 
 
 def _i32(x):
@@ -154,8 +181,10 @@ def _compact_tier(
 ):
     """Pack the ``member`` Gaussians' ids into ``b`` slots (one 1-D sort,
     member ids first in id order) and emit up to ``m`` tiles each into a
-    [b, m] key grid; with culling inputs, cull-then-compact over up to
-    ``r_cap`` rect tiles. Returns (keys, ids, slot_spill, overflowed)."""
+    [min(b, N), m] key grid; with culling inputs, cull-then-compact over up
+    to ``r_cap`` rect tiles. Returns (keys, ids, slot_spill, overflowed,
+    rows), ``rows`` [min(b, N)] int32 the Gaussian of each row, members in
+    id order, then values >= N for the empty rows."""
     dev = cnt.device
     n = cnt.shape[0]
     ids_all = torch.arange(n, dtype=torch.int32, device=dev)
@@ -211,7 +240,7 @@ def _compact_tier(
             slotted, torch.clamp(cnt - m, min=0), torch.zeros_like(cnt)).sum()
     keys2 = (tid2 << depth_bits) | dq[sidl][:, None]
     ids2 = sid[:, None].expand(keys2.shape)
-    return keys2, ids2, slot_spill, overflowed
+    return keys2, ids2, slot_spill, overflowed, slot_ids
 
 
 def _bucketed_pair_keys(
@@ -221,13 +250,16 @@ def _bucketed_pair_keys(
     """Two-tier (tile, Gaussian) key emission: Gaussians touching at most
     ``m1`` tiles emit into an [N, m1] grid; the larger ones are compacted
     into a [b2, m2] grid, and those beyond the b2 capacity degrade to their
-    first m1 tiles. Returns (keys, ids, spill_slot, spill_cap)."""
+    first m1 tiles. Returns (keys, ids, spill_slot, spill_cap, tier2_ids),
+    ``tier2_ids`` the Gaussian of each tier-2 row (>= N: empty). Each
+    Gaussian emits real keys into one tier only, in row-major tile order
+    (tight culling packs the kept tiles first, in that order)."""
     cull = dict(mean2d=mean2d, conic=conic, opacity=opacity, tile_px=tile_px)
     common = (x0, y0, w, cnt, dq, tiles_x, num_tiles, depth_bits)
     big = vis & (cnt > m1)
     # 2*m2 candidate headroom so max_tiles_per_gaussian growth keeps buying
     # inspected rect tiles past 256
-    keys_b, ids_b, spill_b, overflowed = _compact_tier(
+    keys_b, ids_b, spill_b, overflowed, tier2_ids = _compact_tier(
         big, b2, m2, max(256, 2 * m2), *common, **cull)
 
     dev = cnt.device
@@ -250,7 +282,7 @@ def _bucketed_pair_keys(
     ids = torch.cat([ids1.reshape(-1), ids_b.reshape(-1)])
     spill_cap = torch.where(
         overflowed, torch.clamp(cnt - m1, min=0), torch.zeros_like(cnt)).sum()
-    return keys, ids, spill_b, spill_cap
+    return keys, ids, spill_b, spill_cap, tier2_ids
 
 
 def _quantize_depth(depth, vis, num_tiles):
@@ -316,7 +348,7 @@ def _pair_sort(
     cnt = w * h
 
     b2 = big_capacity or (1 << max(int(n // 32 - 1).bit_length(), 6))
-    keys, ids, spill_slot, spill_cap = _bucketed_pair_keys(
+    keys, ids, spill_slot, spill_cap, tier2_ids = _bucketed_pair_keys(
         x0, y0, w, cnt, dq, vis, tiles_x, num_tiles, depth_bits,
         m1=small_slots, m2=max_tiles_per_gaussian, b2=b2,
         mean2d=mean2d, conic=conic, opacity=opacity, tile_px=tile_px,
@@ -340,6 +372,9 @@ def _pair_sort(
         spill_parts=_i32(torch.stack(
             [spill_slot, spill_cap, tile_spill, stream_spill])),
         length=ends[-1],
+        perm=perm,
+        tier2_ids=tier2_ids,
+        emission=(n, small_slots, max_tiles_per_gaussian),
     )
 
 

@@ -25,10 +25,15 @@ they compute, the design and the bounds.
   block), same inputs and outputs as the kernels.
 - ``fold_to_gaussians`` is the fold's wrapper: per-pair gradients ``[10,
   Pc]`` to per-Gaussian ``[10, N]``, each Gaussian's sum taken over its
-  pairs in stream order from 0. On CUDA tensors a stable sort of
-  ``pair_ids`` and its segments (``fold_segments``) feed the fold kernel;
-  on CPU tensors it is one ``index_add_``, which adds serially in stream
-  order. ``fold_reference`` is the kernel's arithmetic in plain PyTorch.
+  pairs in stream order from 0. On CUDA tensors it reads the binning's
+  layout (``binning.FoldLayout``: a Gaussian's pairs lie in the stream in
+  the order of its emission slots), inverts the sort's permutation in a
+  layout kernel and adds each Gaussian's slots in order in the fold
+  kernel; there is no second sort. On CPU tensors it is one
+  ``index_add_``, which adds serially in stream order.
+  ``fold_reference`` is the two kernels' arithmetic in plain PyTorch;
+  ``ids_layout`` gives a stream that no binning made (test fixtures) a
+  layout.
 - ``stream_backward`` runs pass 1, pass 2 and the fold. Pass 2's per-pair
   gradients and the fold's sums are bit-identical from launch to launch,
   so a fit is reproducible from its seed.
@@ -51,7 +56,7 @@ from typing import Optional
 
 import torch
 
-from dge_tpu_torch.ops import cuda_build
+from dge_tpu_torch.ops import binning, cuda_build
 from dge_tpu_torch.ops import pairs_composite as PC
 from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
                                                T_EPS, block_rows,
@@ -83,7 +88,8 @@ def _load():
             ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
             i32, i32, ptr, ptr]
         lib.pairs_pass2.restype = i32
-        lib.pairs_fold.argtypes = [ptr, i32, ptr, ptr, i32, ptr, ptr]
+        lib.pairs_fold.argtypes = [ptr, i32, ptr, i32, i32, ptr, i32, i32,
+                                   i32, i32, ptr, ptr, ptr, ptr]
         lib.pairs_fold.restype = i32
         _lib = lib
     return _lib
@@ -444,72 +450,132 @@ def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
     return grads
 
 
-def fold_segments(pair_ids, num_gaussians: int, used=None):
-    """The fold's layout: ``perm`` [Pc] int64, a stable sort of ``pair_ids``
-    (each Gaussian's pairs keep their stream order), and ``seg`` [N + 1]
-    int32, Gaussian g's pairs being ``perm[seg[g]:seg[g + 1]]``. No host
-    read; ids outside [0, N) fall in no segment, and with ``used`` (a
-    0-dim tensor) neither do the positions at or past it."""
-    if used is not None:
-        pos = torch.arange(pair_ids.shape[0], device=pair_ids.device)
-        pair_ids = torch.where(pos < used, pair_ids, num_gaussians)
-    ids, perm = torch.sort(pair_ids, stable=True)
-    seg = torch.searchsorted(
-        ids, torch.arange(num_gaussians + 1, dtype=ids.dtype,
-                          device=ids.device), out_int32=True)
-    return perm, seg
-
-
-def fold_reference(pair_grads, perm, seg):
-    """Plain PyTorch version of the fold kernel → [10, N]: per Gaussian its
-    segment's gradients added one by one in stream order, from 0."""
-    n = seg.shape[0] - 1
+def fold_reference(pair_grads, layout, used):
+    """Plain PyTorch version of the layout and fold kernels → [10, N]: each
+    emission slot's stream position (``layout.perm`` inverted, plus
+    ``layout.shift``), then per Gaussian the gradients at its own slots'
+    positions below ``used`` (a 0-dim tensor) and the stream's end, added
+    one by one in slot order (its tier-1 slots, then its tier-2 row's),
+    from 0."""
+    n, m1, m2 = layout.emission
+    pc = pair_grads.shape[1]
+    dev = pair_grads.device
     out = torch.zeros(pair_grads.shape[0], n, dtype=pair_grads.dtype,
-                      device=pair_grads.device)
-    lo = seg[:-1].long()
-    lens = seg[1:].long() - lo
-    for i in range(int(lens.max()) if n else 0):
-        has = i < lens
-        pos = (lo + i).clamp(max=max(perm.shape[0] - 1, 0))
-        out = torch.where(has, out + pair_grads[:, perm[pos]], out)
+                      device=dev)
+    if pc == 0 or n == 0:
+        return out
+    e = layout.perm.shape[0]
+    pos = torch.empty(e, dtype=torch.int64, device=dev)
+    pos[layout.perm] = torch.arange(e, device=dev) + layout.shift
+    lim = torch.clamp(used.long(), max=pc)
+    # each Gaussian's slots' positions, one row each; pc marks no slot
+    tier2 = torch.full((n, m2), pc, dtype=torch.int64, device=dev)
+    ids = layout.tier2_ids.long()
+    full = torch.nonzero(ids < n).flatten()
+    tier2[ids[full]] = pos[n * m1:].view(-1, m2)[full]
+    rows = torch.cat([pos[:n * m1].view(n, m1), tier2], 1)
+    for j in range(rows.shape[1]):
+        p = rows[:, j]
+        out = torch.where(p < lim, out + pair_grads[:, p.clamp(max=pc - 1)],
+                          out)
     return out
 
 
-def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int, used=None):
+def ids_layout(pair_ids, num_gaussians: int):
+    """A fold layout for a stream that no binning made (test fixtures):
+    every Gaussian in tier 1, its k-th pair in stream order in its slot k.
+    Not on any render or training path, which take the binning's."""
+    dev = pair_ids.device
+    pc = pair_ids.shape[0]
+    ids = pair_ids.long()
+    per = torch.bincount(ids, minlength=num_gaussians)
+    m1 = max(int(per.max()), 1) if per.numel() else 1
+    order = torch.sort(ids, stable=True).indices
+    first = torch.cumsum(per, 0) - per
+    rank = torch.empty(pc, dtype=torch.int64, device=dev)
+    rank[order] = torch.arange(pc, device=dev) - first[ids[order]]
+    slots = ids * m1 + rank
+    free = torch.ones(num_gaussians * m1, dtype=torch.bool, device=dev)
+    free[slots] = False
+    perm = torch.cat([slots, torch.nonzero(free).flatten()])
+    return binning.FoldLayout(perm, torch.empty(0, dtype=torch.int32,
+                                                device=dev),
+                              (num_gaussians, m1, 1))
+
+
+def _check_layout(layout, num_gaussians: int, pc: int, dev):
+    """The layout's tensors and emission as the fold kernels read them."""
+    if layout is None:
+        raise ValueError("fold_to_gaussians: a CUDA call needs the binning's "
+                         "layout (PairBins.fold_layout)")
+    n, m1, m2 = layout.emission
+    perm, rows = layout.perm, layout.tier2_ids
+    if perm.dtype != torch.int64 or rows.dtype != torch.int32 or not (
+            perm.is_contiguous() and rows.is_contiguous()):
+        raise ValueError("layout: perm must be a contiguous int64 tensor and "
+                         "tier2_ids a contiguous int32 one")
+    if perm.device != dev or rows.device != dev:
+        raise ValueError(f"layout: tensors must be on {dev}")
+    e = perm.shape[0]
+    if (n != num_gaussians or rows.dim() != 1 or m1 < 1 or m2 < 1
+            or e != n * m1 + rows.shape[0] * m2
+            or not 0 <= layout.shift < 2 ** 31 - max(e, FEAT * n)
+            or pc >= 2 ** 31):
+        raise ValueError(f"layout: emission {layout.emission}, {e} slots, "
+                         f"shift {layout.shift} do not fit {num_gaussians} "
+                         f"Gaussians and a stream of {pc}")
+
+
+def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int, used=None,
+                      layout=None):
     """The fold's wrapper: per-pair gradients [10, Pc] → per-Gaussian
     [10, N], each Gaussian's sum over its pairs taken in stream order from
     0, so the result depends only on the stream (the TPU version's
-    ``.at[].add``, pallas_backward.py:341, fixes no order). On CUDA tensors
-    it launches the fold kernel over ``fold_segments``, or raises; on CPU
-    tensors it is one ``index_add_``, which adds serially in stream order.
+    ``.at[].add``, pallas_backward.py:341, fixes no order). On CPU tensors
+    it is one ``index_add_`` over ``pair_ids``, which adds serially in
+    stream order. On CUDA tensors it launches the layout kernel and the
+    fold kernel over ``layout`` (``binning.FoldLayout``: which emission
+    slots are each Gaussian's and where the sort put them), or raises;
+    ``pair_ids`` is not read there.
 
-    ``used`` (a 0-dim tensor, the end of the last tile's range) leaves the
-    stream's tail out of the kernel's segments: its gradients are 0, and in
-    a pair binning its unused big-Gaussian slots all carry id 0, a segment
-    of ~10^5 pairs one thread would add one by one. Adding a +0.0 leaves a
-    sum's bits as they are, so the result is the same with or without."""
+    ``used`` (a 0-dim int32 tensor, the end of the last tile's range)
+    leaves the stream's tail out: its gradients are 0, and adding a +0.0
+    leaves a sum's bits as they are, so the result is the same with or
+    without. The kernels need it: the slots that the binning culled or
+    left unused sort into that tail, and past ``used`` they are no
+    Gaussian's pairs."""
     if pair_grads.dtype != torch.float32 or not pair_grads.is_contiguous():
         raise ValueError("fold_to_gaussians: pair_grads must be a contiguous "
                          f"torch.float32 tensor, got {pair_grads.dtype}")
     if pair_grads.dim() != 2 or pair_ids.shape != (pair_grads.shape[1],):
         raise ValueError("pair_grads must be [F, Pc] and pair_ids [Pc]")
     dev = pair_grads.device
-    out = torch.zeros(pair_grads.shape[0], num_gaussians, dtype=torch.float32,
-                      device=dev)
     if dev.type == "cpu" and pair_ids.device.type == "cpu":
+        out = torch.zeros(pair_grads.shape[0], num_gaussians,
+                          dtype=torch.float32)
         return out.index_add_(1, pair_ids.long(), pair_grads)
     if pair_ids.device != dev or dev.type != "cuda":
         raise ValueError("fold_to_gaussians: both tensors must share one "
                          f"CUDA device, got {dev} and {pair_ids.device}")
-    if pair_grads.shape[0] != FEAT or pair_grads.shape[1] >= 2 ** 31:
-        raise ValueError(f"pair_grads must be [{FEAT}, Pc < 2**31]")
-    perm, seg = fold_segments(pair_ids, num_gaussians, used)
+    pc = pair_grads.shape[1]
+    if pair_grads.shape[0] != FEAT:
+        raise ValueError(f"pair_grads must be [{FEAT}, Pc]")
+    _check_layout(layout, num_gaussians, pc, dev)
+    if used is None or used.shape != () or used.device != dev \
+            or used.dtype != torch.int32:
+        raise ValueError(f"used must be a 0-dim int32 tensor on {dev}")
+    _, m1, m2 = layout.emission
+    pos = torch.empty(layout.perm.shape[0], dtype=torch.int32, device=dev)
+    # the layout kernel writes its zeros
+    out = torch.empty(FEAT, num_gaussians, dtype=torch.float32, device=dev)
     lib = _load()
     with torch.cuda.device(dev):
-        err = lib.pairs_fold(pair_grads.data_ptr(), pair_grads.shape[1],
-                             perm.data_ptr(), seg.data_ptr(), num_gaussians,
-                             out.data_ptr(),
-                             torch.cuda.current_stream().cuda_stream)
+        err = lib.pairs_fold(
+            pair_grads.data_ptr(), pc, layout.perm.data_ptr(),
+            layout.perm.shape[0], layout.shift, layout.tier2_ids.data_ptr(),
+            layout.tier2_ids.shape[0], num_gaussians, m1, m2,
+            used.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pairs_fold launch failed: cudaError {err}")
     launch_counts["pairs_fold"] += 1
@@ -518,10 +584,12 @@ def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int, used=None):
 
 def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
                     num_gaussians: int, *, tiles_x: int, tile_px: int,
-                    chunk: int, rows=None):
+                    chunk: int, rows=None, layout=None):
     """Pass 1 → pass 2 → fold; returns the per-Gaussian cotangents [10, N]
     of (mean2d x, y, conic a, b, c, opacity, r, g, b, depth). ``rows`` is
-    what the forward handed over: ``(blk_off, row_tile, boundary_t)``."""
+    what the forward handed over: ``(blk_off, row_tile, boundary_t)``;
+    ``layout`` is the binning's (``fold_to_gaussians``; CUDA tensors need
+    it)."""
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
     if rows is None:
         blk_off, row_tile, _ = block_rows(starts, counts, chunk,
@@ -534,8 +602,9 @@ def stream_backward(data, pair_ids, starts, counts, cot, fwd_out,
         boundary_t=boundary_t, row_tile=row_tile, **kw)
     pair_grads = pairs_pass2(data, starts, counts, blk_off, row_tile, cot,
                              fwd_out, boundary_t, suffix, **kw)
-    used = (starts + counts).max() if starts.numel() else None
-    return fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used=used)
+    used = (starts + counts).max()
+    return fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used=used,
+                             layout=layout)
 
 
 def image_to_tiles(x, tiles_x: int, tiles_y: int, tile_px: int):
@@ -553,7 +622,7 @@ def image_to_tiles(x, tiles_x: int, tiles_y: int, tile_px: int):
 class _StreamComposite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mean2d, conic, rgb, depth, opac, pair_ids, starts,
-                counts, geom):
+                counts, geom, layout):
         height, width, tiles_x, tiles_y, tile_px, chunk = geom
         data = PC.assemble_stream_data(pair_ids, mean2d, conic, rgb, depth,
                                        opac)
@@ -565,6 +634,7 @@ class _StreamComposite(torch.autograd.Function):
         ctx.save_for_backward(data, pair_ids, starts, counts, out, blk_off,
                               row_tile, boundary_t)
         ctx.geom = geom
+        ctx.layout = layout
         ctx.num_gaussians = mean2d.shape[0]
         g = (tiles_x, tiles_y, tile_px, height, width)
         return (PC.untile(out[:, 0:3].transpose(1, 2), *g),
@@ -582,18 +652,21 @@ class _StreamComposite(torch.autograd.Function):
         g = stream_backward(data, pair_ids, starts, counts, cot, out,
                             ctx.num_gaussians, tiles_x=tiles_x,
                             tile_px=tile_px, chunk=chunk,
-                            rows=(blk_off, row_tile, boundary_t))
+                            rows=(blk_off, row_tile, boundary_t),
+                            layout=ctx.layout)
         return (g[0:2].T, g[2:5].T, g[6:9].T, g[9], g[5],
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def stream_composite(mean2d, conic, rgb, depth, opac, pair_ids, starts,
                      counts, *, height: int, width: int, tiles_x: int,
-                     tiles_y: int, tile_px: int, chunk: int):
+                     tiles_y: int, tile_px: int, chunk: int, layout=None):
     """Differentiable pair-stream compositing → (color [H, W, 3], depth
     [H, W], final_T [H, W]) over a zero background. Forward: the compositing
-    kernel; backward: the two backward kernels (plain versions on the CPU).
-    ``starts``/``counts`` are contiguous int32 [T]."""
+    kernel; backward: the backward kernels and the fold (plain versions on
+    the CPU). ``starts``/``counts`` are contiguous int32 [T]; ``layout`` is
+    the binning's ``FoldLayout`` of the stream, which the fold kernel needs
+    on a card."""
     return _StreamComposite.apply(
         mean2d, conic, rgb, depth, opac, pair_ids, starts, counts,
-        (height, width, tiles_x, tiles_y, tile_px, chunk))
+        (height, width, tiles_x, tiles_y, tile_px, chunk), layout)

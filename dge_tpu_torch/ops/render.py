@@ -224,15 +224,19 @@ def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
         )
     geom = dict(height=height, width=width, tiles_x=pb.tiles_x,
                 tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
+    shift = 0
     if stream_base is not None:
-        pb = _shift_stream(pb, int(stream_base(pb.length)) % geom["chunk"])
+        shift = int(stream_base(pb.length)) % geom["chunk"]
+        pb = _shift_stream(pb, shift)
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
     if backend == "cuda_train":
-        # kernel forward (which hands boundary_T over) and kernel backward;
-        # bg·T stays outside the Function so that autograd supplies dL/dT_fin
+        # kernel forward (which hands boundary_T over) and kernel backward,
+        # whose fold reads the binning's layout of the shifted stream; bg·T
+        # stays outside the Function so that autograd supplies dL/dT_fin
         color, depth, final_t = pairs_backward.stream_composite(
             *feats, pb.pair_ids, pb.starts.to(torch.int32).contiguous(),
-            pb.counts.to(torch.int32).contiguous(), **geom)
+            pb.counts.to(torch.int32).contiguous(),
+            layout=pb.fold_layout(shift), **geom)
         color = color + final_t[..., None] * bg[None, None, :]
     else:
         color, depth, final_t = pairs_composite.composite_pairs(
@@ -243,7 +247,8 @@ def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
 
 def _shift_stream(pb: binning.PairBins, shift: int) -> binning.PairBins:
     """``pb`` with ``shift`` unused positions before its first pair (id 0,
-    in no tile's range, so never composited and given no gradient)."""
+    in no tile's range, so never composited and given no gradient). The
+    fold's layout takes the same ``shift`` (``PairBins.fold_layout``)."""
     if not shift:
         return pb
     pad = pb.pair_ids.new_zeros(shift)

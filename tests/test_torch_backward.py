@@ -28,8 +28,16 @@ from dge_tpu_torch.ops import pairs_composite as TPC
 from dge_tpu_torch.ops import render as TR
 from dge_tpu_torch.scene.camera_arrays import CameraArrays
 from tests.conftest import make_random_scene, make_test_camera
-from tests.test_torch_kernel import random_stream
+from tests.test_torch_kernel import FOLD_CASES, binned_fold_case, random_stream
 from tests.test_torch_scene import to_port
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 
 ROWS = ("mean x", "mean y", "conic a", "conic b", "conic c", "opacity",
         "r", "g", "b", "depth")
@@ -442,10 +450,11 @@ def test_stream_composite_matches_autograd_of_plain_forward(tile_px, chunk):
 
 
 def fold_case(seed):
-    """Per-pair gradients over five decades with repeated ids (a third of
-    the 60 Gaussians get no pair), and a reordering of the stream that keeps
-    each Gaussian's pairs in their order: a shuffle of the ids, each
-    Gaussian's pairs placed in order at the places its id went to."""
+    """Per-pair gradients over five decades on a stream of random ids that
+    no binning made (a third of the 60 Gaussians get no pair), and a
+    reordering of the stream that keeps each Gaussian's pairs in their
+    order: a shuffle of the ids, each Gaussian's pairs placed in order at
+    the places its id went to."""
     rng = np.random.default_rng(seed)
     n, pc = 60, 700
     ids = rng.integers(0, 40, size=pc).astype(np.int32)
@@ -459,37 +468,65 @@ def fold_case(seed):
         torch.from_numpy(shuffled), torch.from_numpy(moved)
 
 
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_ordered_fold_matches_index_add(case):
+    """The fold kernels' plain version (``fold_reference``: the binning's
+    sort inverted, each Gaussian's emission slots added in order from 0)
+    against ``index_add_`` over the stream's ids, which on the CPU adds
+    serially in stream order: bit for bit, on streams of
+    ``bin_gaussians_pairs`` with and without culling, with tier 2
+    overflowing and its slots spilling, shifted to other block offsets, cut
+    by max_pairs and by max_per_tile. The wrapper's CPU path is that
+    ``index_add_``."""
+    ids, starts, counts, g, layout, n, pb = binned_fold_case(
+        3, **FOLD_CASES[case])
+    parts = pb.spill_parts.tolist()  # slot, cap, tile, stream
+    tier2 = int((pb.tier2_ids < n).sum())
+    assert tier2 > 0 and layout.shift == FOLD_CASES[case].get("shift", 0)
+    if case == "tier2_spill":
+        assert parts[0] > 0 and parts[1] > 0
+        assert tier2 == pb.tier2_ids.shape[0] == 16
+    if case in ("max_pairs", "max_per_tile"):
+        assert parts[3 if case == "max_pairs" else 2] > 0
+    used = (starts + counts).max()
+    want = torch.zeros(10, n).index_add_(1, ids.long(), g)
+    got = TPB.fold_reference(g, layout, used)
+    assert torch.equal(got, want)
+    assert torch.equal(TPB.fold_to_gaussians(g, ids, n, used, layout=layout),
+                       want)
+    assert float(want.abs().max()) > 0
+    # the order is the stream's: the same pairs added last to first part
+    backwards = torch.zeros(10, n).index_add_(1, ids.flip(0).long(),
+                                              g.flip(1))
+    assert not torch.equal(backwards, want)
+
+
 @pytest.mark.parametrize("seed", [0, 1])
-def test_ordered_fold_matches_index_add(seed):
-    """The fold's plain version over ``fold_segments`` (the fold kernel's
-    arithmetic: a stable sort of pair_ids, each Gaussian's pairs added in
-    stream order from 0) against ``index_add_`` within 1e-6·max|g| (on the
-    CPU it is bit-identical: index_add_ adds serially in stream order), and
-    the wrapper's CPU path (``index_add_``) against both. A stream
-    reordered so that each Gaussian's pairs keep their order folds
-    bit-identically."""
+def test_ordered_fold_of_an_unbinned_stream(seed):
+    """``ids_layout`` gives a stream that no binning made a layout (every
+    Gaussian in tier 1, its pairs in stream order): the plain fold over it
+    equals ``index_add_`` bit for bit, also with the zero-gradient tail past
+    ``used`` left out, and on a reordering that keeps each Gaussian's pairs
+    in order. The wrapper checks what it is given."""
     n, ids, g, shuffled, moved = fold_case(seed)
     want = torch.zeros(10, n).index_add_(1, ids.long(), g)
-    perm, seg = TPB.fold_segments(ids, n)
-    assert perm.dtype == torch.int64 and seg.dtype == torch.int32
-    assert seg.shape == (n + 1,) and int(seg[-1]) == ids.numel()
-    assert torch.equal(ids[perm].long(), torch.sort(ids.long()).values)
-    got = TPB.fold_reference(g, perm, seg)
-    assert float((got - want).abs().max()) <= 1e-6 * float(g.abs().max())
+    layout = TPB.ids_layout(ids, n)
+    m1 = layout.emission[1]
+    assert layout.perm.shape == (n * m1,) and layout.shift == 0
+    assert torch.equal(torch.sort(layout.perm).values, torch.arange(n * m1))
+    assert layout.tier2_ids.shape == (0,)
+    whole = torch.tensor(ids.numel(), dtype=torch.int32)
+    got = TPB.fold_reference(g, layout, whole)
     assert torch.equal(got, want)
     assert torch.equal(TPB.fold_to_gaussians(g, ids, n), want)
     assert float(got[:, 40:].abs().max()) == 0.0  # Gaussians with no pair
-    again = TPB.fold_reference(moved, *TPB.fold_segments(shuffled, n))
+    again = TPB.fold_reference(moved, TPB.ids_layout(shuffled, n), whole)
     assert torch.equal(again, got)
-    assert torch.equal(TPB.fold_to_gaussians(moved, shuffled, n), got)
-    # a zero-gradient tail of one id (a pair binning's unused big-Gaussian
-    # slots) left out of the segments: the same bits, short segments
     ids[600:], g[:, 600:] = 0, 0.0
-    used = torch.tensor(600)
+    used = torch.tensor(600, dtype=torch.int32)
     want = torch.zeros(10, n).index_add_(1, ids.long(), g)
-    perm, seg = TPB.fold_segments(ids, n, used)
-    assert int(seg[-1]) == 600 and int((seg[1:] - seg[:-1]).max()) < 60
-    assert torch.equal(TPB.fold_reference(g, perm, seg), want)
+    assert torch.equal(TPB.fold_reference(g, TPB.ids_layout(ids, n), used),
+                       want)
     assert torch.equal(TPB.fold_to_gaussians(g, ids, n, used), want)
     with pytest.raises(ValueError, match="contiguous torch.float32"):
         TPB.fold_to_gaussians(g.double(), ids, n)

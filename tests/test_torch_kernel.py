@@ -22,7 +22,16 @@ import numpy as np
 import pytest
 import torch
 
+from dge_tpu_torch.ops import binning as TB
 from dge_tpu_torch.ops import pairs_composite as TPC
+
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
 
 
 def random_stream(rng, num_tiles, tile_px, tail):
@@ -45,6 +54,63 @@ def random_stream(rng, num_tiles, tile_px, tail):
     opac = rng.uniform(0.05, 1.0, size=n).astype(np.float32)
     ids = rng.integers(0, n, size=pc).astype(np.int32)
     return ids, starts, counts, mean2d, conic, rgb, depth, opac, tiles_x
+
+
+# the fold's cases: a plain binning; tight culling (tier 2 packs its kept
+# tiles); small m2 and tier-2 capacity, so that tier 2 overflows into tier 1
+# and slots spill (with culling); a stream shifted to other block offsets;
+# the stream cut by max_pairs; tiles cut by max_per_tile
+FOLD_CASES = {
+    "plain": dict(),
+    "cull": dict(cull=True),
+    "tier2_spill": dict(cull=True, max_tiles_per_gaussian=8, big_capacity=16),
+    "shifted": dict(shift=37),
+    "max_pairs": dict(max_pairs=700),
+    "max_per_tile": dict(max_per_tile=24),
+}
+
+
+def binned_fold_case(seed, device="cpu", *, cull=False, shift=0, **caps):
+    """A pair stream from ``bin_gaussians_pairs`` (400 random Gaussians, a
+    sixth of them wide, at 96x128 and tile 16) and per-pair gradients over
+    five decades, some -0.0, as pass 2 leaves them: 0 at every position in
+    no tile's range. ``shift`` puts that many unused positions before the
+    stream, as ``render._shift_stream`` does. Returns (pair_ids, starts,
+    counts, grads, layout, n, bins)."""
+    rng = np.random.default_rng(seed)
+    n, h, w = 400, 96, 128
+    mean2d = rng.uniform(-16, 1, size=(n, 2)) + rng.uniform(
+        size=(n, 2)) * [w + 32, h + 32]
+    radius = np.where(rng.uniform(size=n) < 1 / 6, rng.uniform(20, 45, n),
+                      rng.uniform(1, 12, n))
+    sigma2 = (radius / 3.0) ** 2
+    a = rng.uniform(0.6, 1.0, n) / sigma2
+    c = rng.uniform(0.6, 1.0, n) / sigma2
+    b = rng.uniform(-0.3, 0.3, n) * np.sqrt(a * c)
+
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    cull_kw = dict(conic=t(np.stack([a, b, c], 1)),
+                   opacity=t(rng.uniform(0.02, 1.0, n))) if cull else {}
+    pb = TB.bin_gaussians_pairs(
+        t(mean2d), t(rng.uniform(1, 10, n)), t(radius),
+        t(rng.uniform(size=n) < 0.95, torch.bool), height=h, width=w,
+        tile_px=16, **cull_kw, **caps)
+    pc = pb.pair_ids.shape[0]
+    pos = np.arange(pc)
+    st, ct = pb.starts.cpu().numpy(), pb.counts.cpu().numpy()
+    in_range = ((pos[:, None] >= st) & (pos[:, None] < st + ct)).any(1)
+    g = np.where(in_range, rng.normal(size=(10, pc))
+                 * 10.0 ** rng.uniform(-2, 3, size=(1, pc)), 0.0).astype(
+                     np.float32)
+    g[:, in_range & (rng.uniform(size=pc) < 0.05)] = -0.0
+    ids, starts = pb.pair_ids, pb.starts
+    if shift:
+        ids = torch.cat([ids.new_zeros(shift), ids])
+        starts = starts + shift
+        g = np.concatenate([np.zeros((10, shift), np.float32), g], 1)
+    return (ids, starts, pb.counts, t(g), pb.fold_layout(shift), n, pb)
 
 
 def test_wrapper_takes_plain_version_for_cpu_tensors():
@@ -139,8 +205,9 @@ def test_backward_kernels_match_plain_on_card(chunk):
     for use_kernels in (True, False):
         leaves = [x.clone().requires_grad_(True) for x in feats]
         if use_kernels:
-            col, dep, tfin = TPB.stream_composite(*leaves, ids_t, st, ct,
-                                                  **geom)
+            col, dep, tfin = TPB.stream_composite(
+                *leaves, ids_t, st, ct,
+                layout=TPB.ids_layout(ids_t, len(m)), **geom)
         else:
             col, dep, tfin = TPC.composite_pairs(
                 ids_t, st, ct, *leaves, bg=torch.zeros(3, device=dev),
@@ -150,6 +217,35 @@ def test_backward_kernels_match_plain_on_card(chunk):
         res.append(torch.autograd.grad(loss, leaves))
     for got, want in zip(*res):
         assert close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(FOLD_CASES))
+def test_fold_kernel_matches_plain_on_card(case):
+    """The layout and fold kernels on a binned stream against their plain
+    version and against ``index_add_`` on a CPU copy, bit for bit; one
+    launch counted; two launches give the same bits; a call without the
+    binning's layout raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from dge_tpu_torch.ops import pairs_backward as TPB
+
+    ids, starts, counts, g, layout, n, _ = binned_fold_case(
+        5, "cuda", **FOLD_CASES[case])
+    used = (starts + counts).max()
+    before = dict(TPC.launch_counts)
+    got = TPB.fold_to_gaussians(g, ids, n, used, layout=layout)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in TPC.launch_counts.items()
+            if v != before[k]} == {"pairs_fold": 1}
+    assert torch.equal(got, TPB.fold_to_gaussians(g, ids, n, used,
+                                                  layout=layout))
+    assert torch.equal(got, TPB.fold_reference(g, layout, used))
+    want = torch.zeros(10, n).index_add_(1, ids.cpu().long(), g.cpu())
+    assert torch.equal(got.cpu(), want)
+    assert float(got.abs().max()) > 0
+    with pytest.raises(ValueError, match="needs the binning's layout"):
+        TPB.fold_to_gaussians(g, ids, n, used)
 
 
 def card_backward_case(seed, tile_px, chunk, num_tiles=8):
