@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10,11]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -152,11 +152,25 @@ process per source, started together) and runs:
    for bit; write, ingest and load seconds printed; (d) the native
    ``points3D.bin`` parser used on the committed capture and equal to the
    Python loop; the kernels against their plain versions at the bench
-   capture's view 0.
+   capture's view 0;
+11. the edit networks in bf16 (``build_models(dtype=torch.bfloat16)``, the
+   JAX package's ``build_models(dtype=jnp.bfloat16)``), full-width SD-1.5
+   on random weights (seed 0): the UNet (plain, batch 15), the VAE encode
+   and decode of 5 views at 512^2 and the CLIP text encoder against the
+   f32 build of the same seed (mean |difference| within 5e-2 of mean |f32
+   output|, finite), each timed in both dtypes; SDPA in bf16 (FLASH at head
+   widths 40, 80, 160; EFFICIENT at the VAE's 512) against the chunked bf16
+   attention at the 20-view pivot pass's shapes (2e-2·max|out|); two
+   ``DGEGuidance`` edit rounds at the reference's workload (20 views at
+   512^2, camera batches of 5, banded epipolar, 20 DDIM steps) with only
+   the bf16 weights resident: bf16 frames, finite, in [0, 1], timed, peak
+   memory; one DDIM step of the 20 views in bf16 and in f32, timed;
+   ``dge_tpu_torch.tools.profile_edit`` at its default (the round's stage
+   table beside the card's name and power limit).
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all ten ran.
+gate's own recipe); the result lines are printed only when all eleven ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -219,7 +233,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10}
+ALL_PHASES = set(range(1, 12))
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -260,6 +274,17 @@ BENCH_VIEWS = 24
 BENCH_SIZE = 512
 BENCH_FIT_STEPS = 1000
 INGEST_VIEWS = 5
+# phase 11, the edit networks in bf16 at the reference's workload (the JAX
+# package's config-4 edit round, bench.py:369-392, tools/profile_edit.py):
+# 20 views at 512^2, camera batches of 5, banded epipolar
+BF16_VIEWS = 20
+BF16_SIZE = 512
+BF16_BATCH = 5
+# bf16 against f32 networks of one seed on one input: mean |difference|
+# over mean |f32 output|; on the CPU JAX's own bf16 lies 0.5-1.7% from its
+# f32 at the tiny widths (tests/test_torch_bf16.py), and SD-1.5 is deeper
+BF16_NET_TOL = 5e-2
+SDPA_BF16_TOL = 2e-2  # x max|chunked bf16 attention|: a few bf16 ulps
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
@@ -1755,8 +1780,8 @@ def full_width_cell(name, scene, cam, bg, *, chunk=64, **start):
 
 
 def attention_vs_chunked(dev) -> list:
-    """SDPA, pinned to ``EFFICIENT_ATTENTION`` by the port's rule
-    (``layers.sdpa_takes``), against the chunked plain attention (k_chunk
+    """SDPA, pinned to ``EFFICIENT_ATTENTION`` in f32 by the port's rule
+    (``layers.sdpa_backend``), against the chunked plain attention (k_chunk
     1024) at the pivot pass's full shapes: 3 CFG chunks x 8 heads over 2 key
     frames of the 64^2 latent's blocks (head width 40 over 8,192 tokens, 80
     over 2,048, 160 over 512), and the VAE mid block's one head of 512 over
@@ -1777,8 +1802,7 @@ def attention_vs_chunked(dev) -> list:
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         res = dict(
             shape=[b, h, s, d],
-            backend=("EFFICIENT_ATTENTION" if L.sdpa_takes(d, q.dtype)
-                     else "chunked"),
+            backend=L.sdpa_backend(d, q.dtype) or "chunked",
             max_abs_err=err, max_abs_out=scale,
             ms=cuda_ms(lambda: L.attend_heads(q, k, v)),
             plain_ms=cuda_ms(lambda: L.attend_chunked(q, k, v, 1024), reps=3,
@@ -2683,6 +2707,219 @@ def one_ddim_step(models, cams, views: int, dev):
         return ddim.step(models.schedule, eps, 500, x, 20)
 
 
+def bf16_vs_f32(got, want, what: str, tol: float = BF16_NET_TOL) -> dict:
+    """A bf16 network's output against the f32 network's: finite, mean
+    |difference| within ``tol`` of mean |f32 output|."""
+    g, w = got.float(), want.float()
+    res = dict(max_abs_err=float((g - w).abs().max()),
+               max_abs_f32=float(w.abs().max()),
+               mean_rel_err=float((g - w).abs().mean() / w.abs().mean()))
+    log(f"  {what} bf16 vs f32: {res}")
+    if not bool(g.isfinite().all()) or res["mean_rel_err"] > tol:
+        raise AssertionError(f"{what}: bf16 differs from f32: {res}")
+    return res
+
+
+def bf16_networks(m16, m32, dev) -> dict:
+    """The bf16 build against the f32 build of the same seed, on one input:
+    the UNet in plain mode at batch 15 (5 views x 3 CFG chunks, 64^2
+    latents, 77 text tokens), VAE encode (the posterior mode) and decode of
+    5 views at 512^2, the CLIP text encoder on two prompts; each network's
+    time in both dtypes."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p as P
+    from dge_tpu_torch.diffusion.tokenizer import HashTokenizer
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ids = HashTokenizer()(["turn him into a clown", ""])
+    b, size = 3 * BF16_BATCH, BF16_SIZE
+    lat_hw = size // m16.vae.downscale
+    ucfg = m16.unet.config
+    inp = torch.randn(b, lat_hw, lat_hw, ucfg.in_channels, generator=gen,
+                      device=dev)
+    ctx = torch.randn(b, 77, ucfg.cross_attention_dim, generator=gen,
+                      device=dev)
+    imgs = torch.rand(BF16_BATCH, size, size, 3, generator=gen, device=dev)
+    lat = torch.randn(BF16_BATCH, lat_hw, lat_hw, 4, generator=gen,
+                      device=dev)
+    out = {}
+    res = dict(
+        clip_text=bf16_vs_f32(P.encode_text(m16, ids),
+                              P.encode_text(m32, ids), "CLIP text"),
+        unet=bf16_vs_f32(P.unet_eps(m16, inp, 500, ctx.to(m16.dtype)),
+                         P.unet_eps(m32, inp, 500, ctx), "UNet (plain, 15)"),
+        vae_encode=bf16_vs_f32(P.encode_cond_images(m16, imgs),
+                               P.encode_cond_images(m32, imgs),
+                               "VAE encode (5 x 512^2)"),
+        vae_decode=bf16_vs_f32(P.decode_latents(m16, lat),
+                               P.decode_latents(m32, lat),
+                               "VAE decode (5 x 512^2)"))
+    for name, m in (("bf16", m16), ("f32", m32)):
+        c = ctx.to(m.dtype)
+        out[name] = dict(
+            unet_plain_b15_ms=cuda_ms(lambda: P.unet_eps(m, inp, 500, c),
+                                      reps=5, warmup=1),
+            vae_encode_5x512_ms=cuda_ms(
+                lambda: P.encode_cond_images(m, imgs), reps=3, warmup=1),
+            vae_decode_5x512_ms=cuda_ms(lambda: P.decode_latents(m, lat),
+                                        reps=3, warmup=1),
+            clip_text_ms=cuda_ms(lambda: P.encode_text(m, ids), reps=5,
+                                 warmup=1))
+    res["times"] = out
+    log(f"  network times: {out}")
+    return res
+
+
+def attention_bf16(dev) -> list:
+    """SDPA in bf16 on ``layers.sdpa_backend``'s backend (FLASH up to head
+    width 256, EFFICIENT beyond) against the chunked attention in bf16
+    (f32 logits and accumulators) at the 20-view round's shapes: the pivot
+    pass's 3 CFG chunks x 8 heads over 4 key frames (head width 40 over
+    16,384 tokens, 80 over 4,096, 160 over 1,024) and the VAE mid block's one
+    head of 512 over 4,096 tokens for 5 views; within SDPA_BF16_TOL of
+    max|out|."""
+    import torch
+
+    from dge_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = []
+    for b, h, s, d in ((3, 8, 16384, 40), (3, 8, 4096, 80),
+                       (3, 8, 1024, 160), (5, 1, 4096, 512)):
+        q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        got = L.attend_heads(q, k, v, k_chunk=1024)
+        want = L.attend_chunked(q, k, v, k_chunk=1024)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        res = dict(shape=[b, h, s, d], dtype="bfloat16",
+                   backend=L.sdpa_backend(d, q.dtype) or "chunked",
+                   max_abs_err=err, max_abs_out=scale,
+                   ms=cuda_ms(lambda: L.attend_heads(q, k, v)),
+                   plain_ms=cuda_ms(lambda: L.attend_chunked(q, k, v, 1024),
+                                    reps=3, warmup=1))
+        log(f"  attention {res}")
+        if got.dtype != torch.bfloat16 or err > SDPA_BF16_TOL * scale:
+            raise AssertionError(f"bf16 attention {res['shape']}: SDPA "
+                                 f"differs from the chunked version by {err}")
+        out.append(res)
+    return out
+
+
+def bf16_round(m16, dev) -> dict:
+    """Phase 11's edit round: ``DGEGuidance.__call__`` on the bf16 networks
+    over 20 ring views at 512^2 (random images, camera batches of 5, banded
+    epipolar, 20 DDIM steps from t = 979: 18 with the pivot pass and the
+    reuse, 2 plain), twice (the first call pays first-use costs): bf16
+    frames of the input's shape, finite, in [0, 1]; host seconds
+    (synchronised) and peak memory of each, with only the bf16 weights
+    resident."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ip2p as P
+    from dge_tpu_torch.diffusion.tokenizer import HashTokenizer
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.systems import guidance as GD
+    from dge_tpu_torch.tools import make_bench_capture as MB
+
+    n, size = BF16_VIEWS, BF16_SIZE
+    cams = stack_cameras([CameraArrays.from_camera(c, device=dev)
+                          for c in MB.ring_cameras(n, size, size)])
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rgb = torch.rand(n, size, size, 3, generator=gen, device=dev)
+    cond = torch.rand(n, size, size, 3, generator=gen, device=dev)
+    ids = HashTokenizer()(["turn him into a clown", ""])
+    pos, neg = P.encode_text(m16, ids).chunk(2, dim=0)
+    guide = GD.DGEGuidance(bf16_guidance_config(), m16)
+    res = dict(views=n, size=size, camera_batch=BF16_BATCH,
+               weights_gib=torch.cuda.memory_allocated() / 2 ** 30,
+               round_s=[], peak_memory_gib=[])
+    for seed in (8, 9):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        frames = guide(rgb, cond, pos.expand(n, -1, -1),
+                       neg.expand(n, -1, -1), cams,
+                       torch.Generator(device=dev).manual_seed(seed))
+        torch.cuda.synchronize()
+        res["round_s"].append(time.time() - t0)
+        res["peak_memory_gib"].append(torch.cuda.max_memory_allocated()
+                                      / 2 ** 30)
+        lo, hi = float(frames.min()), float(frames.max())
+        if (frames.dtype != torch.bfloat16
+                or tuple(frames.shape) != (n, size, size, 3)
+                or not bool(frames.isfinite().all()) or lo < 0.0
+                or hi > 1.0):
+            raise AssertionError(f"bf16 edit round: bad frames "
+                                 f"{frames.dtype} {tuple(frames.shape)} "
+                                 f"in [{lo}, {hi}]")
+        del frames
+    res["frames_dtype"] = "torch.bfloat16"
+    log(f"  bf16 edit round: {res}")
+    return res
+
+
+def bf16_guidance_config():
+    from dge_tpu_torch.systems import guidance as GD
+
+    return GD.GuidanceConfig(camera_batch_size=BF16_BATCH,
+                             epipolar_mode="banded",
+                             resize_target=BF16_SIZE)
+
+
+def bf16_ddim_step(m16, m32, dev) -> dict:
+    """One DDIM step of the round's 20 views at t = 500 (the pivot pass,
+    four reuse passes, CFG, the update) on the bf16 and on the f32
+    networks from the same draws, each timed; f32 latents from both, the
+    two steps' difference printed."""
+    import torch
+
+    from dge_tpu_torch.diffusion import ddim
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.systems import guidance as GD
+    from dge_tpu_torch.tools import make_bench_capture as MB
+
+    n, size, cbs = BF16_VIEWS, BF16_SIZE, BF16_BATCH
+    cams = stack_cameras([CameraArrays.from_camera(c, device=dev)
+                          for c in MB.ring_cameras(n, size, size)])
+    gen = torch.Generator(device=dev).manual_seed(10)
+    lat = size // m16.vae.downscale
+    x = torch.randn(n, lat, lat, 4, generator=gen, device=dev)
+    cond_lat = torch.randn(n, lat, lat, 4, generator=gen, device=dev)
+    te = torch.randn(2 * n, 77, m16.unet.config.cross_attention_dim,
+                     generator=gen, device=dev)
+    res, steps = {}, {}
+    for name, m in (("bf16", m16), ("f32", m32)):
+        c_m, te_m = cond_lat.to(m.dtype), te.to(m.dtype)
+
+        def triple_for(idx):
+            return (torch.cat([te_m[idx], te_m[n + idx], te_m[n + idx]]),
+                    torch.cat([c_m[idx], c_m[idx],
+                               torch.zeros_like(c_m[idx])]))
+
+        g = GD.DGEGuidance(bf16_guidance_config(), m)
+
+        def one_step():
+            eps = g._predict_eps_multiview(
+                x, 500, cams, triple_for, n, cbs, n // cbs, lat, lat,
+                torch.Generator(device=dev).manual_seed(11))
+            return ddim.step(m.schedule, eps, 500, x, 20)
+
+        steps[name] = one_step()
+        res[f"{name}_ms"] = cuda_ms(one_step, reps=3, warmup=1)
+    d = (steps["bf16"] - steps["f32"]).abs()
+    res.update(dtype=str(steps["bf16"].dtype), max_abs_diff=float(d.max()),
+               mean_rel_diff=float(d.mean() / steps["f32"].abs().mean()))
+    log(f"  DDIM step of {n} views: {res}")
+    if (steps["bf16"].dtype != torch.float32
+            or not bool(steps["bf16"].isfinite().all())):
+        raise AssertionError(f"bf16 DDIM step: {res}")
+    return res
+
+
 def capture_paths(launch, dev, render_psnr) -> dict:
     """Phase 10: (a) ``--render`` of the quality-gate scene over the
     committed capture written as a Blender capture; (b) the bench capture
@@ -2833,7 +3070,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -3754,9 +3991,36 @@ def main(argv=None) -> int:
         capture["seconds"] = time.time() - t10
         log(f"  phase 10 took {capture['seconds']:.1f} s")
 
+    # ---- phase 11: the edit networks in bf16 at the reference's shape ----
+    bf16 = None
+    if 11 in phases:
+        log(f"phase 11: the edit networks in bf16 (build_models(dtype="
+            f"torch.bfloat16), full-width SD-1.5 on random weights) against "
+            f"the f32 build, bf16 attention, one edit round of {BF16_VIEWS} "
+            f"views at {BF16_SIZE}^2 in camera batches of {BF16_BATCH}, its "
+            "DDIM step in both dtypes, dge_tpu_torch.tools.profile_edit")
+        t11 = time.time()
+        from dge_tpu_torch.diffusion import ip2p
+        from dge_tpu_torch.tools import profile_edit as PE
+
+        m16 = ip2p.build_models(seed=0, device=dev, dtype=torch.bfloat16)
+        bf16 = dict(round=bf16_round(m16, dev))
+        m32 = ip2p.build_models(seed=0, device=dev)
+        bf16.update(networks=bf16_networks(m16, m32, dev),
+                    attention=attention_bf16(dev),
+                    ddim_step=bf16_ddim_step(m16, m32, dev))
+        del m16, m32
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            tool = PE.main(["--out", os.path.join(tmp, "profile_edit.md")])
+        if tool["dtype"] != "bfloat16" or tool["views"] != BF16_VIEWS:
+            raise AssertionError(f"profile_edit ran {tool}")
+        bf16.update(profile_edit=tool, seconds=time.time() - t11)
+        log(f"  phase 11 took {bf16['seconds']:.1f} s")
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "ten")
+            "eleven")
         return 0
 
     v0 = fit["view0"]
@@ -3927,7 +4191,7 @@ def main(argv=None) -> int:
     result = {"kernels": kernels, "psnr_mean_db": mean_psnr,
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
-              "multi_gpu": multi, "capture": capture,
+              "multi_gpu": multi, "capture": capture, "bf16_edit": bf16,
               "card": smi,
               "seconds": time.time() - t_start}
     if args.json:

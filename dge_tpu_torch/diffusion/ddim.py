@@ -5,11 +5,15 @@ DDIMScheduler the guidance loads from SD-1.4's scheduler config
 (dge_guidance.py:75-135): scaled-linear betas 0.00085 -> 0.012 over 1000
 train steps, steps_offset=1, clip_sample=False, set_alpha_to_one=False, 20
 inference steps, eta=0 (deterministic).
+
+Result dtypes follow JAX's promotion: the schedule is f32, so bf16 noise
+predictions, latents or noise give f32 results (``promote``).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+import functools
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -53,6 +57,16 @@ def inference_timesteps(sched: DDIMSchedule,
     return ts + sched.steps_offset
 
 
+def promote(*xs: torch.Tensor) -> List[torch.Tensor]:
+    """The tensors cast to their common dtype by JAX's rule, in which an f32
+    array of any rank promotes bf16 to f32. torch leaves a bf16 tensor bf16
+    against a 0-dim f32 one (``bf16 * torch.tensor(0.5)`` is bf16), so a
+    schedule entry indexed down to a scalar would keep bf16 latents bf16
+    where JAX makes them f32."""
+    dt = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    return [x.to(dt) for x in xs]
+
+
 def add_noise(sched: DDIMSchedule, x0: torch.Tensor, noise: torch.Tensor,
               t: Union[int, torch.Tensor]) -> torch.Tensor:
     a = sched.alphas_cumprod[torch.as_tensor(t, device=x0.device)]
@@ -65,12 +79,17 @@ def step(sched: DDIMSchedule, model_output: torch.Tensor, t: int,
          sample: torch.Tensor, num_inference_steps: int, eta: float = 0.0,
          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One DDIM update x_t -> x_{t_prev} (epsilon parameterisation,
-    clip_sample=False); ``t`` is the current timestep."""
+    clip_sample=False); ``t`` is the current timestep. f32 from bf16
+    inputs, as in JAX."""
     ratio = sched.num_train_timesteps // num_inference_steps
     prev_t = int(t) - ratio
     a_t = sched.alphas_cumprod[int(t)]
     a_prev = (sched.alphas_cumprod[prev_t] if prev_t >= 0
               else sched.final_alpha_cumprod)
+    model_output, sample, a_t, a_prev = promote(model_output, sample, a_t,
+                                                a_prev)
+    if noise is not None:
+        noise = noise.to(sample.dtype)
     x0 = pred_x0(sched, model_output, int(t), sample)
     if eta > 0.0:
         var = (1.0 - a_prev) / (1.0 - a_t) * (1.0 - a_t / a_prev)
@@ -88,6 +107,8 @@ def pred_x0(sched: DDIMSchedule, model_output: torch.Tensor,
             t: Union[int, torch.Tensor], sample: torch.Tensor
             ) -> torch.Tensor:
     """The clean sample that the predicted noise ``model_output`` implies at
-    timestep ``t`` (a scalar): ``(x_t - sqrt(1 - a_t)·eps) / sqrt(a_t)``."""
-    a_t = sched.alphas_cumprod[t]
+    timestep ``t`` (a scalar): ``(x_t - sqrt(1 - a_t)·eps) / sqrt(a_t)``;
+    f32 from bf16 inputs, as in JAX."""
+    model_output, sample, a_t = promote(model_output, sample,
+                                        sched.alphas_cumprod[t])
     return (sample - torch.sqrt(1.0 - a_t) * model_output) / torch.sqrt(a_t)

@@ -16,6 +16,13 @@ and classifier-free guidance is IP2P's 3-way form (dge_guidance.py:362-368):
 
 Every random draw goes through ``_normal`` with an explicit
 ``torch.Generator`` on the models' device.
+
+The networks compute in ``IP2PModels.dtype`` (``build_models(dtype=...)``,
+f32 or bf16, as the JAX package's ``build_models``), and each function here
+returns the dtype its JAX twin returns: ``encode_text``, ``encode_images``,
+``encode_cond_images``, ``decode_latents`` and ``unet_eps`` give the
+networks' dtype; ``ddim.add_noise`` and ``ddim.step`` give f32 from bf16
+latents.
 """
 
 from __future__ import annotations
@@ -28,12 +35,16 @@ import torch
 from dge_tpu_torch import resolve_device
 from dge_tpu_torch.diffusion import ddim
 from dge_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
-from dge_tpu_torch.models.layers import init_like_flax
+from dge_tpu_torch.models.layers import init_like_flax, store_compute_dtype
 from dge_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from dge_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 
 class IP2PModels(NamedTuple):
+    """The three networks and the DDIM schedule. ``dtype`` is the dtype the
+    networks compute in (all three share it); their norms, the CLIP
+    position table and the schedule stay f32."""
+
     unet: UNet2DConditionModel
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
@@ -43,22 +54,32 @@ class IP2PModels(NamedTuple):
     def device(self) -> torch.device:
         return self.schedule.alphas_cumprod.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.unet.dtype
+
 
 def build_models(unet_cfg: Optional[UNetConfig] = None,
                  vae_cfg: Optional[VAEConfig] = None,
                  text_cfg: Optional[CLIPTextConfig] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
-                 seed: int = 0, device="cuda") -> IP2PModels:
-    """The three networks on ``device`` in eval mode, frozen. ``params``
-    (``{"unet", "vae", "text_encoder"}`` state dicts, from
-    ``weights.load_ip2p_checkpoint`` or ``*_params_from_jax``) load strictly;
+                 seed: int = 0, device="cuda",
+                 dtype: torch.dtype = torch.float32) -> IP2PModels:
+    """The three networks on ``device`` in eval mode, frozen, computing in
+    ``dtype`` (``torch.float32`` or ``torch.bfloat16``; the JAX
+    ``build_models(dtype=...)``). ``params`` (``{"unet", "vae",
+    "text_encoder"}`` f32 state dicts, from ``weights.load_ip2p_checkpoint``,
+    ``weights.load_ingested`` or ``*_params_from_jax``) load strictly;
     without them the weights are drawn as flax initialises the JAX modules
-    (``layers.init_like_flax``) from ``seed``."""
+    (``layers.init_like_flax``) from ``seed``. Either way they are drawn or
+    loaded in f32 and then cast to ``dtype`` once
+    (``layers.store_compute_dtype``): one seed or one parameter tree gives
+    the f32 and the bf16 networks the same weights, rounded."""
     dev = resolve_device(device)
     with dev:
-        unet = UNet2DConditionModel(unet_cfg or UNetConfig())
-        vae = AutoencoderKL(vae_cfg or VAEConfig())
-        text = CLIPTextModel(text_cfg or CLIPTextConfig())
+        unet = UNet2DConditionModel(unet_cfg or UNetConfig(), dtype)
+        vae = AutoencoderKL(vae_cfg or VAEConfig(), dtype)
+        text = CLIPTextModel(text_cfg or CLIPTextConfig(), dtype)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -70,7 +91,7 @@ def build_models(unet_cfg: Optional[UNetConfig] = None,
         vae.load_state_dict(params["vae"])
         text.load_state_dict(params["text_encoder"])
     for m in (unet, vae, text):
-        m.eval().requires_grad_(False)
+        store_compute_dtype(m).eval().requires_grad_(False)
     return IP2PModels(unet, vae, text, ddim.make_schedule(device=dev))
 
 
@@ -112,10 +133,10 @@ def latent_shape(models: IP2PModels, rgb: torch.Tensor) -> Tuple[int, ...]:
 def encode_images_with(models: IP2PModels, rgb: torch.Tensor,
                        noise: torch.Tensor) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] -> the scaled posterior sample at the standard
-    normal draw ``noise`` [B, H/8, W/8, 4]. Keeps the autograd graph: the
-    SDS refit differentiates through it with the draw that made its target
-    latents (the JAX package reuses the same key, systems/edit.py:405,
-    471)."""
+    normal draw ``noise`` [B, H/8, W/8, 4], in the networks' dtype. Keeps
+    the autograd graph: the SDS refit differentiates through it with the
+    draw that made its target latents (the JAX package reuses the same key,
+    systems/edit.py:405, 471)."""
     return nhwc(models.vae.encode(nchw(rgb) * 2.0 - 1.0, nchw(noise)))
 
 

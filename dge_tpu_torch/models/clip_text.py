@@ -15,6 +15,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+from dge_tpu_torch.models.layers import (Embedding, LayerNorm, Linear, attend,
+                                         init_like_flax)
+
 
 @dataclasses.dataclass(frozen=True)
 class CLIPTextConfig:
@@ -39,22 +42,22 @@ def quick_gelu(x):
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         d = cfg.hidden_size
         self.heads = cfg.num_heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Linear(d, d, dtype=dtype)
+        self.k_proj = Linear(d, d, dtype=dtype)
+        self.v_proj = Linear(d, d, dtype=dtype)
+        self.out_proj = Linear(d, d, dtype=dtype)
 
     def forward(self, x, mask=None):
         """x [B, S, D]; ``mask`` [S, S] bool (True = attend) runs the JAX
-        form with masked dense logits; ``mask=None`` attends to every token
-        through ``layers.attend`` (SDPA on a card: the vision tower)."""
+        form with masked dense logits (f32, clip_text.py:65-67);
+        ``mask=None`` attends to every token through ``layers.attend``
+        (SDPA on a card: the vision tower)."""
         if mask is None:
-            from dge_tpu_torch.models.layers import attend
-
             return self.out_proj(attend(self.q_proj(x), self.k_proj(x),
                                         self.v_proj(x), self.heads))
         b, s, d = x.shape
@@ -64,32 +67,35 @@ class CLIPAttention(nn.Module):
             return t.reshape(b, s, self.heads, hd).transpose(1, 2)
 
         q = self.q_proj(x) * hd ** -0.5
-        logits = torch.einsum("bhqd,bhkd->bhqk", split(q),
-                              split(self.k_proj(x)))
+        logits = torch.einsum("bhqd,bhkd->bhqk", split(q).float(),
+                              split(self.k_proj(x)).float())
         logits = torch.where(mask, logits, torch.tensor(
             -1e9, dtype=logits.dtype, device=logits.device))
-        out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
-                           split(self.v_proj(x)))
+        v = split(self.v_proj(x))
+        out = torch.einsum("bhqk,bhkd->bhqd",
+                           torch.softmax(logits, dim=-1).to(v.dtype), v)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
 
 
 class CLIPMLP(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
+        self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(quick_gelu(self.fc1(x)))
 
 
 class CLIPLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.self_attn = CLIPAttention(cfg)
-        self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
-        self.mlp = CLIPMLP(cfg)
+        self.layer_norm1 = LayerNorm(cfg.hidden_size, 1e-5, dtype)
+        self.self_attn = CLIPAttention(cfg, dtype)
+        self.layer_norm2 = LayerNorm(cfg.hidden_size, 1e-5, dtype)
+        self.mlp = CLIPMLP(cfg, dtype)
 
     def forward(self, x, mask=None):
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -97,42 +103,49 @@ class CLIPLayer(nn.Module):
 
 
 class _Embeddings(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype):
         super().__init__()
-        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.token_embedding = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                         dtype)
+        # an f32 parameter in every dtype, as the JAX module's ``param``: the
+        # residual stream it starts stays f32 (clip_text.py:105-111)
         self.position_embedding = nn.Embedding(cfg.max_length,
                                                cfg.hidden_size)
 
 
 class _Encoder(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype):
         super().__init__()
         self.layers = nn.ModuleList(
-            [CLIPLayer(cfg) for _ in range(cfg.num_layers)])
+            [CLIPLayer(cfg, dtype) for _ in range(cfg.num_layers)])
 
 
 class _TextTransformer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg: CLIPTextConfig, dtype: torch.dtype):
         super().__init__()
-        self.embeddings = _Embeddings(cfg)
-        self.encoder = _Encoder(cfg)
-        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=1e-5)
+        self.embeddings = _Embeddings(cfg, dtype)
+        self.encoder = _Encoder(cfg, dtype)
+        self.final_layer_norm = LayerNorm(cfg.hidden_size, 1e-5, dtype)
 
 
 class CLIPTextModel(nn.Module):
-    def __init__(self, config: CLIPTextConfig):
+    """``dtype``: the computation dtype (models/layers.py's rules; the JAX
+    module's ``dtype``)."""
+
+    def __init__(self, config: CLIPTextConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
-        self.text_model = _TextTransformer(config)
+        self.dtype = dtype
+        self.text_model = _TextTransformer(config, dtype)
         self.text_projection = (
-            nn.Linear(config.hidden_size, config.projection_dim, bias=False)
+            Linear(config.hidden_size, config.projection_dim, bias=False,
+                   dtype=dtype)
             if config.projection_dim is not None else None)
 
     def init_like_flax(self, generator: torch.Generator) -> None:
         """The JAX module's default init (models/layers.init_like_flax), with
         the position table drawn at std 0.01 as its ``param`` is."""
-        from dge_tpu_torch.models.layers import init_like_flax
-
         init_like_flax(self, generator)
         with torch.no_grad():
             self.text_model.embeddings.position_embedding.weight.normal_(

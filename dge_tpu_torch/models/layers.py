@@ -19,14 +19,28 @@ The pivot record is an explicit dict that the caller passes to the pivot
 pass (which fills it) and to the reuse passes (which read it); JAX keeps
 the same record in a flax ``"pivot"`` variable collection.
 
+Computation dtype. Every module takes the ``dtype`` its JAX twin carries
+(``float32`` or ``bfloat16``) and follows flax's rules: ``Linear``,
+``Conv2d`` and ``Embedding`` cast their input and weight to it and return
+it (``store_compute_dtype`` casts the f32 weights once, after they are
+drawn or loaded: the same bits as flax's cast in every call);
+``GroupNorm`` and ``LayerNorm`` take their statistics, the normalisation
+and the affine step in f32 with f32 scale and bias and return ``dtype``;
+the timestep sinusoids are f32; attention logits, softmax and the online
+softmax's accumulators are f32, the probabilities cast to the values'
+dtype; the reuse gather's cosine similarity accumulates in f32. At f32
+every cast is the identity, and the networks give the bits they gave
+before they took a dtype.
+
 Attention. On the CPU, ``attend`` runs the JAX package's two forms as torch
 ops: a dense softmax when ``Sq·Sk <= 2^24``, else an online softmax over key
 blocks of ``k_chunk``. On a CUDA device it runs
-``F.scaled_dot_product_attention`` with the backend pinned to
-``EFFICIENT_ATTENTION``, the f32 backend that never builds the logits (the
-``MATH`` backend would build ``[3, 8, Sk, Sk]`` f32 logits in the pivot pass:
-6.4 GB at 8,192 tokens). ``sdpa_takes`` is the written rule for the shapes
-that backend takes; the others go to the chunked form. A refused launch
+``F.scaled_dot_product_attention`` with the backend that ``sdpa_backend``
+names: ``FLASH_ATTENTION`` for bf16 (and f16) at head widths up to 256
+(the UNet's 40, 80 and 160), ``EFFICIENT_ATTENTION`` for f32 and for wider
+heads (the VAE's 512); both never build the logits (the ``MATH`` backend
+would build ``[3, 8, Sk, Sk]`` f32 logits in the pivot pass: 6.4 GB at
+8,192 tokens). Other shapes go to the chunked form. A refused launch
 raises.
 """
 
@@ -67,6 +81,86 @@ class CrossViewState:
     epi_threshold: float = 1.0
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in ``dtype`` (flax ``Dense(dtype=...)``):
+    input, weight and bias cast to it, the output in it."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (flax ``Conv(dtype=...)``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt),
+                                  self.bias.to(dt))
+
+
+class Embedding(nn.Embedding):
+    """``nn.Embedding`` whose table is read in ``dtype`` (flax
+    ``Embed(dtype=...)``)."""
+
+    def __init__(self, num: int, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(num, dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids):
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` as flax's ``GroupNorm(dtype=...)``: statistics,
+    normalisation and affine in f32 with f32 scale and bias, the output
+    cast to ``dtype``."""
+
+    def __init__(self, groups: int, channels: int, eps: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(groups, channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` as flax's ``LayerNorm(dtype=...)`` (see
+    ``GroupNorm``)."""
+
+    def __init__(self, dim: int, eps: float,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
+def store_compute_dtype(model: nn.Module) -> nn.Module:
+    """Casts the weights of every ``Linear``, ``Conv2d`` and ``Embedding``
+    in ``model`` to the dtype it computes in, once; norms keep f32 scale and
+    bias, and other parameters (the CLIP position table) stay as they are,
+    as flax keeps them. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, (Linear, Conv2d, Embedding)):
+            m.to(m.compute_dtype)
+    return model
+
+
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0,
                        flip_sin_to_cos: bool = True,
@@ -84,26 +178,31 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int,
 
 
 class TimestepEmbedding(nn.Module):
-    def __init__(self, in_dim: int, out_dim: int):
+    def __init__(self, in_dim: int, out_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, out_dim)
-        self.linear_2 = nn.Linear(out_dim, out_dim)
+        self.linear_1 = Linear(in_dim, out_dim, dtype=dtype)
+        self.linear_2 = Linear(out_dim, out_dim, dtype=dtype)
 
     def forward(self, sample):
         return self.linear_2(F.silu(self.linear_1(sample)))
 
 
 def attend_dense(qh, kh, vh):
-    """[B, H, Sq, D] x [B, H, Sk, D] -> [B, H, Sq, D], dense softmax."""
+    """[B, H, Sq, D] x [B, H, Sk, D] -> [B, H, Sq, D], dense softmax in f32
+    (layers.py:135-142), the probabilities cast to the values' dtype."""
     scale = 1.0 / math.sqrt(qh.shape[-1])
-    logits = torch.einsum("bhqd,bhkd->bhqk", qh, kh) * scale
-    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1), vh)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
+    return torch.einsum("bhqk,bhkd->bhqd",
+                        torch.softmax(logits, dim=-1).to(vh.dtype), vh)
 
 
 def attend_chunked(qh, kh, vh, k_chunk: int = 512):
     """Online-softmax attention over key blocks (the flash recurrence of the
     JAX ``_attend_chunked``, layers.py:147-192): peak memory one
-    ``[B, H, Sq, k_chunk]`` logits block, exact softmax semantics."""
+    ``[B, H, Sq, k_chunk]`` logits block, exact softmax semantics; f32
+    logits and accumulators, each block's probabilities cast to the values'
+    dtype, the result in the queries' dtype."""
     b, h, sq, d = qh.shape
     sk = kh.shape[2]
     scale = 1.0 / math.sqrt(d)
@@ -112,36 +211,46 @@ def attend_chunked(qh, kh, vh, k_chunk: int = 512):
                    device=qh.device)
     l = torch.zeros((b, h, sq), dtype=torch.float32, device=qh.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qh.device)
+    qf = qh.float()
     for off in range(0, sk, k_chunk):
-        logits = torch.einsum("bhqd,bhkd->bhqk", qh,
-                              kh[:, :, off:off + k_chunk]) * scale
+        logits = torch.einsum("bhqd,bhkd->bhqk", qf,
+                              kh[:, :, off:off + k_chunk].float()) * scale
         m_new = torch.maximum(m, logits.amax(dim=-1))
         corr = torch.exp(m - m_new)
         p = torch.exp(logits - m_new[..., None])
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bhkd->bhqd", p, vh[:, :, off:off + k_chunk])
+            "bhqk,bhkd->bhqd", p.to(vh.dtype).float(),
+            vh[:, :, off:off + k_chunk].float())
         m = m_new
     return (acc / l[..., None]).to(qh.dtype)
 
 
-def sdpa_takes(head_dim: int, dtype: torch.dtype) -> bool:
-    """The shapes the pinned ``EFFICIENT_ATTENTION`` backend takes: the
-    head width a multiple of 8 (its GEMM alignment), floating point. On
-    the H100 it took every head width of the edit path (40, 80, 160; the
-    VAE's 512; see PERF.md §6)."""
-    return head_dim % 8 == 0 and dtype in (torch.float32, torch.float16,
-                                           torch.bfloat16)
+def sdpa_backend(head_dim: int, dtype: torch.dtype) -> Optional[str]:
+    """The ``SDPBackend`` that attention at this head width and dtype runs
+    on a card, or None for the chunked form: ``FLASH_ATTENTION`` for bf16
+    and f16 up to head width 256, ``EFFICIENT_ATTENTION`` (the f32 backend,
+    and the wider heads') otherwise; the head width a multiple of 8 (their
+    GEMM alignment). On the H100, EFFICIENT took every head width of the
+    f32 edit path (40, 80, 160; the VAE's 512; PERF.md §6)."""
+    if head_dim % 8:
+        return None
+    if dtype in (torch.float16, torch.bfloat16) and head_dim <= 256:
+        return "FLASH_ATTENTION"
+    if dtype in (torch.float32, torch.float16, torch.bfloat16):
+        return "EFFICIENT_ATTENTION"
+    return None
 
 
 def attend_heads(qh, kh, vh, k_chunk: int = 512):
-    """[B, H, Sq, D] attention on the device of ``qh``: pinned SDPA on a
-    CUDA device for the shapes ``sdpa_takes``; the JAX package's dense or
+    """[B, H, Sq, D] attention on the device of ``qh``: SDPA pinned to
+    ``sdpa_backend``'s choice on a CUDA device; the JAX package's dense or
     chunked form otherwise."""
-    if qh.is_cuda and sdpa_takes(qh.shape[-1], qh.dtype):
+    backend = sdpa_backend(qh.shape[-1], qh.dtype) if qh.is_cuda else None
+    if backend is not None:
         from torch.nn.attention import SDPBackend, sdpa_kernel
 
-        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel(getattr(SDPBackend, backend)):
             return F.scaled_dot_product_attention(qh, kh, vh)
     if qh.shape[2] * kh.shape[2] > CHUNKED_LOGITS_THRESHOLD:
         return attend_chunked(qh, kh, vh, k_chunk)
@@ -164,14 +273,17 @@ class Attention(nn.Module):
     """Multi-head attention (diffusers Attention): to_q/to_k/to_v/to_out.0."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         inner = heads * dim_head
         self.heads = heads
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(context_dim or query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim),
+        self.to_q = Linear(query_dim, inner, bias=False, dtype=dtype)
+        self.to_k = Linear(context_dim or query_dim, inner, bias=False,
+                           dtype=dtype)
+        self.to_v = Linear(context_dim or query_dim, inner, bias=False,
+                           dtype=dtype)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim, dtype=dtype),
                                      nn.Identity()])
 
     def forward(self, x, context=None, extended_frames: int = 0):
@@ -199,9 +311,10 @@ class Attention(nn.Module):
 
 
 class GEGLU(nn.Module):
-    def __init__(self, dim: int, inner: int):
+    def __init__(self, dim: int, inner: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Linear(dim, inner * 2)
+        self.proj = Linear(dim, inner * 2, dtype=dtype)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -212,10 +325,12 @@ class GEGLU(nn.Module):
 class GEGLUFeedForward(nn.Module):
     """diffusers FeedForward: net.0 = GEGLU, net.1 = dropout, net.2."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult, dtype),
+                                  nn.Identity(),
+                                  Linear(dim * mult, dim, dtype=dtype)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
@@ -230,7 +345,8 @@ def epi_blockwise_argmax(img, piv_img, lines, pts, threshold: float,
     [F, K, S, 3], pts [S, 3]. Violating pairs count as similarity 0 (not
     -inf); query rows whose every pivot token violates take the unmasked
     argmax. Ties keep the first index inside a block and the earlier
-    block across blocks. Returns long [F, K, S]."""
+    block across blocks. The similarity accumulates in f32 whatever the
+    tokens' dtype (layers.py:286). Returns long [F, K, S]."""
     f, k, s, _ = piv_img.shape
     block = min(block, s)
     dev = img.device
@@ -239,9 +355,10 @@ def epi_blockwise_argmax(img, piv_img, lines, pts, threshold: float,
     br_val = torch.full((f, k, s), -math.inf, device=dev)
     br_idx = torch.zeros((f, k, s), dtype=torch.long, device=dev)
     all_bad = torch.ones((f, k, s), dtype=torch.bool, device=dev)
+    img = img.float()
     for off in range(0, s, block):
         sim = torch.einsum("fsd,fktd->fkst", img,
-                           piv_img[:, :, off:off + block])
+                           piv_img[:, :, off:off + block].float())
         dist = torch.einsum("fksc,tc->fkst", lines,
                             pts[off:off + block]).abs()
         viol = dist > threshold
@@ -262,15 +379,17 @@ def _unit(x):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         # torch LayerNorm default eps 1e-5 (diffusers BasicTransformerBlock)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn1 = Attention(dim, heads, dim_head)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn2 = Attention(dim, heads, dim_head, context_dim=context_dim)
-        self.norm3 = nn.LayerNorm(dim, eps=1e-5)
-        self.ff = GEGLUFeedForward(dim)
+        self.norm1 = LayerNorm(dim, 1e-5, dtype)
+        self.attn1 = Attention(dim, heads, dim_head, dtype=dtype)
+        self.norm2 = LayerNorm(dim, 1e-5, dtype)
+        self.attn2 = Attention(dim, heads, dim_head, context_dim=context_dim,
+                               dtype=dtype)
+        self.norm3 = LayerNorm(dim, 1e-5, dtype)
+        self.ff = GEGLUFeedForward(dim, dtype=dtype)
         # the key of this block's entry in a pivot record; the UNet sets it
         # to the block's module path
         self.pivot_key = ""
@@ -315,7 +434,8 @@ class BasicTransformerBlock(nn.Module):
             idx = epi_blockwise_argmax(img, piv_img, cv.epi_lines[s],
                                        cv.epi_pts[s], cv.epi_threshold)
         else:
-            sim = torch.einsum("fsd,fktd->fkst", img, piv_img)
+            sim = torch.einsum("fsd,fktd->fkst", img.float(),
+                               piv_img.float())
             if cv.epipolar is not None and s in cv.epipolar:
                 violation = cv.epipolar[s]
                 # rows where every pivot token violates are exempted
@@ -346,14 +466,16 @@ def from_tokens(x, h: int, w: int):
 
 class Transformer2DModel(nn.Module):
     def __init__(self, channels: int, heads: int, dim_head: int,
-                 context_dim: int, groups: int = 32):
+                 context_dim: int, groups: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm = nn.GroupNorm(groups, channels, eps=1e-6)
+        self.norm = GroupNorm(groups, channels, 1e-6, dtype)
         # SD-1.5 uses 1x1 conv projections (use_linear_projection=False)
-        self.proj_in = nn.Conv2d(channels, channels, 1)
+        self.proj_in = Conv2d(channels, channels, 1, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, dim_head, context_dim)])
-        self.proj_out = nn.Conv2d(channels, channels, 1)
+            BasicTransformerBlock(channels, heads, dim_head, context_dim,
+                                  dtype)])
+        self.proj_out = Conv2d(channels, channels, 1, dtype=dtype)
 
     def forward(self, x, context, **kw):
         """x [B, C, H, W] -> same."""
@@ -369,15 +491,19 @@ class ResnetBlock2D(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  temb_channels: Optional[int] = None, groups: int = 32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.norm1 = nn.GroupNorm(groups, in_channels, eps=eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.norm1 = GroupNorm(groups, in_channels, eps, dtype)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.time_emb_proj = (Linear(temb_channels, out_channels,
+                                     dtype=dtype)
                               if temb_channels else None)
-        self.norm2 = nn.GroupNorm(groups, out_channels, eps=eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
-        self.conv_shortcut = (nn.Conv2d(in_channels, out_channels, 1)
+        self.norm2 = GroupNorm(groups, out_channels, eps, dtype)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            dtype=dtype)
+        self.conv_shortcut = (Conv2d(in_channels, out_channels, 1,
+                                     dtype=dtype)
                               if in_channels != out_channels else None)
 
     def forward(self, x, temb=None):
@@ -395,11 +521,12 @@ class Downsample2D(nn.Module):
     forward; ``padding=1``: the UNet's symmetric pad. Same output shape on
     even inputs, different window alignment."""
 
-    def __init__(self, channels: int, padding: int = 0):
+    def __init__(self, channels: int, padding: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.padding = padding
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2,
-                              padding=padding)
+        self.conv = Conv2d(channels, channels, 3, stride=2, padding=padding,
+                           dtype=dtype)
 
     def forward(self, x):
         if self.padding == 0:
@@ -408,9 +535,9 @@ class Downsample2D(nn.Module):
 
 
 class Upsample2D(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = Conv2d(channels, channels, 3, padding=1, dtype=dtype)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))

@@ -24,8 +24,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dge_tpu_torch.models.layers import (BasicTransformerBlock, CrossViewState,
-                                         Downsample2D, ResnetBlock2D,
+from dge_tpu_torch.models.layers import (BasicTransformerBlock, Conv2d,
+                                         CrossViewState, Downsample2D,
+                                         GroupNorm, ResnetBlock2D,
                                          TimestepEmbedding, Transformer2DModel,
                                          Upsample2D, timestep_embedding)
 
@@ -53,23 +54,29 @@ class _Block(nn.Module):
 
 
 class UNet2DConditionModel(nn.Module):
-    def __init__(self, config: UNetConfig):
+    """``dtype``: the computation dtype (models/layers.py's rules; the JAX
+    module's ``dtype``)."""
+
+    def __init__(self, config: UNetConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = cfg = config
+        self.dtype = dtype
         ch = cfg.block_out_channels
         n = len(ch)
         heads, groups = cfg.attention_heads, cfg.norm_groups
         temb = ch[0] * 4
 
         def resnet(cin, cout):
-            return ResnetBlock2D(cin, cout, temb, groups)
+            return ResnetBlock2D(cin, cout, temb, groups, dtype=dtype)
 
         def transformer(c):
             return Transformer2DModel(c, heads, c // heads,
-                                      cfg.cross_attention_dim, groups)
+                                      cfg.cross_attention_dim, groups, dtype)
 
-        self.time_embedding = TimestepEmbedding(ch[0], temb)
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(ch[0], temb, dtype)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1,
+                              dtype=dtype)
         skips = [ch[0]]
         self.down_blocks = nn.ModuleList()
         c = ch[0]
@@ -84,7 +91,8 @@ class UNet2DConditionModel(nn.Module):
                 blk.attentions = nn.ModuleList(
                     [transformer(ch[i]) for _ in range(cfg.layers_per_block)])
                 # the SD UNet pads its downsamplers symmetrically
-                blk.downsamplers = nn.ModuleList([Downsample2D(ch[i], 1)])
+                blk.downsamplers = nn.ModuleList([
+                    Downsample2D(ch[i], 1, dtype)])
                 skips.append(c)
             self.down_blocks.append(blk)
         self.mid_block = _Block()
@@ -103,10 +111,11 @@ class UNet2DConditionModel(nn.Module):
                     [transformer(ch_i)
                      for _ in range(cfg.layers_per_block + 1)])
             if i != n - 1:
-                blk.upsamplers = nn.ModuleList([Upsample2D(ch_i)])
+                blk.upsamplers = nn.ModuleList([Upsample2D(ch_i, dtype)])
             self.up_blocks.append(blk)
-        self.conv_norm_out = nn.GroupNorm(groups, ch[0], eps=1e-5)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(groups, ch[0], 1e-5, dtype)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1,
+                               dtype=dtype)
         for name, m in self.named_modules():
             if isinstance(m, BasicTransformerBlock):
                 m.pivot_key = name

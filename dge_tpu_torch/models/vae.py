@@ -16,9 +16,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dge_tpu_torch.models.layers import (Downsample2D, ResnetBlock2D,
-                                         Upsample2D, attend, from_tokens,
-                                         to_tokens)
+from dge_tpu_torch.models.layers import (Conv2d, Downsample2D, GroupNorm,
+                                         Linear, ResnetBlock2D, Upsample2D,
+                                         attend, from_tokens, to_tokens)
 
 SD_VAE_SCALE = 0.18215
 
@@ -42,13 +42,14 @@ class VAEAttention(nn.Module):
     """Single-head spatial self-attention of the mid block (diffusers
     Attention with heads=1 on [B, H*W, C])."""
 
-    def __init__(self, channels: int, groups: int = 32):
+    def __init__(self, channels: int, groups: int = 32,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.group_norm = nn.GroupNorm(groups, channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels),
+        self.group_norm = GroupNorm(groups, channels, 1e-6, dtype)
+        self.to_q = Linear(channels, channels, dtype=dtype)
+        self.to_k = Linear(channels, channels, dtype=dtype)
+        self.to_v = Linear(channels, channels, dtype=dtype)
+        self.to_out = nn.ModuleList([Linear(channels, channels, dtype=dtype),
                                      nn.Identity()])
 
     def forward(self, x):
@@ -62,11 +63,12 @@ class _Block(nn.Module):
     """A diffusers down / up / mid block: only holds its named children."""
 
 
-def _mid(c, groups):
+def _mid(c, groups, dtype):
     blk = _Block()
-    blk.resnets = nn.ModuleList([ResnetBlock2D(c, c, None, groups, 1e-6),
-                                 ResnetBlock2D(c, c, None, groups, 1e-6)])
-    blk.attentions = nn.ModuleList([VAEAttention(c, groups)])
+    blk.resnets = nn.ModuleList([
+        ResnetBlock2D(c, c, None, groups, 1e-6, dtype),
+        ResnetBlock2D(c, c, None, groups, 1e-6, dtype)])
+    blk.attentions = nn.ModuleList([VAEAttention(c, groups, dtype)])
     return blk
 
 
@@ -77,25 +79,28 @@ def _run_mid(blk, h):
 
 
 class Encoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         ch, g = cfg.block_out_channels, cfg.norm_groups
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1,
+                              dtype=dtype)
         self.down_blocks = nn.ModuleList()
         c = ch[0]
         for i in range(len(ch)):
             blk = _Block()
             blk.resnets = nn.ModuleList()
             for _ in range(cfg.layers_per_block):
-                blk.resnets.append(ResnetBlock2D(c, ch[i], None, g, 1e-6))
+                blk.resnets.append(ResnetBlock2D(c, ch[i], None, g, 1e-6,
+                                                 dtype))
                 c = ch[i]
             if i != len(ch) - 1:
                 # the VAE pads its downsamplers (0, 1, 0, 1)
-                blk.downsamplers = nn.ModuleList([Downsample2D(c, 0)])
+                blk.downsamplers = nn.ModuleList([Downsample2D(c, 0, dtype)])
             self.down_blocks.append(blk)
-        self.mid_block = _mid(c, g)
-        self.conv_norm_out = nn.GroupNorm(g, c, eps=1e-6)
-        self.conv_out = nn.Conv2d(c, 2 * cfg.latent_channels, 3, padding=1)
+        self.mid_block = _mid(c, g, dtype)
+        self.conv_norm_out = GroupNorm(g, c, 1e-6, dtype)
+        self.conv_out = Conv2d(c, 2 * cfg.latent_channels, 3, padding=1,
+                               dtype=dtype)
 
     def forward(self, x):
         h = self.conv_in(x)
@@ -109,12 +114,13 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: VAEConfig):
+    def __init__(self, cfg: VAEConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         ch, g = cfg.block_out_channels, cfg.norm_groups
         n = len(ch)
-        self.conv_in = nn.Conv2d(cfg.latent_channels, ch[-1], 3, padding=1)
-        self.mid_block = _mid(ch[-1], g)
+        self.conv_in = Conv2d(cfg.latent_channels, ch[-1], 3, padding=1,
+                              dtype=dtype)
+        self.mid_block = _mid(ch[-1], g, dtype)
         self.up_blocks = nn.ModuleList()
         c = ch[-1]
         for i in range(n):
@@ -122,13 +128,15 @@ class Decoder(nn.Module):
             blk = _Block()
             blk.resnets = nn.ModuleList()
             for _ in range(cfg.layers_per_block + 1):
-                blk.resnets.append(ResnetBlock2D(c, ch_i, None, g, 1e-6))
+                blk.resnets.append(ResnetBlock2D(c, ch_i, None, g, 1e-6,
+                                                 dtype))
                 c = ch_i
             if i != n - 1:
-                blk.upsamplers = nn.ModuleList([Upsample2D(c)])
+                blk.upsamplers = nn.ModuleList([Upsample2D(c, dtype)])
             self.up_blocks.append(blk)
-        self.conv_norm_out = nn.GroupNorm(g, c, eps=1e-6)
-        self.conv_out = nn.Conv2d(c, cfg.in_channels, 3, padding=1)
+        self.conv_norm_out = GroupNorm(g, c, 1e-6, dtype)
+        self.conv_out = Conv2d(c, cfg.in_channels, 3, padding=1,
+                               dtype=dtype)
 
     def forward(self, z):
         h = _run_mid(self.mid_block, self.conv_in(z))
@@ -141,15 +149,20 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    def __init__(self, config: VAEConfig):
+    """``dtype``: the computation dtype (models/layers.py's rules; the JAX
+    module's ``dtype``)."""
+
+    def __init__(self, config: VAEConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
+        self.dtype = dtype
         c2 = 2 * config.latent_channels
-        self.encoder = Encoder(config)
-        self.decoder = Decoder(config)
-        self.quant_conv = nn.Conv2d(c2, c2, 1)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels,
-                                         config.latent_channels, 1)
+        self.encoder = Encoder(config, dtype)
+        self.decoder = Decoder(config, dtype)
+        self.quant_conv = Conv2d(c2, c2, 1, dtype=dtype)
+        self.post_quant_conv = Conv2d(config.latent_channels,
+                                      config.latent_channels, 1, dtype=dtype)
 
     @property
     def downscale(self) -> int:
@@ -163,11 +176,12 @@ class AutoencoderKL(nn.Module):
 
     def encode(self, x, noise: Optional[torch.Tensor] = None):
         """The scaled latent: a sample of the posterior with the standard
-        normal draw ``noise`` ([B, 4, h, w]), or its mode when ``noise`` is
+        normal draw ``noise`` ([B, 4, h, w], taken in the mean's dtype as
+        the JAX module draws it, vae.py:163), or its mode when ``noise`` is
         None."""
         mean, logvar = self.encode_moments(x)
         if noise is not None:
-            mean = mean + torch.exp(0.5 * logvar) * noise
+            mean = mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
         return mean * self.config.scaling_factor
 
     def decode(self, z):

@@ -19,7 +19,10 @@ predictions in batch order, so every rank holds the same ``eps``. The
 SDS mode's eps prediction is ``sds_multiview`` / ``compute_grad_sds``.
 
 Images are ``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]`` at this
-module's edges (the JAX layout). Every random draw goes through ``P._normal``
+module's edges (the JAX layout). With bf16 networks (``build_models(dtype=
+torch.bfloat16)``) the dtypes are JAX's: bf16 posterior latents and noise,
+f32 latents from ``add_noise`` and every DDIM step, bf16 noise predictions
+and edited images. Every random draw goes through ``P._normal``
 or ``_pivot_offsets`` with an explicit ``torch.Generator``.
 """
 
@@ -79,9 +82,11 @@ def _pivot_offsets(n_batches: int, cbs: int,
 
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Bilinear resize of [B, H, W, 3]; antialiased, which is what
-    ``jax.image.resize(..., "bilinear")`` does when it shrinks."""
-    return P.nhwc(F.interpolate(P.nchw(x), size=(h, w), mode="bilinear",
-                                align_corners=False, antialias=True))
+    ``jax.image.resize(..., "bilinear")`` does when it shrinks. Computed in
+    f32, returned in ``x``'s dtype."""
+    return P.nhwc(F.interpolate(P.nchw(x.float()), size=(h, w),
+                                mode="bilinear", align_corners=False,
+                                antialias=True)).to(x.dtype)
 
 
 @torch.no_grad()
@@ -191,7 +196,8 @@ class DGEGuidance:
         n_batches = b // cbs
         sched = self.models.schedule._replace(
             num_train_timesteps=max(t_start, cfg.diffusion_steps))
-        noise = P._normal(tuple(latents.shape), generator)
+        # drawn in the latents' dtype (guidance.py:268)
+        noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         latents = ddim.add_noise(sched, latents, noise, t_start)
         emb_pos, emb_neg, _ = text_emb.chunk(3, dim=0)
         cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
@@ -381,7 +387,7 @@ class DGEGuidance:
             return te, cl
 
         t = int(t if t is not None else self.max_step - 1)
-        noise = P._normal(tuple(latents.shape), generator)
+        noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         noisy = ddim.add_noise(models.schedule, latents, noise, t)
         cbs = cfg.camera_batch_size
         eps = self._predict_eps_multiview(
@@ -399,8 +405,9 @@ class DGEGuidance:
         """The SDS gradient ``(1 - alpha_bar_t)(eps - noise)`` through
         ``nan_to_num`` (NaN to 0, infinities to the largest finite
         floats), as the JAX package takes it."""
-        w_t = 1.0 - self.models.schedule.alphas_cumprod[t]
-        return torch.nan_to_num(w_t * (eps - noise))
+        w_t, diff = ddim.promote(1.0 - self.models.schedule.alphas_cumprod[t],
+                                 eps - noise)
+        return torch.nan_to_num(w_t * diff)
 
     @torch.no_grad()
     def compute_grad_sds(self, text_emb: torch.Tensor, latents: torch.Tensor,
@@ -410,7 +417,7 @@ class DGEGuidance:
         dge_guidance.py:376-475): text_emb [3B, S, D] (pos, neg, neg),
         latents [B, h, w, 4], cond_latents [3B, h, w, 4] (img, img, zeros);
         plain attention, ``(1 - alpha_bar_t)(eps - noise)``."""
-        noise = P._normal(tuple(latents.shape), generator)
+        noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         noisy = ddim.add_noise(self.models.schedule, latents, noise, t)
         cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
         inp = torch.cat([P.triple(noisy),
@@ -420,5 +427,6 @@ class DGEGuidance:
                                    text_emb).chunk(3, dim=0)
         eps = P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
                             self.cfg.condition_scale)
-        w_t = 1.0 - self.models.schedule.alphas_cumprod[t]
-        return w_t * (eps - noise)
+        w_t, diff = ddim.promote(1.0 - self.models.schedule.alphas_cumprod[t],
+                                 eps - noise)
+        return w_t * diff
