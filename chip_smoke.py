@@ -12,9 +12,11 @@ process per source, started together) and runs:
    alone against its plain PyTorch version (``rows_forward_reference``,
    ``rows_combine_reference``) and the two together against the plain
    forward, on the block-boundary fixture, on a saturation fixture where
-   every case of the combine fires (the counts are printed) and on a seeded
-   random scene at tile 8, 16 and 32 and chunk 128, 256 and 512; a NaN
-   colour, and a forward launch the card refuses; the backward kernels
+   every case of the combine fires (the counts are printed), on one tile of
+   24 rows at chunk 128, 256 and 512 (every case fires in every row
+   position) and on a seeded random scene at tile 8, 16 and 32 and chunk
+   128, 256 and 512; a NaN colour, and a forward launch and a combine
+   launch (both forms) the card refuses; the backward kernels
    (pass 1 = K3: row totals from a handed-over ``boundary_T`` and without
    one; the suffix kernel; pass 2 = K4) against their plain versions on the
    same streams (tolerances: colour 1e-4, depth 1e-3, final T, boundary T
@@ -1655,6 +1657,70 @@ def refused_forward_launch(inp):
         raise AssertionError("the launch after the refusal differs")
 
 
+def deep_tile_fixture(dev, rows: int, chunk: int):
+    """One 32x32 tile of ``rows`` full rows of seeded random Gaussians over
+    it (means within two pixels of the tile, opacities up to 1): pixels
+    saturate in the first rows and hover above 1e-4 after, so every
+    combine case fires and the walks span words and rows."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(rows * chunk)
+    n = rows * chunk
+    scale = rng.uniform(0.02, 0.4, size=n)
+    feat = np.stack([
+        rng.uniform(-2, 34, size=n), rng.uniform(-2, 34, size=n),
+        scale, rng.uniform(-0.02, 0.02, size=n), scale * 0.8,
+        rng.uniform(0.02, 1.0, size=n),
+        rng.uniform(size=n), rng.uniform(size=n), rng.uniform(size=n),
+        rng.uniform(1, 5, size=n)]).astype(np.float32)
+    return dict(data=torch.from_numpy(feat).to(dev).contiguous(),
+                starts=torch.zeros(1, dtype=torch.int32, device=dev),
+                counts=torch.full((1,), n, dtype=torch.int32, device=dev),
+                tiles_x=1, tiles_y=1, pairs=n, chunk=chunk, tile_px=32)
+
+
+def refused_combine_launch(inp, log_space: bool):
+    """A combine launch the card refuses (chunk 4096: a ring of two stages
+    of a row's pairs, 2 x 164 KB, past the 227 KB a block may have) raises
+    in the wrapper and counts nothing, and the next launch is unharmed."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+
+    args = (inp["data"], inp["starts"], inp["counts"])
+    kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
+              chunk=inp["chunk"], log_space=log_space)
+    blk_off, row_tile, _ = PC.block_rows(inp["starts"], inp["counts"],
+                                         inp["chunk"], inp["data"].shape[1])
+    scratch, mask = PC.rows_forward(*args, blk_off, row_tile, **kw)
+    good = PC.rows_combine(scratch, mask, *args, blk_off, **kw)
+    dev = inp["data"].device
+    chunk = 4096
+    b_off, _, n_rows = PC.block_rows(inp["starts"], inp["counts"], chunk,
+                                     inp["data"].shape[1])
+    big = (torch.zeros(n_rows, PC.ROW_FIELDS + log_space,
+                       inp["tile_px"] ** 2, device=dev),
+           torch.zeros(PC.mask_shape(n_rows, inp["tile_px"], chunk),
+                       dtype=torch.int32, device=dev))
+    old = PC.MAX_CHUNK
+    PC.MAX_CHUNK = chunk
+    before = dict(PC.launch_counts)
+    try:
+        PC.rows_combine(*big, *args, b_off, **dict(kw, chunk=chunk))
+    except RuntimeError as e:
+        log(f"  refused combine launch (log_space {log_space}) raises: {e}")
+    else:
+        raise AssertionError("a refused combine launch did not raise")
+    finally:
+        PC.MAX_CHUNK = old
+    if PC.launch_counts != before:
+        raise AssertionError("a refused combine launch was counted")
+    if not torch.equal(PC.rows_combine(scratch, mask, *args, blk_off, **kw),
+                       good):
+        raise AssertionError("the combine launch after the refusal differs")
+
+
 def nan_colour_lists(dev):
     """Two tiles' lists of five wide Gaussians, the third with a NaN red:
     K2 gives NaN red where its plain version does and agrees on the
@@ -3184,6 +3250,22 @@ def main(argv=None) -> int:
                                      f"never fired: {fired}")
         nan_colour_forward(dev)
         refused_forward_launch(sat)
+        # one tile of many rows at each chunk, every case of the combine
+        # firing; a combine launch the card refuses
+        for chunk in (128, 256, 512):
+            deep = deep_tile_fixture(dev, 24, chunk)
+            for log_space in (False, True):
+                found = forward_vs_plain(deep, f"deep tile chunk {chunk}",
+                                         log_space)
+                for k in FORWARD_FORMS[log_space][:2]:
+                    errs[k].append(found[k])
+                if min(found["cases"][c] for c in ("all", "none", "walk")) \
+                        <= 0:
+                    raise AssertionError(f"deep tile chunk {chunk}: a "
+                                         f"combine case never fired: "
+                                         f"{found['cases']}")
+        for log_space in (False, True):
+            refused_combine_launch(sat, log_space)
 
         rng = np.random.default_rng(0)
         rscene = random_scene(rng, 4000, dev)

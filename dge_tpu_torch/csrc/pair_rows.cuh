@@ -145,4 +145,24 @@ inline bool aligned16(const void* ptr) {
 // Threads of a row kernel's block: kPix pixels a thread, whole warps.
 inline int threads_for(int p) { return ((p + kPix - 1) / kPix + 31) / 32 * 32; }
 
+constexpr int kMaxDevices = 64;
+
+// Ask once per device and size for dynamic shared memory above the 48 KB
+// default (`granted`: the size granted so far per device, one array per
+// kernel). Returns the CUDA error (0 = granted) and leaves none behind.
+template <typename Kernel>
+int grant_dynamic_smem(Kernel kernel, size_t smem, size_t* granted) {
+  if (smem <= 48 * 1024) return 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device >= kMaxDevices || smem > granted[device])) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess && device < kMaxDevices) granted[device] = smem;
+  }
+  if (err != cudaSuccess) cudaGetLastError();  // reported by the caller
+  return static_cast<int>(err);
+}
+
 }  // namespace dge

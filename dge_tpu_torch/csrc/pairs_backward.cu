@@ -149,8 +149,6 @@ namespace {
 
 using namespace dge;
 
-constexpr int kMaxDevices = 64;
-
 // 1/x in one MUFU instruction, for x in [0.01, 1] (about 1 ulp).
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
@@ -396,20 +394,9 @@ int launch_rows(const float* data, int pc, const int* starts,
                        (kPass2 ? static_cast<size_t>(threads / 32) * chunk *
                                      kFeat
                                : 0));
-  if (smem > 48 * 1024) {
-    int device = 0;
-    cudaError_t err = cudaGetDevice(&device);
-    if (err == cudaSuccess && (device >= kMaxDevices || smem > granted[device])) {
-      err = cudaFuncSetAttribute(pairs_rows_kernel<kPass2>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
-      if (err == cudaSuccess && device < kMaxDevices) granted[device] = smem;
-    }
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // reported here; leave no error behind
-      return static_cast<int>(err);
-    }
-  }
+  const int err =
+      grant_dynamic_smem(pairs_rows_kernel<kPass2>, smem, granted);
+  if (err != 0) return err;
   const int vec = p % kPix == 0 && aligned16(cot) && aligned16(boundary_t) &&
                   (kPass2 ? aligned16(fwd_out) && aligned16(suffix)
                           : aligned16(out));

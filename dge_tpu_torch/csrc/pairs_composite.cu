@@ -49,23 +49,33 @@
 //    have stopped. Per group of 32 pixels (an 8x4 patch of a 32-wide tile)
 //    it also writes a keep mask, one bit a pair: some pixel of the group
 //    keeps it before it stops.
-// 2. Combine kernel, one thread a pixel, one warp a mask group, each warp on
-//    its own: over the tile's rows in order from T = 1 (the next row's
-//    scratch loaded ahead), store boundary_T[row] = T on request, then
+// 2. Combine kernel, one thread a pixel, one warp a mask group, a block a
+//    band of 8 groups (4 in a tile of <= 128 pixels) and one producer warp:
+//    over the tile's rows in order from T = 1, store boundary_T[row] = T on
+//    request, then
 //      T cp_last >= 1e-4:   rgbd += T L,  T = T cp_last      (all applied)
 //      T cp_first < 1e-4:   nothing                          (none applied)
 //      else:                the lanes in this case walk the row together
 //                           from the least of their j0 over the pairs of
 //                           their group's mask, with the one-block-per-tile
 //                           walk's arithmetic, until every such lane is
-//                           refused: a mask word (32 pairs) staged in the
-//                           warp's shared slot in one round trip, four
-//                           pairs' alphas at a time.
+//                           refused, four pairs' alphas taken together and
+//                           then applied in order.
+//    Nothing a row needs depends on T, so the producer stages each row (its
+//    pairs, the band's scratch and keep-mask words) in a ring of
+//    shared-memory stages (bulk copies), up to the ring's depth ahead of
+//    the band's warps, which settle and walk from shared memory and release
+//    a stage when done: the chain of rows and the walks wait on shared
+//    memory, one stage a row for the band's warps.
 //    The third case is NOT rare: on the trained bench scene it is 11% of the
 //    (row, pixel) visits at 512^2 and 38% at 1080p (a pixel saturates inside
 //    a row, then hovers just above 1e-4). So the combine spreads a tile over
 //    8 to 32 warps, not one block, and a walk visits only the pairs some
 //    pixel of its compact patch keeps.
+//    The walks' latency (a chain of dependent alphas, an expf each, and
+//    prefixes), not the chain of rows, sets the combine's time, and a band
+//    moves at its slowest warp's walks up to the ring's depth: the ring
+//    costs more than the memory round trips it hides (PERF.md §6).
 // Committed T, final T and boundary_T are the walk's f32 products; colour
 // and depth differ only in where T is multiplied in (T sum(..) against
 // sum T (..)), about 1e-6 relative. No atomics: launches repeat bit for bit.

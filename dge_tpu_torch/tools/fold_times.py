@@ -26,6 +26,9 @@ import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEFAULT_ROOT = os.path.dirname(os.path.dirname(HERE))
+# the sibling tools of this file's tree, whatever tree --root names
+sys.path.insert(0, HERE)
+import list_kernel_times as LKT  # noqa: E402
 TILE_PX = 32
 CHUNK = 64  # the renderer's; the stream kernels run at max(chunk, 128)
 
@@ -36,22 +39,10 @@ def stream_grads(scene, cam, r, dev):
     them → (bins, pair_grads, used)."""
     import torch
 
-    from dge_tpu_torch.ops import binning as B
     from dge_tpu_torch.ops import pairs_backward as PB
     from dge_tpu_torch.ops import pairs_composite as PC
-    from dge_tpu_torch.ops import projection as P
 
-    prep = P.preprocess(scene.xyz, scene.get_scaling, scene.get_rotation,
-                        scene.get_opacity, scene.get_features, scene.alive,
-                        cam, scene.active_sh_degree, scene.max_sh_degree)
-    caps = {k: v for k, v in r.caps.items() if k != "tight_cull"}
-    pb = B.bin_gaussians_pairs(
-        prep.mean2d, prep.depth, prep.radius, prep.visible,
-        height=cam.height, width=cam.width, tile_px=TILE_PX,
-        conic=prep.conic if r.tight_cull else None,
-        opacity=prep.opacity if r.tight_cull else None, **caps)
-    data = PC.assemble_stream_data(pb.pair_ids, prep.mean2d, prep.conic,
-                                   prep.rgb, prep.depth, prep.opacity)
+    pb, data = LKT.pair_stream(scene, cam, r, TILE_PX)
     starts, counts = pb.starts.contiguous(), pb.counts.contiguous()
     chunk = max(CHUNK, 128)
     kw = dict(tiles_x=pb.tiles_x, tile_px=TILE_PX, chunk=chunk)
@@ -72,7 +63,6 @@ def fold_cell(scene, cam, r, dev) -> dict:
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
-    from dge_tpu_torch.tools.list_kernel_times import device_ms, event_ms
 
     pb, grads, used = stream_grads(scene, cam, r, dev)
     n = scene.capacity
@@ -86,13 +76,13 @@ def fold_cell(scene, cam, r, dev) -> dict:
         return torch.zeros(10, n, device=dev).index_add_(
             1, pb.pair_ids.long(), grads)
 
-    fold_dev, lib_dev = device_ms(fold), device_ms(index_add)
+    fold_dev, lib_dev = LKT.device_ms(fold), LKT.device_ms(index_add)
     return dict(pairs=int(pb.counts.sum()), used=int(used), gaussians=n,
-                caps=r.caps, fold_event_ms=event_ms(fold),
+                caps=r.caps, fold_event_ms=LKT.event_ms(fold),
                 fold_device_ms=per_call_ms(fold_dev),
                 fold_launches=sum(c for _, c in fold_dev["kernels"].values()),
                 fold_kernels=fold_dev["kernels"],
-                index_add_event_ms=event_ms(index_add),
+                index_add_event_ms=LKT.event_ms(index_add),
                 index_add_device_ms=per_call_ms(lib_dev))
 
 
@@ -114,7 +104,6 @@ def train_step_cell(scene, cam, r, dev) -> dict:
 
     from dge_tpu_torch.systems import fit as F
     from dge_tpu_torch.systems import optim as O
-    from dge_tpu_torch.tools.list_kernel_times import event_ms
 
     target = torch.from_numpy(np.random.default_rng(1).uniform(
         size=(cam.height, cam.width, 3)).astype(np.float32)).to(dev)
@@ -135,7 +124,7 @@ def train_step_cell(scene, cam, r, dev) -> dict:
 
     for _ in range(3):
         one_step()
-    ms = event_ms(one_step, reps=10, warmup=0)
+    ms = LKT.event_ms(one_step, reps=10, warmup=0)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -160,40 +149,22 @@ def main(argv=None) -> dict:
     ap.add_argument("--json", default=None, help="also write the results")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("fold_times: no CUDA device", file=sys.stderr)
         raise SystemExit(1)
-    import math
-
     import dge_tpu_torch
     from dge_tpu_torch.ops import render as R
-    from dge_tpu_torch.scene import dataset as DS
-    from dge_tpu_torch.scene import gaussians as G
-    from dge_tpu_torch.scene.camera_arrays import CameraArrays
-    from dge_tpu_torch.scene.cameras import look_at_camera
 
     dev = torch.device("cuda")
-    outputs = os.path.join(DEFAULT_ROOT, "outputs")
-    quality = G.load_ply(os.path.join(
-        outputs, "quality_gate", "20260821-064841", "fitdemo",
-        "tpu@20260821-064841", "point_cloud.ply"), device=dev)
-    cs = DS.ColmapScene(os.path.join(outputs, "fit_capture"), height=256,
-                        width=256)
-    bench = G.load_ply(os.path.join(outputs, "bench_scene",
-                                    "point_cloud.ply"), device=dev)
-    cam512 = CameraArrays.from_camera(look_at_camera(
-        np.array([2.3, 0.9, -2.3]), np.array([0.0, -0.45, 0.0]),
-        fovx=math.radians(60), height=512, width=512), device=dev)
+    sc = LKT.scenes(dev)
     out = dict(root=os.path.abspath(args.root),
                package=os.path.dirname(dge_tpu_torch.__file__),
                card=torch.cuda.get_device_name(0), cells={})
     for name, scene, cam in (
-            ("256x256 view 0", quality,
-             CameraArrays.from_camera(cs.cameras[0], device=dev)),
-            ("512x512", bench, cam512)):
+            ("256x256 view 0", sc["quality"], sc["cam0"]),
+            ("512x512", sc["bench"], sc["bench_cam"](512, 512))):
         r = R.SpillFreeRenderer(scene, torch.zeros(3, device=dev),
                                 tile_px=TILE_PX, chunk=CHUNK)
         if r.probe(cam) != 0:

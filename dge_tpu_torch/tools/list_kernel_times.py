@@ -94,8 +94,10 @@ def list_inputs(scene, cam, caps, tight_cull, chunk):
                 tiles_x=bins.tiles_x, chunk=max(chunk, 128))
 
 
-def cells(dev):
-    """(name, scene, camera, renderer chunk, renderer start) of each cell."""
+def scenes(dev) -> dict:
+    """What the timing tools render: the quality-gate scene, the committed
+    capture (its path) and its view 0 at 256^2, the bench scene, and
+    ``bench_cam(h, w)``, the bench scene's camera at any size."""
     import numpy as np
 
     from dge_tpu_torch.scene import dataset as DS
@@ -104,25 +106,53 @@ def cells(dev):
     from dge_tpu_torch.scene.cameras import look_at_camera
 
     outputs = os.path.join(DEFAULT_ROOT, "outputs")
-    quality = G.load_ply(os.path.join(
-        outputs, "quality_gate", "20260821-064841", "fitdemo",
-        "tpu@20260821-064841", "point_cloud.ply"), device=dev)
-    cs = DS.ColmapScene(os.path.join(outputs, "fit_capture"), height=256,
-                        width=256)
-    bench = G.load_ply(os.path.join(outputs, "bench_scene",
-                                    "point_cloud.ply"), device=dev)
+    capture = os.path.join(outputs, "fit_capture")
 
     def bench_cam(h, w):
         return CameraArrays.from_camera(look_at_camera(
             np.array([2.3, 0.9, -2.3]), np.array([0.0, -0.45, 0.0]),
             fovx=math.radians(60), height=h, width=w), device=dev)
 
+    return dict(
+        quality=G.load_ply(os.path.join(
+            outputs, "quality_gate", "20260821-064841", "fitdemo",
+            "tpu@20260821-064841", "point_cloud.ply"), device=dev),
+        capture=capture,
+        cam0=CameraArrays.from_camera(DS.ColmapScene(
+            capture, height=256, width=256).cameras[0], device=dev),
+        bench=G.load_ply(os.path.join(outputs, "bench_scene",
+                                      "point_cloud.ply"), device=dev),
+        bench_cam=bench_cam)
+
+
+def pair_stream(scene, cam, r, tile_px: int = 32):
+    """One frame's pair binning at the spill-free renderer ``r``'s caps and
+    K1's stream features over it, as render() forms them → (bins, data)."""
+    from dge_tpu_torch.ops import binning as B
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import projection as P
+
+    prep = P.preprocess(scene.xyz, scene.get_scaling, scene.get_rotation,
+                        scene.get_opacity, scene.get_features, scene.alive,
+                        cam, scene.active_sh_degree, scene.max_sh_degree)
+    caps = {k: v for k, v in r.caps.items() if k != "tight_cull"}
+    pb = B.bin_gaussians_pairs(
+        prep.mean2d, prep.depth, prep.radius, prep.visible,
+        height=cam.height, width=cam.width, tile_px=tile_px,
+        conic=prep.conic if r.tight_cull else None,
+        opacity=prep.opacity if r.tight_cull else None, **caps)
+    return pb, PC.assemble_stream_data(pb.pair_ids, prep.mean2d, prep.conic,
+                                       prep.rgb, prep.depth, prep.opacity)
+
+
+def cells(dev):
+    """(name, scene, camera, renderer chunk, renderer start) of each cell."""
+    s = scenes(dev)
     return [
-        ("256x256 view 0", quality,
-         CameraArrays.from_camera(cs.cameras[0], device=dev), 64, {}),
-        ("512x512", bench, bench_cam(512, 512), 64,
+        ("256x256 view 0", s["quality"], s["cam0"], 64, {}),
+        ("512x512", s["bench"], s["bench_cam"](512, 512), 64,
          dict(tight_cull=True, max_tiles_per_gaussian=256)),
-        ("1920x1080", bench, bench_cam(1080, 1920), 256,
+        ("1920x1080", s["bench"], s["bench_cam"](1080, 1920), 256,
          dict(tight_cull=True, max_per_tile=2048,
               max_tiles_per_gaussian=256))]
 

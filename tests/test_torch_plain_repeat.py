@@ -125,3 +125,69 @@ def test_plain_version_repeats_bit_for_bit(case, name):
                 assert torch.equal(a, b), f"{name}: call {i + 2} differs"
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def wrapper_case():
+    """The input of test_torch_kernel's wrapper test (seed 0, 4 tiles of
+    16 px, chunk 128, no tail): the one on which two calls of the plain K1
+    version once differed under the whole suite's run (ROADMAP.md §3)."""
+    rng = np.random.default_rng(0)
+    ids, starts, counts, m, c, r, d, o, tiles_x = random_stream(rng, 4, 16, 0)
+    data = TPC.assemble_stream_data(*(torch.from_numpy(x)
+                                      for x in (ids, m, c, r, d, o)))
+    return dict(data=data, st=torch.from_numpy(starts),
+                ct=torch.from_numpy(counts),
+                kw=dict(tiles_x=tiles_x, tile_px=16, chunk=128))
+
+
+def _at_threads(k, n):
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        return TPC.composite_pairs_reference(k["data"], k["st"], k["ct"],
+                                             **k["kw"])
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _at_offset(k, off):
+    """The stream's features at a storage offset of ``off`` floats, so that
+    every row of them starts at another phase of a 64-byte line."""
+    data = k["data"]
+    buf = torch.zeros(data.numel() + 16)
+    moved = buf[off:off + data.numel()].view(data.shape)
+    moved.copy_(data)
+    return TPC.composite_pairs_reference(moved, k["st"], k["ct"], **k["kw"])
+
+
+def _flushing_denormals(k):
+    # PyTorch has no getter: a denormal that reads back as 0 was flushed
+    was = bool(torch.tensor([1e-39]).mul(1.0).eq(0).item())
+    torch.set_flush_denormal(True)
+    try:
+        return TPC.composite_pairs_reference(k["data"], k["st"], k["ct"],
+                                             **k["kw"])
+    finally:
+        torch.set_flush_denormal(was)
+
+
+# What could make a library compute an op another way from call to call:
+# how a parallel loop splits its elements over threads (1 to 4; the
+# vectorised and scalar tails of an element-wise op fall elsewhere), where
+# the input lies (misaligned loads, MKL's aligned and unaligned paths) and
+# the CPU's denormal mode. None moves a bit of the plain K1 version.
+TRIGGERS = {
+    "threads": lambda k: [_at_threads(k, n) for n in (1, 2, 3, 4)],
+    "storage_offset": lambda k: [_at_offset(k, off) for off in range(1, 16)],
+    "flush_denormal": lambda k: [_flushing_denormals(k)],
+}
+
+
+@pytest.mark.parametrize("trigger", sorted(TRIGGERS))
+def test_plain_k1_repeats_under_candidate_triggers(wrapper_case, trigger):
+    first = TPC.composite_pairs_reference(
+        wrapper_case["data"], wrapper_case["st"], wrapper_case["ct"],
+        **wrapper_case["kw"])
+    for i, again in enumerate(TRIGGERS[trigger](wrapper_case)):
+        assert torch.equal(again, first), f"{trigger}: call {i} differs"

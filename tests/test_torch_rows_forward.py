@@ -278,3 +278,51 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
     with pytest.raises(ValueError, match=r"must be \[T\]"):
         TPC.rows_forward(k["data"], k["st"], k["ct"], k["blk_off"][:-1],
                          k["row_tile"], **k["kw"])
+
+
+@pytest.mark.parametrize("log_space", [False, True])
+def test_combine_times_cell_on_plain_versions(monkeypatch, log_space):
+    """dge_tpu_torch/tools/combine_times.py's cell, its device times stubbed
+    (they come from a profiler trace on the card): the fullest tile's and
+    the mean tile's rows from the stream, the combine's cases over every
+    (row, pixel) visit in use, and hashes of out and of the used rows of
+    boundary_T that repeat and tell two outputs apart."""
+    from dge_tpu_torch.tools import combine_times as CT
+
+    k = port_case(7, CT.TILE_PX, 128)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(CT, "kernel_times", lambda fn, calls=20: {
+        name: dict(ms=0.5, launches=1) for name in ("rows_forward_kernel",
+                                                    "rows_combine_kernel")})
+    inp = dict(data=k["data"], starts=k["st"], counts=k["ct"],
+               tiles_x=k["kw"]["tiles_x"], pairs=int(k["ct"].sum()),
+               chunk=128)
+    a = CT.forward_cell(inp, log_space=log_space, boundary=True)
+    b = CT.forward_cell(inp, log_space=log_space, boundary=True)
+    used = k["row_tile"] < k["num_tiles"]
+    rows = int(used.sum())
+    tile_rows = torch.bincount(k["row_tile"][used].long(),
+                               minlength=k["num_tiles"])
+    assert a["rows"] == rows
+    assert a["fullest_tile_rows"] == int(tile_rows.max())
+    assert a["mean_tile_rows"] == pytest.approx(
+        float(tile_rows[tile_rows > 0].float().mean()))
+    assert sum(a["cases"].values()) == rows * CT.TILE_PX ** 2
+    assert a["sum_device_ms"] == 1.0 and a["boundary_store"]
+    out, bt, _, _ = split(k, log_space)
+    assert a["out_sha256"] == b["out_sha256"] == CT.sha256(out)
+    assert a["boundary_t_sha256"] == CT.sha256(bt[used])
+    assert CT.sha256(out + 1) != a["out_sha256"]
+    bound = CT.bounds(a["pairs"], k["num_tiles"], rows, 128, log_space, True)
+    assert a["combine_bound_ms"] == bound["combine"] > 0
+    assert a["whole_bound_ms"] == bound["whole"] <= bound["row"]
+
+
+def test_combine_times_needs_a_card(monkeypatch, capsys):
+    from dge_tpu_torch.tools import combine_times as CT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        CT.main([])
+    assert e.value.code == 1
+    assert "no CUDA device" in capsys.readouterr().err
