@@ -23,6 +23,10 @@ returns the dtype its JAX twin returns: ``encode_text``, ``encode_images``,
 ``encode_cond_images``, ``decode_latents`` and ``unet_eps`` give the
 networks' dtype; ``ddim.add_noise`` and ``ddim.step`` give f32 from bf16
 latents.
+
+Spans (utils/tracing.py): ``vae.encode``, ``vae.encode_cond``,
+``vae.decode`` and ``unet.<mode>`` (``plain``, ``pivot_record``,
+``pivot_reuse``), each with a device interval on a card.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from dge_tpu_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from dge_tpu_torch.models.layers import init_like_flax, store_compute_dtype
 from dge_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from dge_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from dge_tpu_torch.utils import tracing
 
 
 class IP2PModels(NamedTuple):
@@ -147,10 +152,11 @@ def encode_images(models: IP2PModels, rgb: torch.Tensor,
     """[B, H, W, 3] in [0, 1] -> sampled scaled latents [B, H/8, W/8, 4]
     (encode_images, dge_guidance.py:190-199); one posterior draw per chunk,
     in chunk order."""
-    return torch.cat([
-        encode_images_with(models, rgb[sl],
-                           _normal(latent_shape(models, rgb[sl]), generator))
-        for sl in _chunks(rgb.shape[0], chunk)], dim=0)
+    with tracing.span("vae.encode", device=models.device):
+        return torch.cat([
+            encode_images_with(models, rgb[sl], _normal(
+                latent_shape(models, rgb[sl]), generator))
+            for sl in _chunks(rgb.shape[0], chunk)], dim=0)
 
 
 @torch.no_grad()
@@ -158,18 +164,21 @@ def encode_cond_images(models: IP2PModels, rgb: torch.Tensor,
                        chunk: Optional[int] = None) -> torch.Tensor:
     """Conditioning latents: the posterior mode, tripled [img, img, zeros]
     (encode_cond_images, dge_guidance.py:201-218)."""
-    lat = torch.cat([nhwc(models.vae.encode(nchw(rgb[sl]) * 2.0 - 1.0))
-                     for sl in _chunks(rgb.shape[0], chunk)], dim=0)
-    return torch.cat([lat, lat, torch.zeros_like(lat)], dim=0)
+    with tracing.span("vae.encode_cond", device=models.device):
+        lat = torch.cat([nhwc(models.vae.encode(nchw(rgb[sl]) * 2.0 - 1.0))
+                         for sl in _chunks(rgb.shape[0], chunk)], dim=0)
+        return torch.cat([lat, lat, torch.zeros_like(lat)], dim=0)
 
 
 @torch.no_grad()
 def decode_latents(models: IP2PModels, latents: torch.Tensor,
                    chunk: Optional[int] = None) -> torch.Tensor:
     """[B, h, w, 4] -> images [B, 8h, 8w, 3] in [0, 1]."""
-    return torch.cat([
-        nhwc(models.vae.decode(nchw(latents[sl]))).mul(0.5).add(0.5)
-        .clamp(0.0, 1.0) for sl in _chunks(latents.shape[0], chunk)], dim=0)
+    with tracing.span("vae.decode", device=models.device):
+        return torch.cat([
+            nhwc(models.vae.decode(nchw(latents[sl]))).mul(0.5).add(0.5)
+            .clamp(0.0, 1.0) for sl in _chunks(latents.shape[0], chunk)],
+            dim=0)
 
 
 @torch.no_grad()
@@ -178,9 +187,11 @@ def unet_eps(models: IP2PModels, inp: torch.Tensor, t: int,
     """The UNet on [B, h, w, 8] latents at timestep ``t`` -> eps
     [B, h, w, 4]; ``kw``: the cross-view ``mode``, ``cross_view``,
     ``pivot``."""
-    ts = torch.full((inp.shape[0],), int(t), dtype=torch.long,
-                    device=inp.device)
-    return nhwc(models.unet(nchw(inp), ts, text_emb, **kw))
+    with tracing.span("unet." + kw.get("mode", "plain"), device=inp.device,
+                      batch=inp.shape[0]):
+        ts = torch.full((inp.shape[0],), int(t), dtype=torch.long,
+                        device=inp.device)
+        return nhwc(models.unet(nchw(inp), ts, text_emb, **kw))
 
 
 def cfg_combine(eps_text, eps_image, eps_uncond, guidance_scale: float,

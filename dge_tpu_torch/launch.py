@@ -73,8 +73,12 @@ scenes. The other modes run on rank 0 alone::
 Capture images may be PNG or JPEG at any size:
 they are area-resized to ``data.height`` x ``data.width``. Every mode writes
 ``cmd.txt`` and ``parsed.yaml``, runs on the GPU unless ``--cpu`` is given,
-and raises without a card and without ``--cpu``. Dotted overrides apply with or without
-``--config``.
+and raises without a card and without ``--cpu``. With
+``trainer.trace=true`` a mode runs with tracing on (utils/tracing.py) and
+writes ``trace.json`` into the trial directory: its spans and counters in
+Chrome's trace-event format, on the epoch clock of a ``torch.profiler``
+trace of the same run (Perfetto opens it). Dotted overrides apply with
+or without ``--config``.
 """
 
 from __future__ import annotations
@@ -222,6 +226,19 @@ def _run_mode(args, argv, device, writer: bool = True):
         saving.save_run_info(trial_dir, ["dge_tpu_torch.launch"] + argv, cfg)
         log.info("trial dir: %s", trial_dir)
 
+    if not (trial_dir and cfg.get("trainer", {}).get("trace", False)):
+        return _dispatch(args, cfg, trial_dir, device)
+    from dge_tpu_torch.utils import tracing
+
+    with tracing.recording():
+        try:
+            return _dispatch(args, cfg, trial_dir, device)
+        finally:
+            log.info("trace: %s", tracing.write_chrome_trace(
+                os.path.join(trial_dir, "trace.json"), tracing.take()))
+
+
+def _dispatch(args, cfg, trial_dir, device):
     gs_source = args.gs_source or cfg.get("system", {}).get("gs_source")
     source = args.source or cfg.get("data", {}).get("source")
     if args.fit:

@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from dge_tpu_torch.ops import cuda_build
+from dge_tpu_torch.utils import tracing
 
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -69,11 +70,11 @@ ROW_FIELDS = 7  # scratch per (row, pixel): cp_last, cp_first, j0, L (4)
 # kernels of ops/pairs_backward.py; list_stream is the layout kernel of the
 # per-tile-list path (ops/tiles_composite.py), and tiles_composite counts
 # that path's wrapper each time it has launched K1's two kernels over a list
-# stream
-launch_counts = {"pairs_composite": 0, "pairs_composite_combine": 0,
-                 "pairs_pass1": 0, "pairs_suffix": 0, "pairs_pass2": 0,
-                 "pairs_fold": 0, "list_stream": 0, "tiles_composite": 0,
-                 "pairs_logdot": 0, "pairs_logdot_combine": 0}
+# stream; a group of the tracing registry (utils/tracing.py)
+launch_counts = tracing.group("launch_counts", dict.fromkeys(
+    ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
+     "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
+     "tiles_composite", "pairs_logdot", "pairs_logdot_combine"), 0))
 # per form (log_space): library, C entries, launch counter keys
 _FORMS = {False: ("pairs_composite", "pairs_rows_forward",
                   "pairs_rows_combine", "pairs_composite",
@@ -84,8 +85,7 @@ _libs = {}
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    tracing.reset("launch_counts")
 
 
 def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac

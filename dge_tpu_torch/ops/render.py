@@ -43,9 +43,15 @@ import torch
 
 from dge_tpu_torch.ops import (binning, composite, pairs_backward,
                                pairs_composite, projection, tiles_composite)
+from dge_tpu_torch.utils import tracing
 
 BACKENDS = ("cuda_stream", "cuda_train", "torch", "cuda_tiles", "torch_tiles")
 LIST_BACKENDS = ("cuda_tiles", "torch_tiles")
+# spill-ladder rungs of SpillFreeRenderer (its ``_grow``): "cull" enabled
+# tight culling, "grew" doubled caps, "stuck" found the attributed classes
+# at their ceilings; a group of the tracing registry
+ladder_counts = tracing.group("render_ladder",
+                              {"cull": 0, "grew": 0, "stuck": 0})
 
 
 class RenderOut(NamedTuple):
@@ -129,36 +135,38 @@ def render(
     gradient; binning always takes detached inputs. ``mean2d_offset`` [N, 2]
     is added to the projected means: pass zeros and take the gradient with
     respect to it to harvest per-Gaussian screen-space gradients for
-    densification."""
+    densification. Spans (utils/tracing.py): ``render.view`` over the call,
+    ``render.preprocess`` and ``rasterize``'s two."""
     backend = backend or default_backend(scene.device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown render backend {backend!r}")
     dev = scene.device
-    bg = (torch.zeros(3, device=dev) if bg is None
-          else torch.as_tensor(bg, dtype=torch.float32).to(dev))
-
-    prep = projection.preprocess(
-        scene.xyz,
-        scene.get_scaling,
-        scene.get_rotation,
-        scene.get_opacity,
-        scene.get_features,
-        scene.alive,
-        cam,
-        scene.active_sh_degree,
-        scene.max_sh_degree,
-        scale_modifier=scale_modifier,
-        override_color=override_color,
-    )
-    mean2d = prep.mean2d
-    if mean2d_offset is not None:
-        mean2d = mean2d + mean2d_offset
-    color, depth, final_t, spill, parts = rasterize(
-        prep, mean2d, cam.height, cam.width, bg, backend=backend,
-        tile_px=tile_px, max_per_tile=max_per_tile,
-        max_tiles_per_gaussian=max_tiles_per_gaussian, max_pairs=max_pairs,
-        big_capacity=big_capacity, small_slots=small_slots, chunk=chunk,
-        tight_cull=tight_cull)
+    with tracing.span("render.view", device=dev):
+        bg = (torch.zeros(3, device=dev) if bg is None
+              else torch.as_tensor(bg, dtype=torch.float32).to(dev))
+        with tracing.span("render.preprocess", device=dev):
+            prep = projection.preprocess(
+                scene.xyz,
+                scene.get_scaling,
+                scene.get_rotation,
+                scene.get_opacity,
+                scene.get_features,
+                scene.alive,
+                cam,
+                scene.active_sh_degree,
+                scene.max_sh_degree,
+                scale_modifier=scale_modifier,
+                override_color=override_color,
+            )
+        mean2d = prep.mean2d
+        if mean2d_offset is not None:
+            mean2d = mean2d + mean2d_offset
+        color, depth, final_t, spill, parts = rasterize(
+            prep, mean2d, cam.height, cam.width, bg, backend=backend,
+            tile_px=tile_px, max_per_tile=max_per_tile,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            max_pairs=max_pairs, big_capacity=big_capacity,
+            small_slots=small_slots, chunk=chunk, tight_cull=tight_cull)
     return RenderOut(
         color=color,
         depth=depth,
@@ -196,7 +204,8 @@ def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
     stream position of its first pair; the stream is then shifted by that
     position modulo the block size, so that every tile's range is cut where
     the whole image's is. The list backends cut each tile's list from its
-    own first entry and need no shift."""
+    own first entry and need no shift. Spans (utils/tracing.py):
+    ``render.binning`` and ``render.composite``."""
     if backend in LIST_BACKENDS:
         color, depth, final_t, spill = _render_lists(
             backend, prep, mean2d, height, width, bg, tile_px=tile_px,
@@ -204,7 +213,8 @@ def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
             max_tiles_per_gaussian=max_tiles_per_gaussian, chunk=chunk,
             tight_cull=tight_cull, depth_keys=depth_keys)
         return color, depth, final_t, spill, None
-    with torch.no_grad():
+    dev = mean2d.device
+    with torch.no_grad(), tracing.span("render.binning", device=dev):
         pb = binning.bin_gaussians_pairs(
             mean2d.detach(),
             prep.depth.detach(),
@@ -226,22 +236,25 @@ def rasterize(prep, mean2d, height: int, width: int, bg, *, backend: str,
                 tiles_y=pb.tiles_y, tile_px=tile_px, chunk=max(chunk, 128))
     shift = 0
     if stream_base is not None:
-        shift = int(stream_base(pb.length)) % geom["chunk"]
+        shift = tracing.host_read(stream_base(pb.length),
+                                  "render.stream_base") % geom["chunk"]
         pb = _shift_stream(pb, shift)
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
-    if backend == "cuda_train":
-        # kernel forward (which hands boundary_T over) and kernel backward,
-        # whose fold reads the binning's layout of the shifted stream; bg·T
-        # stays outside the Function so that autograd supplies dL/dT_fin
-        color, depth, final_t = pairs_backward.stream_composite(
-            *feats, pb.pair_ids, pb.starts.to(torch.int32).contiguous(),
-            pb.counts.to(torch.int32).contiguous(),
-            layout=pb.fold_layout(shift), **geom)
-        color = color + final_t[..., None] * bg[None, None, :]
-    else:
-        color, depth, final_t = pairs_composite.composite_pairs(
-            pb.pair_ids, pb.starts, pb.counts, *feats, bg=bg,
-            use_kernel=backend == "cuda_stream", **geom)
+    with tracing.span("render.composite", device=dev):
+        if backend == "cuda_train":
+            # kernel forward (which hands boundary_T over) and kernel
+            # backward, whose fold reads the binning's layout of the shifted
+            # stream; bg·T stays outside the Function so that autograd
+            # supplies dL/dT_fin
+            color, depth, final_t = pairs_backward.stream_composite(
+                *feats, pb.pair_ids, pb.starts.to(torch.int32).contiguous(),
+                pb.counts.to(torch.int32).contiguous(),
+                layout=pb.fold_layout(shift), **geom)
+            color = color + final_t[..., None] * bg[None, None, :]
+        else:
+            color, depth, final_t = pairs_composite.composite_pairs(
+                pb.pair_ids, pb.starts, pb.counts, *feats, bg=bg,
+                use_kernel=backend == "cuda_stream", **geom)
     return color, depth, final_t, pb.spill, pb.spill_parts
 
 
@@ -273,17 +286,20 @@ def _bin_lists(prep, mean2d, height, width, *, tile_px, max_per_tile,
 def _render_lists(backend, prep, mean2d, height, width, bg, *, chunk,
                   **bin_kw):
     """The per-tile-list backends → (color, depth, final_T, spill)."""
-    bins = _bin_lists(prep, mean2d, height, width, **bin_kw)
+    dev = mean2d.device
+    with tracing.span("render.binning", device=dev):
+        bins = _bin_lists(prep, mean2d, height, width, **bin_kw)
     feats = (mean2d, prep.conic, prep.rgb, prep.depth, prep.opacity)
     geom = dict(height=height, width=width, tiles_x=bins.tiles_x,
                 tiles_y=bins.tiles_y, tile_px=bin_kw["tile_px"], bg=bg)
-    if backend == "cuda_tiles":
-        color, depth, final_t = tiles_composite.composite_tiles(
-            bins.lists, bins.counts, *feats, order=bins.order,
-            chunk=max(chunk, 128), **geom)
-        return color, depth, final_t, bins.spill
-    out = composite.composite(bins.lists, bins.counts, *feats,
-                              spill=bins.spill, chunk=chunk, **geom)
+    with tracing.span("render.composite", device=dev):
+        if backend == "cuda_tiles":
+            color, depth, final_t = tiles_composite.composite_tiles(
+                bins.lists, bins.counts, *feats, order=bins.order,
+                chunk=max(chunk, 128), **geom)
+            return color, depth, final_t, bins.spill
+        out = composite.composite(bins.lists, bins.counts, *feats,
+                                  spill=bins.spill, chunk=chunk, **geom)
     return out.color, out.depth, out.final_T, out.spill
 
 
@@ -359,7 +375,9 @@ class SpillFreeRenderer:
     The first rung enables exact tight tile culling; later rungs double
     only the overflowing cap class (``grow_caps`` + ``spill_parts``); the
     list backends report no ``spill_parts``, so every cap doubles. Every
-    rung syncs ``spill`` to the host. ``backend`` defaults to
+    render reads ``spill`` on the host once (``host_syncs["render.spill"]``,
+    utils/tracing.py) and each rung is counted in ``ladder_counts``; a call
+    is a ``render.spill_free`` span. ``backend`` defaults to
     ``"cuda_stream"`` for a scene on a CUDA device and ``"torch"`` for one
     on the CPU; the list backends run where their compositor does
     (``"cuda_tiles"`` on a CUDA device, ``"torch_tiles"`` on either); any
@@ -421,53 +439,64 @@ class SpillFreeRenderer:
         return render(self._scene, cam, self._bg, **self._kw, **self._caps)
 
     def _fwd(self, cam):
+        """One render → (color, its spill read on the host, spill_parts)."""
         o = self.render(cam)
-        return o.color, o.spill, o.spill_parts
+        return (o.color, tracing.host_read(o.spill, "render.spill"),
+                o.spill_parts)
 
     def _grow(self, sp: int, parts=None):
         """One ladder rung: "cull" (enabled culling), "grew" (caps doubled)
-        or "stuck" (attributed classes at their ceilings)."""
+        or "stuck" (attributed classes at their ceilings); counted in
+        ``ladder_counts``."""
+        rung = self._rung(sp, parts)
+        ladder_counts[rung] += 1
+        return rung
+
+    def _rung(self, sp: int, parts) -> str:
         if not self._kw.get("tight_cull"):
             self._kw["tight_cull"] = True
             self._log(f"render spill {sp}: enabling tight_cull")
             return "cull"
+        if parts is not None:
+            parts = tracing.host_read(parts, "render.spill_parts",
+                                      lambda p: p.tolist())
         new = grow_caps(self._caps, parts)
         if new == self._caps:
             self._log(f"render spill {sp}: caps at ceilings — "
                       "irreducible residual")
             return "stuck"
         self._caps = new
-        self._log(f"render spill {sp} (parts "
-                  f"{None if parts is None else [int(x) for x in parts]}"
-                  f"): growing caps to {self._caps}")
+        self._log(f"render spill {sp} (parts {parts}): growing caps to "
+                  f"{self._caps}")
         return "grew"
 
     def probe(self, cam) -> int:
         """Grow caps until ``cam`` renders with spill == 0 (or max_grow
         rungs are exhausted — returns the residual spill, 0 on success)."""
-        grows = 0
-        while grows < self._max_grow:
-            _, sp, parts = self._fwd(cam)
-            if int(sp) == 0:
-                return 0
-            rung = self._grow(int(sp), parts)
-            if rung == "stuck":
-                return int(sp)
-            grows += 1 if rung == "grew" else 0
-        # ladder exhausted after a final grow: re-probe so the reported
-        # residual matches the caps actually in effect
-        _, sp, _ = self._fwd(cam)
-        return int(sp)
+        with tracing.span("render.spill_free", probe=True):
+            grows = 0
+            while grows < self._max_grow:
+                _, sp, parts = self._fwd(cam)
+                if sp == 0:
+                    return 0
+                rung = self._grow(sp, parts)
+                if rung == "stuck":
+                    return sp
+                grows += 1 if rung == "grew" else 0
+            # ladder exhausted after a final grow: re-probe so the reported
+            # residual matches the caps actually in effect
+            return self._fwd(cam)[1]
 
     def __call__(self, cam, regrow: int = 4):
         """Render one view spill-free, re-growing caps (``regrow`` rungs)
         if this view is denser than the probe view. Returns (color, spill);
         spill > 0 only if the ladder was exhausted."""
-        color, sp, parts = self._fwd(cam)
-        for _ in range(regrow):
-            if int(sp) == 0:
-                break
-            if self._grow(int(sp), parts) == "stuck":
-                break
+        with tracing.span("render.spill_free"):
             color, sp, parts = self._fwd(cam)
-        return color, int(sp)
+            for _ in range(regrow):
+                if sp == 0:
+                    break
+                if self._grow(sp, parts) == "stuck":
+                    break
+                color, sp, parts = self._fwd(cam)
+            return color, sp

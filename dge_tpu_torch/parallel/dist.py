@@ -47,17 +47,20 @@ import torch
 import torch.distributed as dist
 
 from dge_tpu_torch import resolve_device
+from dge_tpu_torch.utils import tracing
 
 TIMEOUT = datetime.timedelta(seconds=600)
 # collectives since the last reset: their count and the host seconds spent
 # inside the library call (waiting for peers included; with gloo on card
 # tensors the host copies are outside it; NCCL returns once the collective
-# is queued on the stream)
-collective_stats = {"calls": 0, "seconds": 0.0}
+# is queued on the stream); a group of the tracing registry
+# (utils/tracing.py)
+collective_stats = tracing.group("collective_stats",
+                                 {"calls": 0, "seconds": 0.0})
 
 
 def reset_collective_stats() -> None:
-    collective_stats.update(calls=0, seconds=0.0)
+    tracing.reset("collective_stats")
 
 
 def _timed(collective, *args, **kw) -> None:

@@ -53,7 +53,7 @@ from dge_tpu_torch.systems import fit as F
 from dge_tpu_torch.systems import guidance as GD
 from dge_tpu_torch.systems import optim as O
 from dge_tpu_torch.utils import checkpoint as CK
-from dge_tpu_torch.utils import saving
+from dge_tpu_torch.utils import saving, tracing
 
 
 @dataclasses.dataclass
@@ -195,7 +195,7 @@ class DGESystem:
                            torch.zeros(3, device=self.device),
                            override_color=override_color,
                            backend=self._render_backend, **self.loop.caps)
-        self.render_spill += int(out.spill)
+        self.render_spill += tracing.host_read(out.spill, "edit.render_spill")
         return out.color
 
     def _render_np(self, vid: int) -> np.ndarray:
@@ -345,10 +345,12 @@ class DGESystem:
         max_step = sched[round_idx]
 
         # ring-order the cameras for coherent batching (sort_the_cameras_idx)
-        centers = np.stack([self.cameras[v].campos.cpu().numpy()
+        centers = np.stack([tracing.host_read(self.cameras[v].campos,
+                                              "edit.ring_order", _numpy)
                             for v in self.view_list])
         # view direction in world = third row of the w2c rotation
-        forwards = np.stack([self.cameras[v].w2c[2, :3].cpu().numpy()
+        forwards = np.stack([tracing.host_read(self.cameras[v].w2c[2, :3],
+                                               "edit.ring_order", _numpy)
                              for v in self.view_list])
         views_sorted = [self.view_list[i]
                         for i in _ring_order(centers, forwards)]
@@ -371,7 +373,8 @@ class DGESystem:
         cams = stack_cameras([self.cameras[v] for v in views_sorted])
         edited = self.guidance(rgb, cond, pos, neg, cams, generator,
                                max_step=max_step)
-        edited = _quantize_u8(edited.cpu().numpy())
+        edited = _quantize_u8(tracing.host_read(edited, "edit.frames",
+                                                _numpy))
         for i, vid in enumerate(views_sorted):
             self.edit_frames[vid] = edited[i]
             if self.cache_dir:
@@ -614,6 +617,10 @@ class DGESystem:
             if len(set(seen)) != 1:
                 raise RuntimeError(f"the ranks' scenes differ: {seen}")
         return mine
+
+
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    return x.cpu().numpy()
 
 
 def _quantize_u8(img: np.ndarray) -> np.ndarray:

@@ -41,6 +41,7 @@ from dge_tpu_torch.diffusion import ip2p as P
 from dge_tpu_torch.models.layers import CrossViewState
 from dge_tpu_torch.parallel import dist as D
 from dge_tpu_torch.parallel.mesh import index_cameras
+from dge_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +76,11 @@ class GuidanceConfig:
 def _pivot_offsets(n_batches: int, cbs: int,
                    generator: torch.Generator) -> np.ndarray:
     """One random pivot offset in [0, cbs) per camera batch (the reference's
-    per-step draw, edit_latents :305)."""
-    return torch.randint(0, cbs, (n_batches,), generator=generator,
-                         device=generator.device).cpu().numpy()
+    per-step draw, edit_latents :305), read on the host."""
+    return tracing.host_read(
+        torch.randint(0, cbs, (n_batches,), generator=generator,
+                      device=generator.device),
+        "guidance.pivot_offsets", lambda x: x.cpu().numpy())
 
 
 def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -101,43 +104,48 @@ def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
 
     ``mode="banded"``: normalised epipolar lines [F, n_key, S, 3] per
     resolution, the distance test evaluated blockwise in the gather;
-    ``mode="dense"``: [F, n_key, S, S] violation masks (the test oracle)."""
-    d = epipolar.camera_distances(cams_b.campos, key_cams.campos)  # [F, K]
-    closest = torch.argsort(d, dim=-1, stable=True)[:, :n_key]
-    dsort = torch.sort(d, dim=-1).values
-    if n_key == 2:
-        w1 = torch.sigmoid(dsort[:, 1] / (dsort[:, 0] + dsort[:, 1] + 1e-12))
-    else:
-        w1 = torch.ones(d.shape[0], dtype=torch.float32, device=d.device)
-    f = d.shape[0]
-    key_fp = key_cams.full_proj[closest.reshape(-1)]  # [F*n_key, 4, 4]
-    query_fp = cams_b.full_proj.repeat_interleave(n_key, dim=0)
-    is_pivot = (torch.arange(f, device=d.device) == pivot_in_batch)[
-        :, None, None, None]
-    masks: Dict[int, torch.Tensor] = {}
-    lines_d: Dict[int, torch.Tensor] = {}
-    pts_d: Dict[int, torch.Tensor] = {}
-    for ds in (1, 2, 4, 8):
-        h, w = latent_h // ds, latent_w // ds
-        if h < 1 or w < 1:
-            continue
-        s = h * w
-        fm = epipolar.fundamental_from_projections(
-            epipolar.pixel_projection(key_fp, h, w),
-            epipolar.pixel_projection(query_fp, h, w))
-        if mode == "banded":
-            ln = epipolar.epipolar_lines(fm, h, w).reshape(f, n_key, s, 3)
-            # the pivot frame is unconstrained: zero lines -> distance 0
-            lines_d[s] = torch.where(is_pivot, 0.0, ln)
-            pts_d[s] = epipolar.pixel_grid(h, w, d.device)
+    ``mode="dense"``: [F, n_key, S, S] violation masks (the test oracle).
+    A ``guidance.cross_view_state`` span (utils/tracing.py)."""
+    with tracing.span("guidance.cross_view_state",
+                      device=cams_b.campos.device):
+        d = epipolar.camera_distances(cams_b.campos, key_cams.campos)  # [F, K]
+        closest = torch.argsort(d, dim=-1, stable=True)[:, :n_key]
+        dsort = torch.sort(d, dim=-1).values
+        if n_key == 2:
+            w1 = torch.sigmoid(dsort[:, 1]
+                               / (dsort[:, 0] + dsort[:, 1] + 1e-12))
         else:
-            m = (epipolar.epipolar_distances(fm, h, w) > threshold).reshape(
-                f, n_key, s, s)
-            masks[s] = m & ~is_pivot
-    return CrossViewState(closest_cam=closest, blend_w1=w1,
-                          epipolar=masks or None, epi_lines=lines_d or None,
-                          epi_pts=pts_d or None, n_key=n_key,
-                          epi_threshold=threshold)
+            w1 = torch.ones(d.shape[0], dtype=torch.float32, device=d.device)
+        f = d.shape[0]
+        key_fp = key_cams.full_proj[closest.reshape(-1)]  # [F*n_key, 4, 4]
+        query_fp = cams_b.full_proj.repeat_interleave(n_key, dim=0)
+        is_pivot = (torch.arange(f, device=d.device) == pivot_in_batch)[
+            :, None, None, None]
+        masks: Dict[int, torch.Tensor] = {}
+        lines_d: Dict[int, torch.Tensor] = {}
+        pts_d: Dict[int, torch.Tensor] = {}
+        for ds in (1, 2, 4, 8):
+            h, w = latent_h // ds, latent_w // ds
+            if h < 1 or w < 1:
+                continue
+            s = h * w
+            fm = epipolar.fundamental_from_projections(
+                epipolar.pixel_projection(key_fp, h, w),
+                epipolar.pixel_projection(query_fp, h, w))
+            if mode == "banded":
+                ln = epipolar.epipolar_lines(fm, h, w).reshape(f, n_key, s, 3)
+                # the pivot frame is unconstrained: zero lines -> distance 0
+                lines_d[s] = torch.where(is_pivot, 0.0, ln)
+                pts_d[s] = epipolar.pixel_grid(h, w, d.device)
+            else:
+                m = (epipolar.epipolar_distances(fm, h, w)
+                     > threshold).reshape(f, n_key, s, s)
+                masks[s] = m & ~is_pivot
+        return CrossViewState(closest_cam=closest, blend_w1=w1,
+                              epipolar=masks or None,
+                              epi_lines=lines_d or None,
+                              epi_pts=pts_d or None, n_key=n_key,
+                              epi_threshold=threshold)
 
 
 def _two_keys(cv: CrossViewState) -> CrossViewState:
@@ -164,10 +172,12 @@ def _cat_states(states) -> CrossViewState:
             s: torch.cat([d[s] for d in ds], dim=0) for s in ds[0]}
 
     first = states[0]
-    return dataclasses.replace(
-        first, closest_cam=torch.cat([st.closest_cam for st in states]),
-        blend_w1=torch.cat([st.blend_w1 for st in states]),
-        epipolar=cat("epipolar"), epi_lines=cat("epi_lines"))
+    with tracing.span("guidance.cross_view_state",
+                      device=first.blend_w1.device):
+        return dataclasses.replace(
+            first, closest_cam=torch.cat([st.closest_cam for st in states]),
+            blend_w1=torch.cat([st.blend_w1 for st in states]),
+            epipolar=cat("epipolar"), epi_lines=cat("epi_lines"))
 
 
 @dge_tpu_torch.register("dge-guidance")
@@ -213,17 +223,20 @@ class DGEGuidance:
             eps = self._predict_eps_multiview(
                 latents, int(t), cams, triple_for, b, cbs, n_batches, lat_h,
                 lat_w, generator)
-            latents = ddim.step(sched, eps, int(t), latents,
-                                cfg.diffusion_steps)
+            with tracing.span("guidance.cfg_ddim", device=latents.device):
+                latents = ddim.step(sched, eps, int(t), latents,
+                                    cfg.diffusion_steps)
         return latents
 
     def _combine(self, eps_chunks):
-        """CFG over per-batch eps triplets [3F, h, w, 4]."""
-        parts = [e.chunk(3, dim=0) for e in eps_chunks]
-        e_t, e_i, e_u = (torch.cat([p[k] for p in parts], 0)
-                         for k in range(3))
-        return P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
-                             self.cfg.condition_scale)
+        """CFG over per-batch eps triplets [3F, h, w, 4] (with the DDIM step
+        after it, the ``guidance.cfg_ddim`` spans)."""
+        with tracing.span("guidance.cfg_ddim", device=eps_chunks[0].device):
+            parts = [e.chunk(3, dim=0) for e in eps_chunks]
+            e_t, e_i, e_u = (torch.cat([p[k] for p in parts], 0)
+                             for k in range(3))
+            return P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
+                                 self.cfg.condition_scale)
 
     def _predict_eps_multiview(self, latents, t, cams, triple_for, b, cbs,
                                n_batches, lat_h, lat_w, generator):
@@ -329,23 +342,30 @@ class DGEGuidance:
         """Edit all views (guidance __call__, dge_guidance.py:480-569):
         rgb (current renders) and cond_rgb (original renders) [B, H, W, 3]
         in [0, 1], text embeddings [B, S, D], stacked cameras. Returns the
-        edited images at the input resolution."""
-        b, h, w, _ = rgb.shape
-        rh, rw = P.resize_to_64_multiple(h, w, self.cfg.resize_target)
-        if (rh, rw) != (h, w):
-            rgb, cond_rgb = _resize(rgb, rh, rw), _resize(cond_rgb, rh, rw)
-        latents = P.encode_images(self.models, rgb, generator,
-                                  chunk=self.cfg.vae_batch)
-        cond_latents = P.encode_cond_images(self.models, cond_rgb,
-                                            chunk=self.cfg.vae_batch)
-        text_emb = torch.cat([text_emb_pos, text_emb_neg, text_emb_neg], 0)
-        t_start = (max_step if max_step is not None else self.max_step) - 1
-        edited = self.edit_latents(text_emb, latents, cond_latents, t_start,
-                                   cams, generator)
-        imgs = P.decode_latents(self.models, edited, chunk=self.cfg.vae_batch)
-        if (rh, rw) != (h, w):
-            imgs = _resize(imgs, h, w)
-        return imgs
+        edited images at the input resolution. A ``guidance.round`` span
+        (utils/tracing.py) over the VAE's, the UNet's, the cross-view states'
+        and CFG + DDIM's."""
+        with tracing.span("guidance.round", device=rgb.device):
+            b, h, w, _ = rgb.shape
+            rh, rw = P.resize_to_64_multiple(h, w, self.cfg.resize_target)
+            if (rh, rw) != (h, w):
+                rgb, cond_rgb = (_resize(rgb, rh, rw),
+                                 _resize(cond_rgb, rh, rw))
+            latents = P.encode_images(self.models, rgb, generator,
+                                      chunk=self.cfg.vae_batch)
+            cond_latents = P.encode_cond_images(self.models, cond_rgb,
+                                                chunk=self.cfg.vae_batch)
+            text_emb = torch.cat([text_emb_pos, text_emb_neg, text_emb_neg],
+                                 0)
+            t_start = (max_step if max_step is not None
+                       else self.max_step) - 1
+            edited = self.edit_latents(text_emb, latents, cond_latents,
+                                       t_start, cams, generator)
+            imgs = P.decode_latents(self.models, edited,
+                                    chunk=self.cfg.vae_batch)
+            if (rh, rw) != (h, w):
+                imgs = _resize(imgs, h, w)
+            return imgs
 
     def update_step(self, min_step_percent: Optional[float] = None,
                     max_step_percent: Optional[float] = None) -> None:
