@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10,11]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10,11,12]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -39,8 +39,9 @@ process per source, started together) and runs:
 2. the render path: ``dge_tpu_torch.launch --render`` of the quality-gate
    scene over the committed 16-view capture at 256^2, in-process, with the
    launch counters set to 0 just before and read just after; spill must be
-   0 after the cap ladder and the mean PSNR of the float renders against
-   the capture at least 41.5 dB;
+   0 after the cap ladder, the three pair binning kernels launched as often
+   as each other and at least once a view, and the mean PSNR of the float
+   renders against the capture at least 41.5 dB;
 3. full width, forward: the trained bench scene spill-free at 512^2 and at
    1920x1080, timed with CUDA events (whole render, its stages, K1, each
    of its two kernels alone, plain versions) and a profiler trace (the
@@ -168,11 +169,18 @@ process per source, started together) and runs:
    the bf16 weights resident: bf16 frames, finite, in [0, 1], timed, peak
    memory; one DDIM step of the 20 views in bf16 and in f32, timed;
    ``dge_tpu_torch.tools.profile_edit`` at its default (the round's stage
-   table beside the card's name and power limit).
+   table beside the card's name and power limit);
+12. the pair binning (``ops/binning.bin_gaussians_pairs``) on the bench
+   scene at 512^2 and at 1920x1080, at the caps a spill-free renderer probes
+   there: its kernels (``csrc/binning.cu``) against the torch path
+   (``_pair_sort`` on the card), equal bit for bit in every field, each of
+   the three kernels launched once a call; CUDA-event times of both paths,
+   the three kernels' device times (profiler), each path's device time,
+   launches and aten ops a call, and the bytes bound.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all eleven ran.
+gate's own recipe); the result lines are printed only when all twelve ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -235,7 +243,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = set(range(1, 12))
+ALL_PHASES = set(range(1, 13))
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -289,7 +297,8 @@ BF16_NET_TOL = 5e-2
 SDPA_BF16_TOL = 2e-2  # x max|chunked bf16 attention|: a few bf16 ulps
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
-                "tiles_composite", "pairs_logdot", "pairs_logdot_combine")
+                "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
+                "binning_rects", "binning_emit", "binning_ranges")
 # the forward's two kernels per form (csrc/pair_rows_forward.cuh): counter
 # keys and the profiler's kernel names
 FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
@@ -1845,6 +1854,126 @@ def full_width_cell(name, scene, cam, bg, *, chunk=64, **start):
     return cell
 
 
+# the pair binning's kernels (csrc/binning.cu): counter keys and the
+# profiler's kernel names
+BINNING_KERNELS = {"binning_rects": "rects_kernel",
+                   "binning_emit": "emit_kernel",
+                   "binning_ranges": "ranges_kernel"}
+BINNING_FIELDS = ("pair_ids", "starts", "counts", "spill", "spill_parts",
+                  "length", "perm", "tier2_ids")
+
+
+def aten_ops(fn) -> int:
+    """The aten ops one call of ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def binning_bounds(n: int, sc, npairs: int, cull: bool) -> dict:
+    """Least time of each binning kernel and of the whole binning at HBM
+    rate, in ms: each input read and each output written once. Whole:
+    the Gaussians' 33 bytes (17 without the cull), the sort's indices (8 a
+    slot), the ids, starts and counts and tier2_ids written."""
+    cull_bytes = 16 if cull else 0  # conic, opacity
+    out = dict(
+        # mean2d, radius, visible, depth read; rect, member written
+        binning_rects=n * (17 + 20),
+        # rect, member, prefix sum, depth (and mean2d with the cull) read;
+        # keys, tier2_ids written
+        binning_emit=n * (28 + (8 if cull else 0) + cull_bytes)
+        + sc.slots * 4 + sc.rows * 4,
+        # keys, the kept positions' slots and rows read; ids, starts and
+        # counts written
+        binning_ranges=sc.slots * 4 + npairs * 16 + sc.num_tiles * 8,
+        whole=n * (17 + cull_bytes) + sc.slots * 8 + npairs * 4
+        + sc.num_tiles * 8 + sc.rows * 4)
+    return {k: v / HBM_BYTES_PER_S * 1e3 for k, v in out.items()}
+
+
+def binning_cell(name, scene, cam, bg, **start):
+    """Probe a spill-free renderer's caps on ``cam``, then hold the pair
+    binning's kernels against the torch path (``_pair_sort`` on the card)
+    at those caps, bit for bit, and time both."""
+    import torch
+
+    from dge_tpu_torch.ops import binning as B
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import render as R
+
+    r = R.SpillFreeRenderer(scene, bg, tile_px=32,
+                            log=lambda m: log(f"  [{name}] {m}"), **start)
+    if r.probe(cam) != 0:
+        raise AssertionError(f"{name}: spill after the ladder")
+    preprocess = stream_stages(scene, cam, r.caps, r.tight_cull, 32)[0]
+    prep = preprocess()
+    args = (prep.mean2d, prep.depth, prep.radius, prep.visible)
+    kw = dict(height=cam.height, width=cam.width, tile_px=32, **r.caps)
+    if r.tight_cull:
+        kw.update(conic=prep.conic, opacity=prep.opacity)
+    plain_kw = dict(kw, big_capacity=kw["big_capacity"] or None)
+
+    def kernels():
+        return B.bin_gaussians_pairs(*args, **kw)
+
+    def plain():
+        return B._pair_sort(*args, **plain_kw)
+
+    got, want = kernels(), plain()
+    torch.cuda.synchronize()
+    for f in BINNING_FIELDS:
+        if not torch.equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{name}: binning kernels differ from the "
+                                 f"torch path in {f}")
+    before = dict(PC.launch_counts)
+    kernels()
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in PC.launch_counts.items()
+                if v != before[k]}
+    if launches != dict.fromkeys(BINNING_KERNELS, 1):
+        raise AssertionError(f"{name}: binning launches {launches}")
+    n = int(prep.mean2d.shape[0])
+    sc = B.launch_scalars(
+        n, height=cam.height, width=cam.width, tile_px=32,
+        max_tiles_per_gaussian=r.caps["max_tiles_per_gaussian"],
+        small_slots=r.caps["small_slots"],
+        big_capacity=r.caps["big_capacity"], max_pairs=r.caps["max_pairs"])
+    kernel_busy, plain_busy = device_busy(kernels, 20), device_busy(plain, 5)
+    cell = dict(
+        cell=name, caps=r.caps, tight_cull=r.tight_cull, gaussians=n,
+        slots=sc.slots, pairs=int(got.counts.sum()),
+        members=int((got.tier2_ids < n).sum()),
+        ms=cuda_ms(kernels, reps=20), plain_ms=cuda_ms(plain, reps=10),
+        device_ms=kernel_busy.get("device_ms_per_step"),
+        plain_device_ms=plain_busy.get("device_ms_per_step"),
+        device_launches=kernel_busy.get("device_launches_per_step"),
+        plain_device_launches=plain_busy.get("device_launches_per_step"),
+        aten_ops=aten_ops(kernels), plain_aten_ops=aten_ops(plain),
+        kernel_device_ms=kernel_device_ms(kernels, BINNING_KERNELS, 20),
+        bound_ms=binning_bounds(n, sc, min(sc.max_pairs, sc.slots),
+                                r.tight_cull),
+        device_kernels=kernel_busy.get("device_kernels"),
+        plain_device_kernels=plain_busy.get("device_kernels"))
+    log(f"  {name}: binning kernels {cell['ms']:.4f} ms (device "
+        f"{cell['device_ms']}, {cell['device_launches']} launches, "
+        f"{cell['aten_ops']} aten ops), torch path {cell['plain_ms']:.4f} "
+        f"ms (device {cell['plain_device_ms']}, "
+        f"{cell['plain_device_launches']} launches, "
+        f"{cell['plain_aten_ops']} aten ops); kernels "
+        f"{cell['kernel_device_ms']}; bound {cell['bound_ms']}; caps "
+        f"{r.caps}, cull {r.tight_cull}, pairs {cell['pairs']}")
+    return cell
+
+
 def attention_vs_chunked(dev) -> list:
     """SDPA, pinned to ``EFFICIENT_ATTENTION`` in f32 by the port's rule
     (``layers.sdpa_backend``), against the chunked plain attention (k_chunk
@@ -3136,7 +3265,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -3211,7 +3340,7 @@ def main(argv=None) -> int:
             errs[k].append(e)
 
     bench = bg = None
-    if phases & {3, 5, 6}:
+    if phases & {3, 5, 6, 12}:
         bench = G.load_ply(BENCH_PLY, device=dev)
         bg = torch.zeros(3, device=dev)
 
@@ -3404,6 +3533,12 @@ def main(argv=None) -> int:
         log(f"  launches during the render path: {render_launches}")
         if render_launches["pairs_composite"] < len(run.frames) + 1:
             raise AssertionError("render path did not go through the kernel")
+        # every pair binning of the path (the ladder's probes, the frames)
+        # runs the three binning kernels once each
+        bins = {render_launches[k] for k in BINNING_KERNELS}
+        if len(bins) != 1 or min(bins) < len(run.frames):
+            raise AssertionError("render path did not bin through the "
+                                 f"binning kernels: {render_launches}")
         if run.spill != 0:
             raise AssertionError(f"render path spill {run.spill} after the "
                                  "ladder")
@@ -4100,9 +4235,20 @@ def main(argv=None) -> int:
         bf16.update(profile_edit=tool, seconds=time.time() - t11)
         log(f"  phase 11 took {bf16['seconds']:.1f} s")
 
+    # ---- phase 12: the pair binning -----------------------------------
+    binning = []
+    if 12 in phases:
+        log("phase 12: the pair binning, kernels against the torch path")
+        for name, h, w, start in (("512x512", 512, 512, {}),
+                                  ("1920x1080", 1080, 1920,
+                                   STREAM_START_1080P)):
+            binning.append(binning_cell(name, bench, bench_camera(h, w, dev),
+                                        bg, **start))
+        log(json.dumps({"binning": binning}))
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "eleven")
+            "twelve")
         return 0
 
     v0 = fit["view0"]
@@ -4252,6 +4398,39 @@ def main(argv=None) -> int:
         "library_ms": None,  # no single PyTorch call computes this function
         "cells": ev["list_cells"],
     }]
+    # the pair binning's three kernels: launches on each path above, times
+    # from phase 12's 1920x1080 cell, where ms and plain_ms are the whole
+    # binning's (the kernels, the scan and the sort; the torch path)
+    b1080 = binning[-1]
+    for key in BINNING_KERNELS:
+        kernels.append({
+            "name": key,
+            "route": "cuda",
+            "source": "dge_tpu_torch/csrc/binning.cu",
+            # the jnp pair binning, which XLA fused (no Pallas kernel)
+            "replaces": "dge_tpu/ops/binning.py:371",
+            "launches": render_launches[key],
+            "launches_fit": fit["launches"][key],
+            "launches_edit": edit["launches"][key],
+            "launches_local_edit": edit_system["local"]["launches"][key],
+            "launches_sds": edit_system["sds"]["launches"][key],
+            "max_abs_err": 0.0,  # bit for bit against the torch path
+            "ms": b1080["ms"],
+            "device_ms": b1080["kernel_device_ms"][key],
+            "whole_device_ms": b1080["device_ms"],
+            "plain_ms": b1080["plain_ms"],
+            "plain_device_ms": b1080["plain_device_ms"],
+            "bound_ms": b1080["bound_ms"][key],
+            "whole_bound_ms": b1080["bound_ms"]["whole"],
+            "bound_by": "bytes",
+            # torch.sort is the one library call; the keys, cull and ranges
+            # around it are what the kernels replace
+            "library_ms": None,
+            "cells": [dict(cell=c["cell"], ms=c["ms"],
+                           device_ms=c["kernel_device_ms"][key],
+                           plain_ms=c["plain_ms"],
+                           bound_ms=c["bound_ms"][key]) for c in binning],
+        })
     # phase 9: each kernel's launches per scenario, one count a rank
     per_rank = {"nccl_world1_train": [multi["nccl_world1"]["launches"]]}
     for world in ("world2", "world4"):
@@ -4274,7 +4453,7 @@ def main(argv=None) -> int:
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
               "multi_gpu": multi, "capture": capture, "bf16_edit": bf16,
-              "card": smi,
+              "binning": binning, "card": smi,
               "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -15,13 +15,25 @@ caps are the same as in the JAX version, so ``pair_ids``, ``starts``,
 ``counts``, ``lists``, ``spill`` and ``spill_parts`` come out identical for
 identical inputs: both sorts are stable sorts on int32, ties keep submission
 order.
+
+On CUDA tensors ``bin_gaussians_pairs`` runs ``_pair_sort_kernels``: the
+hand-written kernels of ``dge_tpu_torch/csrc/binning.cu`` (rects, emit,
+ranges; its source note says what each computes) around one ``torch.cumsum``
+and the same ``torch.sort``, giving the ``PairBins`` of ``_pair_sort`` bit
+for bit. On CPU tensors it runs ``_pair_sort``, the plain version that the
+tests hold to the JAX package. ``launch_scalars`` computes the kernel path's
+sizes.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
+
+from dge_tpu_torch.ops import cuda_build
+from dge_tpu_torch.ops.pairs_composite import launch_counts
 
 # Safety margin on the q <= 2*ln(255*opacity) cull test, as in the JAX
 # version: an absolute floor plus a term proportional to the quadratic's
@@ -378,6 +390,154 @@ def _pair_sort(
     )
 
 
+class BinningLaunch(NamedTuple):
+    """The sizes of one binning on the kernel path (``launch_scalars``)."""
+
+    tiles_x: int
+    tiles_y: int
+    num_tiles: int
+    depth_bits: int  # width of the keys' depth field
+    b2: int  # tier-2 capacity (big_capacity, or its default)
+    rows: int  # tier-2 rows: min(b2, N)
+    r: int  # rect tiles a tier-2 row inspects under the cull
+    max_pairs: int  # the stream cap (max_pairs, or its default)
+    emission: tuple  # (N, m1, m2), as FoldLayout has it
+    slots: int  # keys emitted and sorted: N*m1 + rows*m2
+
+
+def default_max_pairs(n: int) -> int:
+    """``max_pairs=0``: max(2^18, 2N) rounded up to a power of two."""
+    return max(1 << 18, 1 << int(2 * n - 1).bit_length())
+
+
+def launch_scalars(n: int, *, height: int, width: int, tile_px: int,
+                   max_tiles_per_gaussian: int, small_slots: int,
+                   big_capacity: int = 0, max_pairs: int = 0,
+                   depth_tiles: int = 0) -> BinningLaunch:
+    """The kernel path's sizes for ``n`` Gaussians, as ``_pair_sort`` sizes
+    its tensors; ``depth_tiles`` is ``depth_keys``' tile count (0: none)."""
+    tiles_x = -(-width // tile_px)
+    tiles_y = -(-height // tile_px)
+    num_tiles = tiles_x * tiles_y
+    key_tiles = max(num_tiles, depth_tiles)
+    depth_bits = 31 - max(int(key_tiles + 1).bit_length(), 1)
+    if depth_bits < 16:
+        raise ValueError(f"too many tiles ({key_tiles}) for int32 "
+                         "[tile|depth] keys; raise tile_px")
+    b2 = big_capacity or (1 << max(int(n // 32 - 1).bit_length(), 6))
+    m1, m2 = small_slots, max_tiles_per_gaussian
+    rows = min(b2, n)
+    return BinningLaunch(
+        tiles_x=tiles_x, tiles_y=tiles_y, num_tiles=num_tiles,
+        depth_bits=depth_bits, b2=b2, rows=rows,
+        r=min(num_tiles, max(256, 2 * m2)),
+        max_pairs=max_pairs if max_pairs > 0 else default_max_pairs(n),
+        emission=(n, m1, m2), slots=n * m1 + rows * m2)
+
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(cuda_build.build_library("binning"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.binning_rects.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 4
+        lib.binning_emit.argtypes = [ptr] * 7 + [i32] * 10 + [ptr] * 4
+        lib.binning_ranges.argtypes = ([ptr] + [i32] * 5 + [ptr] + [i32] * 4
+                                       + [ptr] * 7)
+        for fn in (lib.binning_rects, lib.binning_emit, lib.binning_ranges):
+            fn.restype = i32
+        _lib = lib
+    return _lib
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launch_counts[name] += 1
+
+
+def _pair_sort_kernels(
+    mean2d, depth, radius, visible, *, height, width, tile_px, max_per_tile,
+    max_tiles_per_gaussian, max_pairs, small_slots=4, big_capacity=None,
+    conic=None, opacity=None, depth_keys=None,
+) -> PairBins:
+    """``_pair_sort`` on the card: the kernels of ``csrc/binning.cu``
+    around one ``torch.cumsum`` and ``_pair_sort``'s ``torch.sort``, every
+    constant a kernel argument (no host upload). Raises on arguments the
+    kernels do not take."""
+    n = mean2d.shape[0]
+    tiles, seen = depth_keys if depth_keys is not None else (0, None)
+    sc = launch_scalars(
+        n, height=height, width=width, tile_px=tile_px,
+        max_tiles_per_gaussian=max_tiles_per_gaussian,
+        small_slots=small_slots, big_capacity=big_capacity or 0,
+        max_pairs=max_pairs, depth_tiles=tiles)
+    if (conic is None) != (opacity is None):
+        raise ValueError("bin_gaussians_pairs: the cull needs both conic "
+                         "and opacity")
+    f32, i32 = torch.float32, torch.int32
+    for what, t, dtype, shape in (
+            ("mean2d", mean2d, f32, (n, 2)), ("depth", depth, f32, (n,)),
+            ("radius", radius, f32, (n,)),
+            ("visible", visible, torch.bool, (n,)),
+            ("conic", conic, f32, (n, 3)), ("opacity", opacity, f32, (n,)),
+            ("depth_keys' seen", seen, torch.bool, (n,))):
+        if t is None:
+            continue
+        if t.dtype != dtype or tuple(t.shape) != shape or \
+                not t.is_contiguous() or t.device != mean2d.device:
+            raise ValueError(
+                f"bin_gaussians_pairs: {what} must be a contiguous {dtype} "
+                f"tensor of shape {shape} on {mean2d.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    if sc.slots >= 2 ** 31:
+        raise ValueError(f"{sc.slots} emission slots: too many for int32")
+    _, m1, m2 = sc.emission
+    dev = mean2d.device
+    lib = _load()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # depth min / max keys, NaN flag, spill_parts, spill
+    ws = torch.zeros(8, dtype=i32, device=dev)
+    rect = torch.empty(n, 4, dtype=i32, device=dev)
+    member = torch.empty(n, dtype=i32, device=dev)
+    with torch.cuda.device(dev):
+        _launched("binning_rects", lib.binning_rects(
+            mean2d.data_ptr(), radius.data_ptr(), visible.data_ptr(),
+            depth.data_ptr(), _ptr(seen), n, tile_px, sc.tiles_x, sc.tiles_y,
+            m1, rect.data_ptr(), member.data_ptr(), ws.data_ptr(), stream))
+        incl = torch.cumsum(member, 0, dtype=i32)
+        keys = torch.empty(sc.slots, dtype=i32, device=dev)
+        tier2_ids = torch.empty(sc.rows, dtype=i32, device=dev)
+        _launched("binning_emit", lib.binning_emit(
+            rect.data_ptr(), member.data_ptr(), incl.data_ptr(),
+            depth.data_ptr(), mean2d.data_ptr(), _ptr(conic), _ptr(opacity), n,
+            sc.tiles_x, sc.num_tiles, sc.depth_bits, m1, m2, sc.b2, sc.rows,
+            sc.r, tile_px, keys.data_ptr(), tier2_ids.data_ptr(),
+            ws.data_ptr(), stream))
+        keys, perm = torch.sort(keys, stable=True)
+        npairs = min(sc.max_pairs, sc.slots)
+        starts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
+        counts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
+        length = torch.empty((), dtype=i32, device=dev)
+        pair_ids = torch.empty(npairs, dtype=i32, device=dev)
+        _launched("binning_ranges", lib.binning_ranges(
+            keys.data_ptr(), sc.slots, sc.num_tiles, sc.depth_bits,
+            max_per_tile, sc.max_pairs, perm.data_ptr(), npairs, n, m1, m2,
+            tier2_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
+            length.data_ptr(), pair_ids.data_ptr(), ws.data_ptr(), stream))
+    return PairBins(
+        pair_ids=pair_ids, starts=starts, counts=counts, spill=ws[7],
+        tiles_x=sc.tiles_x, tiles_y=sc.tiles_y, spill_parts=ws[3:7],
+        length=length, perm=perm, tier2_ids=tier2_ids, emission=sc.emission)
+
+
 def bin_gaussians_pairs(
     mean2d: torch.Tensor,
     depth: torch.Tensor,
@@ -405,11 +565,13 @@ def bin_gaussians_pairs(
     ``depth_keys=(tiles, seen)`` quantises depth as an image of ``tiles``
     tiles in which ``seen`` [N] bool are the Gaussians on screen would: a
     band of a larger image passes the whole image's (``tile_rects``'s
-    visibility), so its depths quantise, and its ties order, as there."""
-    n = mean2d.shape[0]
+    visibility), so its depths quantise, and its ties order, as there.
+    CUDA tensors run ``_pair_sort_kernels``, CPU tensors ``_pair_sort``;
+    the two give the same result."""
     if max_pairs <= 0:
-        max_pairs = max(1 << 18, 1 << int(2 * n - 1).bit_length())
-    return _pair_sort(
+        max_pairs = default_max_pairs(mean2d.shape[0])
+    sort = _pair_sort_kernels if mean2d.device.type == "cuda" else _pair_sort
+    return sort(
         mean2d, depth, radius, visible, height=height, width=width,
         tile_px=tile_px, max_per_tile=max_per_tile,
         max_tiles_per_gaussian=max_tiles_per_gaussian, max_pairs=max_pairs,

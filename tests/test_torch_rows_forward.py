@@ -249,7 +249,8 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
                            "pairs_pass1", "pairs_suffix", "pairs_pass2",
                            "pairs_fold", "list_stream", "tiles_composite",
                            "pairs_logdot",
-                           "pairs_logdot_combine"}
+                           "pairs_logdot_combine", "binning_rects",
+                           "binning_emit", "binning_ranges"}
     for log_space in (False, True):
         scratch, mask = TPC.rows_forward(*args, k["row_tile"],
                                          log_space=log_space, **k["kw"])
