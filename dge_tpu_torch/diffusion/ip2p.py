@@ -17,6 +17,15 @@ and classifier-free guidance is IP2P's 3-way form (dge_guidance.py:362-368):
 Every random draw goes through ``_normal`` with an explicit
 ``torch.Generator`` on the models' device.
 
+Two editors (``preset_configs``): ``"sd15"``, timbrooks/instruct-pix2pix
+(the SD-1.5 UNet, the CLIP-L text tower, the f8 VAE at scale 0.18215), and
+``"sdxl768"``, diffusers/sdxl-instructpix2pix-768 (the SDXL UNet, CLIP-L
+and OpenCLIP bigG read at their penultimate layers and concatenated to a
+2,048-wide context, bigG's projected EOS state as the pooled embedding, the
+f8 VAE at scale 0.13025). The SDXL UNet also takes the pooled embedding and
+the time ids (original size, crop corner, target size: the frames' own
+size, uncropped); ``unet_eps`` makes the time ids from the latents' size.
+
 The networks compute in ``IP2PModels.dtype`` (``build_models(dtype=...)``,
 f32 or bf16, as the JAX package's ``build_models``), and each function here
 returns the dtype its JAX twin returns: ``encode_text``, ``encode_images``,
@@ -31,6 +40,7 @@ Spans (utils/tracing.py): ``vae.encode``, ``vae.encode_cond``,
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -44,16 +54,21 @@ from dge_tpu_torch.models.unet import UNet2DConditionModel, UNetConfig
 from dge_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from dge_tpu_torch.utils import tracing
 
+# diffusers/sdxl-instructpix2pix-768's vae/config.json
+SDXL_VAE_SCALE = 0.13025
+
 
 class IP2PModels(NamedTuple):
-    """The three networks and the DDIM schedule. ``dtype`` is the dtype the
-    networks compute in (all three share it); their norms, the CLIP
-    position table and the schedule stay f32."""
+    """The networks and the DDIM schedule. ``dtype`` is the dtype the
+    networks compute in (all share it); their norms, the CLIP position
+    tables and the schedule stay f32. ``text_encoder_2``: SDXL's second
+    text tower (None for SD-1.5)."""
 
     unet: UNet2DConditionModel
     vae: AutoencoderKL
     text_encoder: CLIPTextModel
     schedule: ddim.DDIMSchedule
+    text_encoder_2: Optional[CLIPTextModel] = None
 
     @property
     def device(self) -> torch.device:
@@ -64,19 +79,46 @@ class IP2PModels(NamedTuple):
         return self.unet.dtype
 
 
+def preset_configs(editor: str = "sd15", tiny: bool = False) -> Tuple[
+        UNetConfig, VAEConfig, CLIPTextConfig, Optional[CLIPTextConfig]]:
+    """(UNet, VAE, text tower, second text tower) configs of ``editor``:
+    ``"sd15"`` or ``"sdxl768"``; ``tiny``: its layout at test size."""
+    if editor == "sd15":
+        if tiny:
+            return (UNetConfig.tiny(), VAEConfig.tiny(), CLIPTextConfig.tiny(),
+                    None)
+        return UNetConfig(), VAEConfig(), CLIPTextConfig(), None
+    if editor == "sdxl768":
+        if tiny:
+            text, text_2 = CLIPTextConfig.tiny_xl()
+            return (UNetConfig.tiny_xl(
+                        context_dim=text.hidden_size + text_2.hidden_size,
+                        pooled_dim=text_2.projection_dim),
+                    dataclasses.replace(VAEConfig.tiny(),
+                                        scaling_factor=SDXL_VAE_SCALE),
+                    text, text_2)
+        return (UNetConfig.sdxl_ip2p_768(),
+                VAEConfig(scaling_factor=SDXL_VAE_SCALE),
+                CLIPTextConfig.sdxl_l(), CLIPTextConfig.open_clip_bigg())
+    raise ValueError(f"unknown editor {editor!r}; one of 'sd15', 'sdxl768'")
+
+
 def build_models(unet_cfg: Optional[UNetConfig] = None,
                  vae_cfg: Optional[VAEConfig] = None,
                  text_cfg: Optional[CLIPTextConfig] = None,
                  params: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
                  seed: int = 0, device="cuda",
-                 dtype: torch.dtype = torch.float32) -> IP2PModels:
-    """The three networks on ``device`` in eval mode, frozen, computing in
+                 dtype: torch.dtype = torch.float32,
+                 text_cfg_2: Optional[CLIPTextConfig] = None) -> IP2PModels:
+    """The networks on ``device`` in eval mode, frozen, computing in
     ``dtype`` (``torch.float32`` or ``torch.bfloat16``; the JAX
-    ``build_models(dtype=...)``). ``params`` (``{"unet", "vae",
-    "text_encoder"}`` f32 state dicts, from ``weights.load_ip2p_checkpoint``,
-    ``weights.load_ingested`` or ``*_params_from_jax``) load strictly;
-    without them the weights are drawn as flax initialises the JAX modules
-    (``layers.init_like_flax``) from ``seed``. Either way they are drawn or
+    ``build_models(dtype=...)``); a second text tower with ``text_cfg_2``.
+    ``params`` (``{"unet", "vae", "text_encoder"}`` f32 state dicts, and
+    ``"text_encoder_2"`` with a second tower, from
+    ``weights.load_ip2p_checkpoint``, ``weights.load_ingested`` or
+    ``*_params_from_jax``) load strictly; without them the weights are
+    drawn as flax initialises the JAX modules (``layers.init_like_flax``)
+    from ``seed``, the second tower's last. Either way they are drawn or
     loaded in f32 and then cast to ``dtype`` once
     (``layers.store_compute_dtype``): one seed or one parameter tree gives
     the f32 and the bf16 networks the same weights, rounded."""
@@ -85,19 +127,27 @@ def build_models(unet_cfg: Optional[UNetConfig] = None,
         unet = UNet2DConditionModel(unet_cfg or UNetConfig(), dtype)
         vae = AutoencoderKL(vae_cfg or VAEConfig(), dtype)
         text = CLIPTextModel(text_cfg or CLIPTextConfig(), dtype)
+        text_2 = (CLIPTextModel(text_cfg_2, dtype)
+                  if text_cfg_2 is not None else None)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         init_like_flax(unet, gen)
         init_like_flax(vae, gen)
         text.init_like_flax(gen)
+        if text_2 is not None:
+            text_2.init_like_flax(gen)
     else:
         unet.load_state_dict(params["unet"])
         vae.load_state_dict(params["vae"])
         text.load_state_dict(params["text_encoder"])
-    for m in (unet, vae, text):
+        if text_2 is not None:
+            text_2.load_state_dict(params["text_encoder_2"])
+    nets = (unet, vae, text) + ((text_2,) if text_2 is not None else ())
+    for m in nets:
         store_compute_dtype(m).eval().requires_grad_(False)
-    return IP2PModels(unet, vae, text, ddim.make_schedule(device=dev))
+    return IP2PModels(unet, vae, text, ddim.make_schedule(device=dev),
+                      text_2)
 
 
 def _normal(shape, generator: torch.Generator) -> torch.Tensor:
@@ -114,10 +164,21 @@ def nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def encode_text(models: IP2PModels, input_ids) -> torch.Tensor:
-    """Token ids [B, S] -> last hidden states [B, S, D]."""
-    ids = torch.as_tensor(input_ids, dtype=torch.long, device=models.device)
-    return models.text_encoder(ids)
+def encode_text(models: IP2PModels, input_ids, input_ids_2=None):
+    """Token ids [B, S] -> the text tower's hidden states [B, S, D]. With a
+    second tower (SDXL): (both towers' states concatenated [B, S, D1 + D2],
+    the second's pooled embedding [B, P]); ``input_ids_2`` are its ids (its
+    tokenizer pads otherwise), ``input_ids`` by default."""
+    def ids_of(x):
+        return torch.as_tensor(x, dtype=torch.long, device=models.device)
+
+    states = models.text_encoder(ids_of(input_ids))
+    if models.text_encoder_2 is None:
+        return states
+    states_2, pooled = models.text_encoder_2(
+        ids_of(input_ids if input_ids_2 is None else input_ids_2),
+        return_pooled=True)
+    return torch.cat([states, states_2], dim=-1), pooled
 
 
 def _chunks(b: int, chunk: Optional[int]):
@@ -181,16 +242,34 @@ def decode_latents(models: IP2PModels, latents: torch.Tensor,
             dim=0)
 
 
+def time_ids(models: IP2PModels, latent_h: int, latent_w: int,
+             batch: int) -> torch.Tensor:
+    """SDXL's time ids [batch, 6] for frames of the latents' size: original
+    size (H, W), crop corner (0, 0), target size (H, W). Made on the device
+    by fills (no upload)."""
+    f = models.vae.downscale
+    ids = torch.full((batch, 6), float(latent_h * f), device=models.device)
+    ids[:, 1::4] = float(latent_w * f)
+    ids[:, 2:4] = 0.0
+    return ids
+
+
 @torch.no_grad()
 def unet_eps(models: IP2PModels, inp: torch.Tensor, t: int,
-             text_emb: torch.Tensor, **kw) -> torch.Tensor:
+             text_emb: torch.Tensor, pooled: Optional[torch.Tensor] = None,
+             **kw) -> torch.Tensor:
     """The UNet on [B, h, w, 8] latents at timestep ``t`` -> eps
-    [B, h, w, 4]; ``kw``: the cross-view ``mode``, ``cross_view``,
-    ``pivot``."""
+    [B, h, w, 4]; ``pooled`` [B, P]: the pooled text embeddings the SDXL
+    UNet takes (with ``time_ids``); ``kw``: the cross-view ``mode``,
+    ``cross_view``, ``pivot``."""
     with tracing.span("unet." + kw.get("mode", "plain"), device=inp.device,
                       batch=inp.shape[0]):
         ts = torch.full((inp.shape[0],), int(t), dtype=torch.long,
                         device=inp.device)
+        if pooled is not None:
+            kw = dict(kw, text_embeds=pooled,
+                      time_ids=time_ids(models, inp.shape[1], inp.shape[2],
+                                        inp.shape[0]))
         return nhwc(models.unet(nchw(inp), ts, text_emb, **kw))
 
 

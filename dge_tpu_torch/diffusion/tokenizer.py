@@ -57,7 +57,8 @@ class CLIPTokenizer:
     """Byte-level BPE matching openai/CLIP; encode() pads/truncates to
     max_length with <start>/<end> tokens like transformers' CLIPTokenizer."""
 
-    def __init__(self, vocab_path: str, merges_path: str, max_length: int = 77):
+    def __init__(self, vocab_path: str, merges_path: str, max_length: int = 77,
+                 pad_token: Optional[str] = None):
         self.max_length = max_length
         with open(vocab_path) as f:
             self.encoder: Dict[str, int] = json.load(f)
@@ -68,6 +69,9 @@ class CLIPTokenizer:
         self.cache: Dict[str, str] = {}
         self.bos = self.encoder.get("<|startoftext|>", 49406)
         self.eos = self.encoder.get("<|endoftext|>", 49407)
+        # SDXL's second tokenizer pads with "!" instead of the end token
+        self.pad = (self.eos if pad_token is None
+                    else self.encoder.get(pad_token, self.eos))
 
     def bpe(self, token: str) -> str:
         if token in self.cache:
@@ -120,7 +124,7 @@ class CLIPTokenizer:
     def __call__(self, texts) -> np.ndarray:
         if isinstance(texts, str):
             texts = [texts]
-        out = np.full((len(texts), self.max_length), self.eos, np.int64)
+        out = np.full((len(texts), self.max_length), self.pad, np.int64)
         for i, t in enumerate(texts):
             ids = [self.bos] + self.encode_text(t)[: self.max_length - 2] + [self.eos]
             out[i, : len(ids)] = ids
@@ -150,6 +154,15 @@ class HashTokenizer:
         return out
 
 
+def _pad_token(tokenizer_dir: str) -> Optional[str]:
+    p = os.path.join(tokenizer_dir, "tokenizer_config.json")
+    if not os.path.exists(p):
+        return None
+    with open(p) as f:
+        pad = json.load(f).get("pad_token")
+    return pad.get("content") if isinstance(pad, dict) else pad
+
+
 # vocab.json + merges.txt vendored here are found without configuration
 # (the repository holds none)
 ASSETS_TOKENIZER_DIR = os.path.join(
@@ -161,12 +174,14 @@ def load_tokenizer(
     tokenizer_dir: Optional[str] = None, max_length: int = 77
 ):
     """CLIPTokenizer when vocab files exist (in ``tokenizer_dir`` or the
-    vendored assets dir), else HashTokenizer."""
+    vendored assets dir), else HashTokenizer. The pad token is the
+    directory's ``tokenizer_config.json`` ``pad_token`` where it names one
+    (``"!"`` in SDXL's ``tokenizer_2/``), else the end token."""
     for d in (tokenizer_dir, ASSETS_TOKENIZER_DIR):
         if not d:
             continue
         vp = os.path.join(d, "vocab.json")
         mp = os.path.join(d, "merges.txt")
         if os.path.exists(vp) and os.path.exists(mp):
-            return CLIPTokenizer(vp, mp, max_length)
+            return CLIPTokenizer(vp, mp, max_length, _pad_token(d))
     return HashTokenizer(max_length=max_length)

@@ -235,7 +235,8 @@ def load_state_dict_file(path: str) -> Dict[str, torch.Tensor]:
 def load_ip2p_checkpoint(root: str) -> Dict[str, Dict[str, torch.Tensor]]:
     """A local diffusers InstructPix2Pix directory -> ``{"unet", "vae",
     "text_encoder"}`` state dicts in the port's names (load_ip2p_checkpoint,
-    weights.py:178)."""
+    weights.py:178), and ``"text_encoder_2"`` where the directory has a
+    ``text_encoder_2/`` (SDXL's second tower)."""
 
     def load_sd(subdir):
         d = os.path.join(root, subdir)
@@ -247,10 +248,15 @@ def load_ip2p_checkpoint(root: str) -> Dict[str, Dict[str, torch.Tensor]]:
                 return load_state_dict_file(p)
         raise FileNotFoundError(f"no checkpoint found under {d}")
 
-    text = {k: v for k, v in load_sd("text_encoder").items()
-            if "position_ids" not in k}
-    return {"unet": load_sd("unet"), "vae": _modern_vae_names(load_sd("vae")),
-            "text_encoder": text}
+    def text(subdir):
+        return {k: v for k, v in load_sd(subdir).items()
+                if "position_ids" not in k}
+
+    out = {"unet": load_sd("unet"), "vae": _modern_vae_names(load_sd("vae")),
+           "text_encoder": text("text_encoder")}
+    if os.path.isdir(os.path.join(root, "text_encoder_2")):
+        out["text_encoder_2"] = text("text_encoder_2")
+    return out
 
 
 INGEST_FORMAT = "dge_tpu_torch_ip2p_v1"

@@ -21,7 +21,7 @@ launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
     python -m dge_tpu_torch.launch --train --gs_source scene.ply \\
         --source capture_dir --out outputs [--smoke] [--resume ckpt] \\
         [--config configs/dge.yaml] system.ip2p_checkpoint=DIR \\
-        system.prompt="..." [system.model_size=tiny] \\
+        system.prompt="..." [system.editor=sdxl768] [system.model_size=tiny] \\
         [system.vgg_checkpoint=vgg16.pth] [system.clip_checkpoint=DIR] \\
         [system.seg_prompt=object system.segmentor=precomputed \\
          system.mask_dir=DIR] [system.edit.use_sds=true] \\
@@ -57,7 +57,11 @@ transformers ``CLIPModel`` directory or its ingest cache)
 ``clip_metrics.json``; writing
 ``val/``, ``ckpts/``, the edit cache under ``<out>/edit_cache/`` and
 ``last.ply``;
-``system.model_size=tiny`` builds the small test networks.
+``system.editor`` picks the edit networks (``ip2p.preset_configs``):
+``sd15`` (the default, timbrooks/instruct-pix2pix) or ``sdxl768``
+(diffusers/sdxl-instructpix2pix-768: the SDXL UNet, two text towers and
+tokenizers, ``tokenizer/`` and ``tokenizer_2/``);
+``system.model_size=tiny`` builds the editor's small test networks.
 ``--distributed`` joins the process group torchrun describes (NCCL on
 ``cuda:LOCAL_RANK``, gloo with ``--cpu``) and logs rank, world, device and
 backend; ``--train`` with ``system.guidance.batch_mode=shard`` then splits
@@ -452,9 +456,6 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     from dge_tpu_torch.diffusion import tokenizer as T
     from dge_tpu_torch.diffusion import weights as W
     from dge_tpu_torch.models import lpips
-    from dge_tpu_torch.models.clip_text import CLIPTextConfig
-    from dge_tpu_torch.models.unet import UNetConfig
-    from dge_tpu_torch.models.vae import VAEConfig
     from dge_tpu_torch.ops import pairs_composite as PC
     from dge_tpu_torch.parallel import dist as D
     from dge_tpu_torch.scene import dataset as DS
@@ -496,18 +497,22 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
                   "timbrooks/instruct-pix2pix directory, or pass --smoke to "
                   "run the pipeline with random weights (noise output)")
         sys.exit(2)
-    if sys_cfg.get("model_size", "full") == "tiny":
+    editor = sys_cfg.get("editor", "sd15")
+    tiny = sys_cfg.get("model_size", "full") == "tiny"
+    unet_cfg, vae_cfg, text_cfg, text_cfg_2 = ip2p.preset_configs(editor,
+                                                                  tiny)
+    models = ip2p.build_models(unet_cfg, vae_cfg, text_cfg, params=params,
+                               device=device, text_cfg_2=text_cfg_2)
+    subs = ("tokenizer",) + (("tokenizer_2",) if text_cfg_2 else ())
+    if tiny:
         # the small test networks: the whole edit path runs on the CPU
-        text_cfg = CLIPTextConfig.tiny()
-        models = ip2p.build_models(UNetConfig.tiny(), VAEConfig.tiny(),
-                                   text_cfg, params=params, device=device)
-        tok = T.HashTokenizer(vocab_size=text_cfg.vocab_size,
-                              max_length=text_cfg.max_length)
+        toks = [T.HashTokenizer(vocab_size=text_cfg.vocab_size,
+                                max_length=text_cfg.max_length)
+                for _ in subs]
     else:
-        models = ip2p.build_models(params=params, device=device)
-        tok = T.load_tokenizer(
-            os.path.join(ckpt_dir, "tokenizer") if ckpt_dir else None)
-        if isinstance(tok, T.HashTokenizer):
+        toks = [T.load_tokenizer(os.path.join(ckpt_dir, sub)
+                                 if ckpt_dir else None) for sub in subs]
+        if any(isinstance(t, T.HashTokenizer) for t in toks):
             log.warning("no tokenizer vocabulary: HashTokenizer ids are "
                         "meaningless (smoke only)")
 
@@ -524,7 +529,8 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
             generator=torch.Generator().manual_seed(7), device=device)
     prompt = sys_cfg.get("prompt", "")
     po = PromptProcessor(
-        tok, lambda ids: ip2p.encode_text(models, ids),
+        lambda texts: [t(texts) for t in toks],
+        lambda ids: ip2p.encode_text(models, *ids),
         cache_dir=trial_dir and os.path.join(trial_dir, "text_cache"),
         cfg=PromptConfig(prompt=prompt,
                          negative_prompt=sys_cfg.get("negative_prompt", "")),
@@ -538,11 +544,13 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
         **sys_cfg.get("edit", {})})
     seg = build_segmentor(sys_cfg.get("segmentor", "fallback"),
                           sys_cfg.get("mask_dir", ""))
-    # the cross-trial edit cache keyed by (gs_source, prompt, #views): a
-    # re-run with the same key skips the edit rounds unless
-    # system.edit.cache_overwrite is set (DGE.py:96-99)
-    cache_key = hashlib.md5(f"{os.path.abspath(gs_source)}|{prompt}|"
-                            f"{len(cams)}".encode()).hexdigest()[:16]
+    # the cross-trial edit cache keyed by (gs_source, prompt, #views and
+    # an editor other than SD-1.5): a re-run with the same key skips the
+    # edit rounds unless system.edit.cache_overwrite is set (DGE.py:96-99)
+    cache_key = hashlib.md5(
+        (f"{os.path.abspath(gs_source)}|{prompt}|{len(cams)}"
+         + ("" if editor == "sd15" else f"|{editor}")).encode()
+    ).hexdigest()[:16]
     cache_dir = os.path.join(out_root, "edit_cache", cache_key)
     log.info("edit cache: %s", cache_dir)
     if D.world_size() > 1:
@@ -556,6 +564,8 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
         e_cfg, scene, cams, guidance=guidance,
         text_emb_pos=torch.from_numpy(po.cond).to(device),
         text_emb_neg=torch.from_numpy(po.uncond).to(device),
+        pooled_pos=_pooled(po.cond_pooled, device),
+        pooled_neg=_pooled(po.uncond_pooled, device),
         perceptual_fn=perceptual_fn, cameras_extent=cs.cameras_extent,
         cache_dir=cache_dir, segmentor=seg)
     start_step = 0
@@ -596,6 +606,11 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
         system.losses_finite, system.total_spill,
         system.render_spill, system.loop.caps, seconds, launches, trial_dir,
         clip, system, checksum)
+
+
+def _pooled(x, device):
+    """A prompt's pooled embedding [1, P] on ``device`` (None: SD-1.5)."""
+    return None if x is None else torch.from_numpy(x)[None].to(device)
 
 
 def _clip_edit_metrics(sys_cfg, system, trial_dir, device) -> Optional[dict]:

@@ -1,18 +1,25 @@
-"""CLIP text encoder (ViT-L/14 text tower, the SD-1.5 text encoder).
+"""CLIP text encoder (ViT-L/14 text tower, the SD-1.5 text encoder; SDXL's
+two towers).
 
-JAX counterpart: ``dge_tpu/models/clip_text.py``. 12 layers, d=768, 12
-heads, vocab 49408, max_len 77, causal mask, quick-GELU. Parameter names
-are transformers' CLIPTextModel names (``text_model.encoder.layers.0.
+JAX counterpart: ``dge_tpu/models/clip_text.py`` (the SD-1.5 tower). The
+defaults: 12 layers, d=768, 12 heads, vocab 49408, max_len 77, causal
+mask, quick-GELU, the final layer norm's output. Parameter names are
+transformers' CLIPTextModel names (``text_model.encoder.layers.0.
 self_attn.q_proj.weight``); the optional ``text_projection`` is
-CLIPTextModelWithProjection's head.
+CLIPTextModelWithProjection's head. SDXL reads both its towers at the
+penultimate layer (``hidden_state_index=-2``, transformers'
+``hidden_states[-2]``, no final norm): CLIP-L (``sdxl_l``) and OpenCLIP
+ViT-bigG/14 (``open_clip_bigg``: 32 layers, d=1280, 20 heads, MLP 5120,
+exact GELU, a 1280 projection whose EOS state is the pooled embedding).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dge_tpu_torch.models.layers import (Embedding, LayerNorm, Linear, attend,
@@ -30,11 +37,41 @@ class CLIPTextConfig:
     # the text_projection head (the metrics CLIP uses 768); the SD-1.5 text
     # encoder has none
     projection_dim: Optional[int] = None
+    # the MLP's activation: "quick_gelu" (OpenAI CLIP) or "gelu" (exact)
+    hidden_act: str = "quick_gelu"
+    # the states returned: None, the final layer norm's output; an index k,
+    # transformers' hidden_states[k] (k = -2: the penultimate layer's
+    # output, no final norm)
+    hidden_state_index: Optional[int] = None
 
     @classmethod
     def tiny(cls) -> "CLIPTextConfig":
         return cls(vocab_size=1000, hidden_size=32, num_layers=2, num_heads=2,
                    max_length=16, intermediate_size=64)
+
+    @classmethod
+    def sdxl_l(cls) -> "CLIPTextConfig":
+        """SDXL's first tower: CLIP ViT-L/14's, read at the penultimate
+        layer."""
+        return cls(hidden_state_index=-2)
+
+    @classmethod
+    def open_clip_bigg(cls) -> "CLIPTextConfig":
+        """SDXL's second tower (``text_encoder_2``)."""
+        return cls(hidden_size=1280, num_layers=32, num_heads=20,
+                   intermediate_size=5120, projection_dim=1280,
+                   hidden_act="gelu", hidden_state_index=-2)
+
+    @classmethod
+    def tiny_xl(cls) -> "Tuple[CLIPTextConfig, CLIPTextConfig]":
+        """The two SDXL towers at test size: 16 + 16 wide (a 32-wide
+        context), the second with the exact GELU and a 24-wide
+        projection."""
+        small = dict(vocab_size=1000, hidden_size=16, num_layers=2,
+                     num_heads=2, max_length=16, hidden_state_index=-2)
+        return (cls(intermediate_size=32, **small),
+                cls(intermediate_size=64, projection_dim=24,
+                    hidden_act="gelu", **small))
 
 
 def quick_gelu(x):
@@ -83,9 +120,12 @@ class CLIPMLP(nn.Module):
         super().__init__()
         self.fc1 = Linear(cfg.hidden_size, cfg.intermediate_size, dtype=dtype)
         self.fc2 = Linear(cfg.intermediate_size, cfg.hidden_size, dtype=dtype)
+        if cfg.hidden_act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"unknown hidden_act {cfg.hidden_act!r}")
+        self.act = quick_gelu if cfg.hidden_act == "quick_gelu" else F.gelu
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class CLIPLayer(nn.Module):
@@ -152,8 +192,9 @@ class CLIPTextModel(nn.Module):
                 0.0, 0.01, generator=generator)
 
     def forward(self, input_ids: torch.Tensor, return_pooled: bool = False):
-        """input_ids [B, S] -> last hidden state [B, S, D]; with
-        ``return_pooled`` also the projected hidden state at the EOS token
+        """input_ids [B, S] -> hidden states [B, S, D] (the final layer
+        norm's output, or those ``hidden_state_index`` names); with
+        ``return_pooled`` also the projected final state at the EOS token
         (the largest id) [B, projection_dim]."""
         tm = self.text_model
         b, s = input_ids.shape
@@ -161,13 +202,18 @@ class CLIPTextModel(nn.Module):
              + tm.embeddings.position_embedding.weight[None, :s])
         causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                        device=input_ids.device))
+        hidden = [x]  # transformers' hidden_states
         for layer in tm.encoder.layers:
             x = layer(x, causal)
-        x = tm.final_layer_norm(x)
+            hidden.append(x)
+        final = tm.final_layer_norm(x)
+        index = self.config.hidden_state_index
+        out = final if index is None else hidden[index]
         if not return_pooled:
-            return x
+            return out
         if self.text_projection is None:
             raise ValueError(
                 "return_pooled=True requires CLIPTextConfig.projection_dim")
-        pooled = x[torch.arange(b, device=x.device), input_ids.argmax(dim=-1)]
-        return x, self.text_projection(pooled)
+        pooled = final[torch.arange(b, device=x.device),
+                       input_ids.argmax(dim=-1)]
+        return out, self.text_projection(pooled)

@@ -13,11 +13,14 @@ attention surgery, threestudio/utils/dge_utils.py:272-356, :369-610):
 - ``"pivot_record"``: extended, and the block's normed hidden states and
   attention output are written into ``pivot[block.pivot_key]``
 - ``"pivot_reuse"``: epipolar-constrained cosine-argmax gather of the
-  recorded pivot attention outputs
+  recorded pivot attention outputs (its argmax the span
+  ``attn.reuse_match``, utils/tracing.py)
 
 The pivot record is an explicit dict that the caller passes to the pivot
 pass (which fills it) and to the reuse passes (which read it); JAX keeps
-the same record in a flax ``"pivot"`` variable collection.
+the same record in a flax ``"pivot"`` variable collection. The counter
+group ``pivot_record_bytes`` counts the bytes written to it, by token
+count.
 
 Computation dtype. Every module takes the ``dtype`` its JAX twin carries
 (``float32`` or ``bfloat16``) and follows flax's rules: ``Linear``,
@@ -53,6 +56,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dge_tpu_torch.utils import tracing
 
 # beyond this many logits entries per head-batch the plain path switches to
 # the online-softmax loop (layers.py:118-121)
@@ -378,6 +383,11 @@ def _unit(x):
     return x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-6)
 
 
+# bytes written to pivot records (normed states and attention output), by
+# the block's token count
+pivot_record_bytes = tracing.group("pivot_record_bytes")
+
+
 class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
                  dtype: torch.dtype = torch.float32):
@@ -408,6 +418,9 @@ class BasicTransformerBlock(nn.Module):
                 # the pivotal pass stores normed hidden states and attention
                 # output (make_dge_block, dge_utils.py:400-405, 526-533)
                 pivot[self.pivot_key] = (norm_h, attn_out)
+                s = x.shape[1]
+                pivot_record_bytes[s] = pivot_record_bytes.get(s, 0) + (
+                    norm_h.nbytes + attn_out.nbytes)
         elif mode == "pivot_reuse":
             attn_out = self._pivot_reuse(norm_h, cross_view,
                                          *pivot[self.pivot_key])
@@ -431,8 +444,10 @@ class BasicTransformerBlock(nn.Module):
         img = _unit(norm_h.reshape(3, f, s, d)[1])
         piv_img = _unit(piv_h[1][closest])  # [F, n_key, S, D]
         if cv.epi_lines is not None and s in cv.epi_lines:
-            idx = epi_blockwise_argmax(img, piv_img, cv.epi_lines[s],
-                                       cv.epi_pts[s], cv.epi_threshold)
+            with tracing.span("attn.reuse_match", device=norm_h.device,
+                              tokens=s):
+                idx = epi_blockwise_argmax(img, piv_img, cv.epi_lines[s],
+                                           cv.epi_pts[s], cv.epi_threshold)
         else:
             sim = torch.einsum("fsd,fktd->fkst", img.float(),
                                piv_img.float())
@@ -465,23 +480,42 @@ def from_tokens(x, h: int, w: int):
 
 
 class Transformer2DModel(nn.Module):
+    """diffusers Transformer2DModel: ``depth`` transformer blocks between
+    two projections of width ``heads * dim_head``. ``linear_projection``
+    False (SD-1.5): 1x1 convolutions on the image; True (SDXL's
+    ``use_linear_projection``): Linear layers on the tokens."""
+
     def __init__(self, channels: int, heads: int, dim_head: int,
                  context_dim: int, groups: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, depth: int = 1,
+                 linear_projection: bool = False):
         super().__init__()
+        inner = heads * dim_head
+        self.linear_projection = linear_projection
         self.norm = GroupNorm(groups, channels, 1e-6, dtype)
-        # SD-1.5 uses 1x1 conv projections (use_linear_projection=False)
-        self.proj_in = Conv2d(channels, channels, 1, dtype=dtype)
+        if linear_projection:
+            self.proj_in = Linear(channels, inner, dtype=dtype)
+        else:
+            self.proj_in = Conv2d(channels, inner, 1, dtype=dtype)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(channels, heads, dim_head, context_dim,
-                                  dtype)])
-        self.proj_out = Conv2d(channels, channels, 1, dtype=dtype)
+            BasicTransformerBlock(inner, heads, dim_head, context_dim, dtype)
+            for _ in range(depth)])
+        if linear_projection:
+            self.proj_out = Linear(inner, channels, dtype=dtype)
+        else:
+            self.proj_out = Conv2d(inner, channels, 1, dtype=dtype)
 
     def forward(self, x, context, **kw):
         """x [B, C, H, W] -> same."""
         h, w = x.shape[2:]
-        y = to_tokens(self.proj_in(self.norm(x)))
-        y = self.transformer_blocks[0](y, context, **kw)
+        if self.linear_projection:
+            y = self.proj_in(to_tokens(self.norm(x)))
+        else:
+            y = to_tokens(self.proj_in(self.norm(x)))
+        for block in self.transformer_blocks:
+            y = block(y, context, **kw)
+        if self.linear_projection:
+            return from_tokens(self.proj_out(y), h, w) + x
         return self.proj_out(from_tokens(y, h, w)) + x
 
 

@@ -127,7 +127,11 @@ class DGESystem:
                  cameras_extent: float = 1.0,
                  cache_dir: Optional[str] = None,
                  segmentor: Optional[Callable] = None,
-                 camera_pool: Optional[Sequence[CameraArrays]] = None):
+                 camera_pool: Optional[Sequence[CameraArrays]] = None,
+                 pooled_pos: Optional[torch.Tensor] = None,
+                 pooled_neg: Optional[torch.Tensor] = None):
+        """``text_emb_*`` [1, S, D] and, for the SDXL editor, ``pooled_*``
+        [1, P]: the prompt's and the negative prompt's."""
         self.cfg = cfg
         self.scene = scene
         self.cameras = list(cameras)
@@ -137,6 +141,8 @@ class DGESystem:
         self.guidance = guidance
         self.text_emb_pos = text_emb_pos
         self.text_emb_neg = text_emb_neg
+        self.pooled_pos = pooled_pos
+        self.pooled_neg = pooled_neg
         self.segmentor = segmentor
         self.cache_dir = cache_dir
         self.cameras_extent = cameras_extent
@@ -372,7 +378,7 @@ class DGESystem:
         neg = self.text_emb_neg.expand((n,) + self.text_emb_neg.shape[-2:])
         cams = stack_cameras([self.cameras[v] for v in views_sorted])
         edited = self.guidance(rgb, cond, pos, neg, cams, generator,
-                               max_step=max_step)
+                               max_step=max_step, **self._pooled(n))
         edited = _quantize_u8(tracing.host_read(edited, "edit.frames",
                                                 _numpy))
         for i, vid in enumerate(views_sorted):
@@ -456,15 +462,13 @@ class DGESystem:
         enc_noise = P._normal(P.latent_shape(models, rgb), generator)
         with torch.no_grad():
             latents = P.encode_images_with(models, rgb, enc_noise)
-        cond_img, _, cond_zero = P.encode_cond_images(models,
-                                                      cond).chunk(3, dim=0)
         pos = self.text_emb_pos.expand((b,) + self.text_emb_pos.shape[-2:])
         neg = self.text_emb_neg.expand((b,) + self.text_emb_neg.shape[-2:])
-
-        def triple_for(idx):
-            return (torch.cat([pos[idx], neg[idx], neg[idx]], 0),
-                    torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]],
-                              0))
+        pooled = self._pooled(b)
+        triple_for = g.triples(
+            torch.cat([pos, neg, neg]), P.encode_cond_images(models, cond),
+            torch.cat([pooled["pooled_pos"], pooled["pooled_neg"],
+                       pooled["pooled_neg"]]) if pooled else None)
 
         t = _timestep(g.min_step, g.max_step, generator)
         noise = P._normal(tuple(latents.shape), generator)
@@ -496,6 +500,14 @@ class DGESystem:
                 "spill": int(sum(int(o.spill) for o in outs)),
                 "spill_parts": torch.stack(
                     [o.spill_parts for o in outs]).sum(dim=0).cpu().numpy()}
+
+    def _pooled(self, n: int) -> Dict[str, torch.Tensor]:
+        """The pooled embeddings of ``n`` views as the guidance takes them
+        (none for the SD-1.5 editor)."""
+        if self.pooled_pos is None:
+            return {}
+        return {"pooled_pos": self.pooled_pos.expand(n, -1),
+                "pooled_neg": self.pooled_neg.expand(n, -1)}
 
     # ---- checkpoint / resume (capture() / restore() analogs) ----
     def save_state(self, path: str, step: int) -> str:
@@ -620,7 +632,9 @@ class DGESystem:
 
 
 def _numpy(x: torch.Tensor) -> np.ndarray:
-    return x.cpu().numpy()
+    """``x`` on the host as float32 (bf16 networks' frames have no numpy
+    dtype; a float32 tensor keeps its bits)."""
+    return x.float().cpu().numpy()
 
 
 def _quantize_u8(img: np.ndarray) -> np.ndarray:

@@ -18,6 +18,13 @@ the ranks of the process group (parallel/dist.py) and gathers the noise
 predictions in batch order, so every rank holds the same ``eps``. The
 SDS mode's eps prediction is ``sds_multiview`` / ``compute_grad_sds``.
 
+The SDXL editor's UNet also takes pooled text embeddings: every entry point
+takes them beside the text states (``pooled_pos`` / ``pooled_neg`` [B, P],
+or ``pooled`` [3B, P] as (pos, neg, neg)), and the CFG triples carry them
+as they carry the states. Cross-view state is built only at the latent
+downscales at which the UNet attends (``UNetConfig.attention_downscales``:
+SD-1.5's four, SDXL's 2 and 4).
+
 Images are ``[B, H, W, 3]`` in [0, 1] and latents ``[B, h, w, 4]`` at this
 module's edges (the JAX layout). With bf16 networks (``build_models(dtype=
 torch.bfloat16)``) the dtypes are JAX's: bf16 posterior latents and noise,
@@ -96,7 +103,8 @@ def _resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
                           latent_h: int, latent_w: int, n_key: int,
                           threshold: float = 1.0,
-                          mode: str = "banded") -> CrossViewState:
+                          mode: str = "banded",
+                          downscales=(1, 2, 4, 8)) -> CrossViewState:
     """Closest key cameras, the distance blend and the per-resolution
     epipolar constraints of one camera batch (make_dge_block's closest_cam
     search :407-424 and w1 blend :557-566; edit_latents' per-batch mask
@@ -105,7 +113,9 @@ def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
     ``mode="banded"``: normalised epipolar lines [F, n_key, S, 3] per
     resolution, the distance test evaluated blockwise in the gather;
     ``mode="dense"``: [F, n_key, S, S] violation masks (the test oracle).
-    A ``guidance.cross_view_state`` span (utils/tracing.py)."""
+    ``downscales``: the latent downscales to build them at (the
+    resolutions the UNet attends at). A ``guidance.cross_view_state`` span
+    (utils/tracing.py)."""
     with tracing.span("guidance.cross_view_state",
                       device=cams_b.campos.device):
         d = epipolar.camera_distances(cams_b.campos, key_cams.campos)  # [F, K]
@@ -124,7 +134,7 @@ def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
         masks: Dict[int, torch.Tensor] = {}
         lines_d: Dict[int, torch.Tensor] = {}
         pts_d: Dict[int, torch.Tensor] = {}
-        for ds in (1, 2, 4, 8):
+        for ds in downscales:
             h, w = latent_h // ds, latent_w // ds
             if h < 1 or w < 1:
                 continue
@@ -146,6 +156,13 @@ def make_cross_view_state(cams_b, key_cams, pivot_in_batch: int,
                               epi_lines=lines_d or None,
                               epi_pts=pts_d or None, n_key=n_key,
                               epi_threshold=threshold)
+
+
+def _unpack(triple):
+    """(text states, conditioning latents, pooled embeddings or None) from
+    what a ``triple_for`` gives."""
+    te, cl, *pe = triple
+    return te, cl, (pe[0] if pe else None)
 
 
 def _two_keys(cv: CrossViewState) -> CrossViewState:
@@ -190,14 +207,44 @@ class DGEGuidance:
         n = models.schedule.num_train_timesteps
         self.min_step = int(n * cfg.min_step_percent)
         self.max_step = int(n * cfg.max_step_percent)
+        # where the cross-view states are needed (make_cross_view_state's
+        # default set is SD-1.5's)
+        self.downscales = models.unet.config.attention_downscales()
+        self._cv_kw = ({} if self.downscales == (1, 2, 4, 8)
+                       else {"downscales": self.downscales})
+
+    @staticmethod
+    def triples(text_emb: torch.Tensor, cond_latents: torch.Tensor,
+                pooled: Optional[torch.Tensor] = None):
+        """``triple_for(idx)``: the CFG triples of a view subset, text
+        states [pos, neg, neg], conditioning latents [img, img, zero] and
+        pooled embeddings [pos, neg, neg] (None without them; a
+        ``triple_for`` may also give the first two alone), from
+        ``text_emb`` and ``pooled`` laid out (pos, neg, neg) and
+        ``cond_latents`` (img, img, zero) over all views."""
+        emb_pos, emb_neg, _ = text_emb.chunk(3, dim=0)
+        cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
+        pool_pos, pool_neg = (pooled.chunk(3, dim=0)[:2]
+                              if pooled is not None else (None, None))
+
+        def triple_for(idx):
+            te = torch.cat([emb_pos[idx], emb_neg[idx], emb_neg[idx]], 0)
+            cl = torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]], 0)
+            pe = (torch.cat([pool_pos[idx], pool_neg[idx], pool_neg[idx]], 0)
+                  if pool_pos is not None else None)
+            return te, cl, pe
+
+        return triple_for
 
     # ---- the edit loop ----
     @torch.no_grad()
     def edit_latents(self, text_emb: torch.Tensor, latents: torch.Tensor,
                      cond_latents: torch.Tensor, t_start: int, cams,
-                     generator: torch.Generator) -> torch.Tensor:
+                     generator: torch.Generator,
+                     pooled: Optional[torch.Tensor] = None) -> torch.Tensor:
         """text_emb [3B, S, D] (pos, neg, neg), latents [B, h, w, 4],
-        cond_latents [3B, h, w, 4] (img, img, zeros) -> edited latents."""
+        cond_latents [3B, h, w, 4] (img, img, zeros), pooled [3B, P] (pos,
+        neg, neg; SDXL) -> edited latents."""
         cfg = self.cfg
         b, lat_h, lat_w = latents.shape[:3]
         cbs = cfg.camera_batch_size
@@ -209,16 +256,7 @@ class DGEGuidance:
         # drawn in the latents' dtype (guidance.py:268)
         noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         latents = ddim.add_noise(sched, latents, noise, t_start)
-        emb_pos, emb_neg, _ = text_emb.chunk(3, dim=0)
-        cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
-
-        def triple_for(idx):
-            """CFG triplet [pos, neg, neg] embeddings and [img, img, zero]
-            conditioning latents of a view subset."""
-            te = torch.cat([emb_pos[idx], emb_neg[idx], emb_neg[idx]], 0)
-            cl = torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]], 0)
-            return te, cl
-
+        triple_for = self.triples(text_emb, cond_latents, pooled)
         for t in ddim.inference_timesteps(sched, cfg.diffusion_steps):
             eps = self._predict_eps_multiview(
                 latents, int(t), cams, triple_for, b, cbs, n_batches, lat_h,
@@ -251,9 +289,9 @@ class DGEGuidance:
             eps_chunks = []
             for i in range(n_batches):
                 sl = torch.arange(i * cbs, min((i + 1) * cbs, b), device=dev)
-                te, cl = triple_for(sl)
+                te, cl, pe = _unpack(triple_for(sl))
                 inp = torch.cat([P.triple(latents[sl]), cl], dim=-1)
-                eps_chunks.append(P.unet_eps(self.models, inp, t, te))
+                eps_chunks.append(P.unet_eps(self.models, inp, t, te, pe))
             return self._combine(eps_chunks)
 
         # one random pivot per camera batch, then the pivot pass over all
@@ -261,11 +299,11 @@ class DGEGuidance:
         piv_off = _pivot_offsets(n_batches, cbs, generator)
         piv = torch.as_tensor(piv_off + np.arange(0, b, cbs), device=dev)
         key_cams = index_cameras(cams, piv)
-        te_p, cl_p = triple_for(piv)
+        te_p, cl_p, pe_p = _unpack(triple_for(piv))
         record: dict = {}
         P.unet_eps(self.models,
                    torch.cat([P.triple(latents[piv]), cl_p], dim=-1), t, te_p,
-                   mode="pivot_record", pivot=record)
+                   pe_p, mode="pivot_record", pivot=record)
 
         if cfg.batch_mode in ("vmap", "shard"):
             return self._batched_reuse(latents, cams, key_cams, piv_off, t,
@@ -277,11 +315,12 @@ class DGEGuidance:
             n_key = 1 if i == 0 else 2  # make_dge_block batch_idxs
             cv = make_cross_view_state(
                 index_cameras(cams, sl), key_cams, int(piv_off[i]), lat_h,
-                lat_w, n_key, cfg.epipolar_threshold, cfg.epipolar_mode)
-            te_b, cl_b = triple_for(sl)
+                lat_w, n_key, cfg.epipolar_threshold, cfg.epipolar_mode,
+                **self._cv_kw)
+            te_b, cl_b, pe_b = _unpack(triple_for(sl))
             inp_b = torch.cat([P.triple(latents[sl]), cl_b], dim=-1)
             eps_chunks.append(P.unet_eps(
-                self.models, inp_b, t, te_b, mode="pivot_reuse",
+                self.models, inp_b, t, te_b, pe_b, mode="pivot_reuse",
                 cross_view=cv, pivot=record))
         return self._combine(eps_chunks)
 
@@ -321,14 +360,14 @@ class DGEGuidance:
             cv = make_cross_view_state(
                 index_cameras(cams, sl), key_cams, int(piv_off[i]), lat_h,
                 lat_w, 1 if i == 0 else 2, cfg.epipolar_threshold,
-                cfg.epipolar_mode)
+                cfg.epipolar_mode, **self._cv_kw)
             states.append(_two_keys(cv) if i == 0 else cv)
         frames = torch.arange(mine * per * cbs, (mine + 1) * per * cbs,
                               device=dev)
-        te, cl = triple_for(frames)
+        te, cl, pe = _unpack(triple_for(frames))
         eps = P.unet_eps(self.models,
                          torch.cat([P.triple(latents[frames]), cl], dim=-1),
-                         t, te, mode="pivot_reuse",
+                         t, te, pe, mode="pivot_reuse",
                          cross_view=_cat_states(states), pivot=record)
         if nd == 1:
             return self._combine([eps])
@@ -338,10 +377,13 @@ class DGEGuidance:
     def __call__(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,
                  text_emb_pos: torch.Tensor, text_emb_neg: torch.Tensor,
                  cams, generator: torch.Generator,
-                 max_step: Optional[int] = None) -> torch.Tensor:
+                 max_step: Optional[int] = None,
+                 pooled_pos: Optional[torch.Tensor] = None,
+                 pooled_neg: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Edit all views (guidance __call__, dge_guidance.py:480-569):
         rgb (current renders) and cond_rgb (original renders) [B, H, W, 3]
-        in [0, 1], text embeddings [B, S, D], stacked cameras. Returns the
+        in [0, 1], text embeddings [B, S, D], stacked cameras, pooled
+        embeddings [B, P] (SDXL). Returns the
         edited images at the input resolution. A ``guidance.round`` span
         (utils/tracing.py) over the VAE's, the UNet's, the cross-view states'
         and CFG + DDIM's."""
@@ -357,10 +399,12 @@ class DGEGuidance:
                                                 chunk=self.cfg.vae_batch)
             text_emb = torch.cat([text_emb_pos, text_emb_neg, text_emb_neg],
                                  0)
+            pooled = (torch.cat([pooled_pos, pooled_neg, pooled_neg], 0)
+                      if pooled_pos is not None else None)
             t_start = (max_step if max_step is not None
                        else self.max_step) - 1
             edited = self.edit_latents(text_emb, latents, cond_latents,
-                                       t_start, cams, generator)
+                                       t_start, cams, generator, pooled)
             imgs = P.decode_latents(self.models, edited,
                                     chunk=self.cfg.vae_batch)
             if (rh, rw) != (h, w):
@@ -382,7 +426,10 @@ class DGEGuidance:
     def sds_multiview(self, rgb: torch.Tensor, cond_rgb: torch.Tensor,
                       text_emb_pos: torch.Tensor, text_emb_neg: torch.Tensor,
                       cams, generator: torch.Generator,
-                      t: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                      t: Optional[int] = None,
+                      pooled_pos: Optional[torch.Tensor] = None,
+                      pooled_neg: Optional[torch.Tensor] = None
+                      ) -> Dict[str, torch.Tensor]:
         """Multi-view SDS (the use_sds path, dge_guidance.py:548-566, and
         compute_grad_sds :376-475): the latents noised at ``t``, one
         pivot / epipolar-attended eps prediction over the views, ``grad =
@@ -397,15 +444,11 @@ class DGEGuidance:
         if (rh, rw) != (h, w):
             rgb, cond_rgb = _resize(rgb, rh, rw), _resize(cond_rgb, rh, rw)
         latents = P.encode_images(models, rgb, generator)
-        cond_img, _, cond_zero = P.encode_cond_images(
-            models, cond_rgb).chunk(3, dim=0)
-
-        def triple_for(idx):
-            te = torch.cat([text_emb_pos[idx], text_emb_neg[idx],
-                            text_emb_neg[idx]], 0)
-            cl = torch.cat([cond_img[idx], cond_img[idx], cond_zero[idx]], 0)
-            return te, cl
-
+        triple_for = self.triples(
+            torch.cat([text_emb_pos, text_emb_neg, text_emb_neg], 0),
+            P.encode_cond_images(models, cond_rgb),
+            torch.cat([pooled_pos, pooled_neg, pooled_neg], 0)
+            if pooled_pos is not None else None)
         t = int(t if t is not None else self.max_step - 1)
         noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         noisy = ddim.add_noise(models.schedule, latents, noise, t)
@@ -432,19 +475,22 @@ class DGEGuidance:
     @torch.no_grad()
     def compute_grad_sds(self, text_emb: torch.Tensor, latents: torch.Tensor,
                          cond_latents: torch.Tensor, t: int,
-                         generator: torch.Generator) -> torch.Tensor:
+                         generator: torch.Generator,
+                         pooled: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
         """The single-pass SDS gradient (compute_grad_sds,
         dge_guidance.py:376-475): text_emb [3B, S, D] (pos, neg, neg),
-        latents [B, h, w, 4], cond_latents [3B, h, w, 4] (img, img, zeros);
-        plain attention, ``(1 - alpha_bar_t)(eps - noise)``."""
+        latents [B, h, w, 4], cond_latents [3B, h, w, 4] (img, img, zeros),
+        pooled [3B, P] (SDXL); plain attention,
+        ``(1 - alpha_bar_t)(eps - noise)``."""
         noise = P._normal(tuple(latents.shape), generator).to(latents.dtype)
         noisy = ddim.add_noise(self.models.schedule, latents, noise, t)
         cond_img, _, cond_zero = cond_latents.chunk(3, dim=0)
         inp = torch.cat([P.triple(noisy),
                          torch.cat([cond_img, cond_img, cond_zero], 0)],
                         dim=-1)
-        e_t, e_i, e_u = P.unet_eps(self.models, inp, t,
-                                   text_emb).chunk(3, dim=0)
+        e_t, e_i, e_u = P.unet_eps(self.models, inp, t, text_emb,
+                                   pooled).chunk(3, dim=0)
         eps = P.cfg_combine(e_t, e_i, e_u, self.cfg.guidance_scale,
                             self.cfg.condition_scale)
         w_t, diff = ddim.promote(1.0 - self.models.schedule.alphas_cumprod[t],

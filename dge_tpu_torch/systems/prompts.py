@@ -7,7 +7,9 @@ threestudio/models/prompt_processors/base.py — md5-keyed embedding cache
 (:340-404), view-dependent prompt variants (side/front/back/overhead,
 :226-295), and PromptProcessorOutput returning [cond, uncond] embeddings
 (:51-78). The encoder runs in-process; the embeddings are kept as numpy
-arrays on the host.
+arrays on the host. An encoder that also gives a pooled embedding (SDXL's
+``ip2p.encode_text``: ``(states, pooled)``) has it cached and returned
+beside the states (``PromptOutput.cond_pooled`` / ``uncond_pooled``).
 """
 
 from __future__ import annotations
@@ -73,12 +75,13 @@ class PromptProcessor:
         cfg: Optional[PromptConfig] = None,
     ):
         self.tokenizer = tokenizer
-        self.encode_fn = encode_fn  # ids [B, S] -> embeddings [B, S, D]
+        # ids [B, S] -> embeddings [B, S, D], or (them, pooled [B, P])
+        self.encode_fn = encode_fn
         self.cache_dir = cache_dir
         self.cfg = cfg or PromptConfig()
         if cache_dir:
             os.makedirs(cache_dir, exist_ok=True)
-        self._mem: Dict[str, np.ndarray] = {}
+        self._mem: Dict[str, Tuple[np.ndarray, Optional[np.ndarray]]] = {}
 
     def _cache_path(self, text: str) -> Optional[str]:
         if not self.cache_dir:
@@ -87,18 +90,29 @@ class PromptProcessor:
         return os.path.join(self.cache_dir, f"{key}.npz")
 
     def encode(self, text: str) -> np.ndarray:
+        return self.encode_pooled(text)[0]
+
+    def encode_pooled(self, text: str
+                      ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        """(states [S, D], pooled [P] or None)."""
         if text in self._mem:
             return self._mem[text]
         path = self._cache_path(text)
         if path and os.path.exists(path):
-            emb = np.load(path)["emb"]
+            with np.load(path) as z:
+                out = (z["emb"], z["pooled"] if "pooled" in z else None)
         else:
             ids = self.tokenizer([text])
-            emb = _to_numpy(self.encode_fn(ids))[0]
+            enc = self.encode_fn(ids)
+            if isinstance(enc, tuple):
+                out = (_to_numpy(enc[0])[0], _to_numpy(enc[1])[0])
+            else:
+                out = (_to_numpy(enc)[0], None)
             if path:
-                np.savez(path, emb=emb)
-        self._mem[text] = emb
-        return emb
+                np.savez(path, emb=out[0], **(
+                    {} if out[1] is None else {"pooled": out[1]}))
+        self._mem[text] = out
+        return out
 
     def __call__(self) -> "PromptOutput":
         cfg = self.cfg
@@ -107,11 +121,15 @@ class PromptProcessor:
             if cfg.use_view_dependent
             else None
         )
+        cond, cond_pooled = self.encode_pooled(cfg.prompt)
+        uncond, uncond_pooled = self.encode_pooled(cfg.negative_prompt)
         return PromptOutput(
-            cond=self.encode(cfg.prompt),
-            uncond=self.encode(cfg.negative_prompt),
+            cond=cond,
+            uncond=uncond,
             variants=variants,
             cfg=cfg,
+            cond_pooled=cond_pooled,
+            uncond_pooled=uncond_pooled,
         )
 
 
@@ -121,6 +139,8 @@ class PromptOutput:
     uncond: np.ndarray  # [S, D]
     variants: Optional[Dict[str, np.ndarray]] = None
     cfg: Optional[PromptConfig] = None
+    cond_pooled: Optional[np.ndarray] = None  # [P] (SDXL)
+    uncond_pooled: Optional[np.ndarray] = None
 
     def get_text_embeddings(
         self, azimuth_deg: Optional[float] = None,

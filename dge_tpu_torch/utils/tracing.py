@@ -29,8 +29,10 @@ and clears the records.
 place: ``launch_counts`` (``ops/pairs_composite``: kernel launches),
 ``collective_stats`` (``parallel/dist``: collectives and their host
 seconds), ``host_syncs`` (``host_read``: host reads of device values, by
-site) and ``render_ladder`` (``ops/render.SpillFreeRenderer``: spill-ladder
-rungs). ``reset`` zeroes groups; ``counters`` copies them all.
+site), ``render_ladder`` (``ops/render.SpillFreeRenderer``: spill-ladder
+rungs) and ``pivot_record_bytes`` (``models/layers``: bytes written to the
+edit's pivot records, by token count). ``reset`` zeroes groups;
+``counters`` copies them all.
 
 ``host_read(x, site, read)`` is how the render and edit paths read a device
 value on the host: it calls ``read(x)`` (``int`` by default; ``.cpu()
