@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,3,4,5,6,7,8,9,10,11,12]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,...,13]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -176,11 +176,21 @@ process per source, started together) and runs:
    (``_pair_sort`` on the card), equal bit for bit in every field, each of
    the three kernels launched once a call; CUDA-event times of both paths,
    the three kernels' device times (profiler), each path's device time,
-   launches and aten ops a call, and the bytes bound.
+   launches and aten ops a call, and the bytes bound;
+13. the preprocess (``ops/projection.preprocess``) on the bench scene with
+   seeded SH bands 1-3 (std 0.04) at 512^2 and at 1920x1080, eight poses of
+   an orbit each: its kernel (``csrc/preprocess.cu``) against the torch
+   path (``_preprocess_torch`` on the card), ``mean2d``, ``depth``,
+   ``conic``, ``radius`` and ``visible`` equal bit for bit, ``rgb`` within
+   1e-6 (its largest gap printed), the kernel launched once a call; both
+   paths' CUDA-event times, device times, device launches and aten ops a
+   call (the scene's activation getters included), the kernel's own device
+   time (profiler) and its bytes bound.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all twelve ran.
+gate's own recipe); the result lines are printed only when all thirteen
+ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
 exit code is then not 0 and no result line is printed. Without a CUDA
@@ -243,7 +253,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = set(range(1, 13))
+ALL_PHASES = set(range(1, 14))
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -298,7 +308,8 @@ SDPA_BF16_TOL = 2e-2  # x max|chunked bf16 attention|: a few bf16 ulps
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
-                "binning_rects", "binning_emit", "binning_ranges")
+                "binning_rects", "binning_emit", "binning_ranges",
+                "preprocess")
 # the forward's two kernels per form (csrc/pair_rows_forward.cuh): counter
 # keys and the profiler's kernel names
 FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
@@ -1974,6 +1985,125 @@ def binning_cell(name, scene, cam, bg, **start):
     return cell
 
 
+# the preprocess kernel's fields equal to the torch path's bit for bit, and
+# rgb's tolerance: the kernel takes the direction's norm and the SH sum in
+# the order PyTorch's reduction kernel does, which nothing pins
+PREPROCESS_EXACT = ("mean2d", "depth", "conic", "radius", "visible")
+PREPROCESS_RGB_TOL = 1e-6
+
+
+def sh3_scene(scene, seed: int):
+    """``scene`` at SH degree 3, all bands active: bands 1-3 drawn from a
+    seeded normal of std 0.04 (the benchmark's ``sh_rest_std``)."""
+    import dataclasses
+
+    import torch
+
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    rest = torch.randn(scene.capacity, 15, 3, generator=gen,
+                       device=scene.device) * 0.04
+    return dataclasses.replace(scene, features_rest=rest, max_sh_degree=3,
+                               active_sh_degree=3)
+
+
+def orbit_cameras(height, width, device, n: int = 8) -> list:
+    """``n`` poses of an orbit around the bench scene, rising and falling
+    three times a turn."""
+    import numpy as np
+
+    from dge_tpu_torch.scene.camera_arrays import CameraArrays
+    from dge_tpu_torch.scene.cameras import look_at_camera
+
+    cams = []
+    for i in range(n):
+        ang = 2 * math.pi * i / n
+        eye = np.array([3.3 * math.sin(ang),
+                        0.35 + 0.55 * (0.5 + 0.5 * math.sin(3 * ang)),
+                        -3.3 * math.cos(ang)])
+        cams.append(CameraArrays.from_camera(look_at_camera(
+            eye, np.array([0.0, -0.45, 0.0]), fovx=math.radians(60),
+            height=height, width=width), device=device))
+    return cams
+
+
+def preprocess_cell(name, scene, cams) -> dict:
+    """The preprocess kernel against the torch path on each of ``cams``
+    (the exact fields bit for bit, rgb within PREPROCESS_RGB_TOL), then both
+    paths timed at the first: CUDA events, device time, device launches and
+    aten ops a call, the kernel's own device time, its bytes bound."""
+    import torch
+
+    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import projection as P
+
+    def args(cam):
+        return (scene.xyz, scene.get_scaling, scene.get_rotation,
+                scene.get_opacity, scene.get_features, scene.alive, cam,
+                scene.active_sh_degree, scene.max_sh_degree)
+
+    rgb_gap = 0.0
+    for i, cam in enumerate(cams):
+        with torch.no_grad():
+            got = P.preprocess(*args(cam))
+            want = P._preprocess_torch(*args(cam))
+        torch.cuda.synchronize()
+        for f in PREPROCESS_EXACT:
+            if not torch.equal(getattr(got, f), getattr(want, f)):
+                raise AssertionError(f"{name} pose {i}: the preprocess "
+                                     f"kernel differs in {f}")
+        rgb_gap = max(rgb_gap, float((got.rgb - want.rgb).abs().max()))
+    if rgb_gap > PREPROCESS_RGB_TOL:
+        raise AssertionError(f"{name}: preprocess rgb gap {rgb_gap}")
+
+    @torch.no_grad()
+    def kernel():
+        return P.preprocess(*args(cams[0]))
+
+    @torch.no_grad()
+    def plain():
+        return P._preprocess_torch(*args(cams[0]))
+
+    before = dict(PC.launch_counts)
+    kernel()
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in PC.launch_counts.items()
+                if v != before[k]}
+    if launches != {"preprocess": 1}:
+        raise AssertionError(f"{name}: preprocess launches {launches}")
+    n = scene.capacity
+    coeffs = (scene.max_sh_degree + 1) ** 2
+    # xyz, scale, quat, alive and the SH coefficients read; mean2d, depth,
+    # conic, radius, rgb and visible written
+    read, written = n * (41 + 12 * coeffs), n * 41
+    kernel_busy, plain_busy = device_busy(kernel, 20), device_busy(plain, 5)
+    cell = dict(
+        cell=name, gaussians=n, poses=len(cams), rgb_max_gap=rgb_gap,
+        exact=list(PREPROCESS_EXACT),
+        visible=int(got.visible.sum()),
+        ms=cuda_ms(kernel, reps=20), plain_ms=cuda_ms(plain, reps=10),
+        device_ms=kernel_busy.get("device_ms_per_step"),
+        plain_device_ms=plain_busy.get("device_ms_per_step"),
+        device_launches=kernel_busy.get("device_launches_per_step"),
+        plain_device_launches=plain_busy.get("device_launches_per_step"),
+        aten_ops=aten_ops(kernel), plain_aten_ops=aten_ops(plain),
+        kernel_device_ms=kernel_device_ms(
+            kernel, {"preprocess": "preprocess_kernel"}, 20)["preprocess"],
+        bytes=read + written,
+        bound_ms=(read + written) / HBM_BYTES_PER_S * 1e3,
+        device_kernels=kernel_busy.get("device_kernels"),
+        plain_device_kernels=plain_busy.get("device_kernels"))
+    log(f"  {name}: preprocess kernel path {cell['ms']:.4f} ms (device "
+        f"{cell['device_ms']}, {cell['device_launches']} launches, "
+        f"{cell['aten_ops']} aten ops; the kernel "
+        f"{cell['kernel_device_ms']} ms), torch path {cell['plain_ms']:.4f} "
+        f"ms (device {cell['plain_device_ms']}, "
+        f"{cell['plain_device_launches']} launches, "
+        f"{cell['plain_aten_ops']} aten ops); bound {cell['bound_ms']:.5f} "
+        f"ms ({cell['bytes']} B); {len(cams)} poses bit for bit in "
+        f"{', '.join(PREPROCESS_EXACT)}, rgb gap {rgb_gap:.3e}")
+    return cell
+
+
 def attention_vs_chunked(dev) -> list:
     """SDPA, pinned to ``EFFICIENT_ATTENTION`` in f32 by the port's rule
     (``layers.sdpa_backend``), against the chunked plain attention (k_chunk
@@ -3265,7 +3395,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -3340,7 +3470,7 @@ def main(argv=None) -> int:
             errs[k].append(e)
 
     bench = bg = None
-    if phases & {3, 5, 6, 12}:
+    if phases & {3, 5, 6, 12, 13}:
         bench = G.load_ply(BENCH_PLY, device=dev)
         bg = torch.zeros(3, device=dev)
 
@@ -3539,6 +3669,9 @@ def main(argv=None) -> int:
         if len(bins) != 1 or min(bins) < len(run.frames):
             raise AssertionError("render path did not bin through the "
                                  f"binning kernels: {render_launches}")
+        if render_launches["preprocess"] < len(run.frames):
+            raise AssertionError("render path did not preprocess through the "
+                                 f"kernel: {render_launches}")
         if run.spill != 0:
             raise AssertionError(f"render path spill {run.spill} after the "
                                  "ladder")
@@ -4246,9 +4379,19 @@ def main(argv=None) -> int:
                                         bg, **start))
         log(json.dumps({"binning": binning}))
 
+    # ---- phase 13: the preprocess ---------------------------------------
+    preprocess = []
+    if 13 in phases:
+        log("phase 13: the preprocess, kernel against the torch path")
+        sh3 = sh3_scene(bench, seed=13)
+        for name, h, w in (("512x512", 512, 512), ("1920x1080", 1080, 1920)):
+            preprocess.append(preprocess_cell(name, sh3, orbit_cameras(
+                h, w, dev)))
+        log(json.dumps({"preprocess": preprocess}))
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "twelve")
+            "thirteen")
         return 0
 
     v0 = fit["view0"]
@@ -4431,6 +4574,30 @@ def main(argv=None) -> int:
                            plain_ms=c["plain_ms"],
                            bound_ms=c["bound_ms"][key]) for c in binning],
         })
+    # the preprocess kernel: launches on each path above, times from phase
+    # 13's 1920x1080 cell
+    p1080 = preprocess[-1]
+    kernels.append({
+        "name": "preprocess",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/preprocess.cu",
+        # the jnp preprocess, which XLA fused (no Pallas kernel)
+        "replaces": "dge_tpu/ops/projection.py:142",
+        "launches": render_launches["preprocess"],
+        "launches_fit": fit["launches"]["preprocess"],
+        "launches_edit": edit["launches"]["preprocess"],
+        "launches_local_edit": edit_system["local"]["launches"]["preprocess"],
+        "launches_sds": edit_system["sds"]["launches"]["preprocess"],
+        "max_abs_err": 0.0,  # bit for bit but rgb (rgb_max_gap)
+        "rgb_max_gap": max(c["rgb_max_gap"] for c in preprocess),
+        **{k: p1080[k] for k in ("ms", "device_ms", "kernel_device_ms",
+                                 "plain_ms", "plain_device_ms", "bound_ms")},
+        "bound_by": "bytes",
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cells": [{k: c[k] for k in ("cell", "ms", "kernel_device_ms",
+                                     "plain_ms", "bound_ms")}
+                  for c in preprocess],
+    })
     # phase 9: each kernel's launches per scenario, one count a rank
     per_rank = {"nccl_world1_train": [multi["nccl_world1"]["launches"]]}
     for world in ("world2", "world4"):
@@ -4453,7 +4620,7 @@ def main(argv=None) -> int:
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
               "multi_gpu": multi, "capture": capture, "bf16_edit": bf16,
-              "binning": binning, "card": smi,
+              "binning": binning, "preprocess": preprocess, "card": smi,
               "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 SOURCES = ("pairs_composite", "pairs_backward", "pairs_logdot",
-           "list_stream", "binning")
+           "list_stream", "binning", "preprocess")
 
 
 def source_path(name: str) -> str:

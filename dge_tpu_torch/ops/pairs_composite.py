@@ -72,12 +72,13 @@ ROW_FIELDS = 7  # scratch per (row, pixel): cp_last, cp_first, j0, L (4)
 # that path's wrapper each time it has launched K1's two kernels over a list
 # stream; binning_rects, binning_emit and binning_ranges are the pair
 # binning's kernels (ops/binning.py), each launched once a call on the card;
-# a group of the tracing registry (utils/tracing.py)
+# preprocess is the preprocess kernel (ops/projection.py), once a call that
+# takes it; a group of the tracing registry (utils/tracing.py)
 launch_counts = tracing.group("launch_counts", dict.fromkeys(
     ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
      "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
      "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
-     "binning_rects", "binning_emit", "binning_ranges"), 0))
+     "binning_rects", "binning_emit", "binning_ranges", "preprocess"), 0))
 # per form (log_space): library, C entries, launch counter keys
 _FORMS = {False: ("pairs_composite", "pairs_rows_forward",
                   "pairs_rows_combine", "pairs_composite",

@@ -29,9 +29,11 @@ and clears the records.
 place: ``launch_counts`` (``ops/pairs_composite``: kernel launches),
 ``collective_stats`` (``parallel/dist``: collectives and their host
 seconds), ``host_syncs`` (``host_read``: host reads of device values, by
-site), ``render_ladder`` (``ops/render.SpillFreeRenderer``: spill-ladder
-rungs) and ``pivot_record_bytes`` (``models/layers``: bytes written to the
-edit's pivot records, by token count). ``reset`` zeroes groups;
+site), ``preprocess_path`` (``ops/projection.preprocess``: calls that took
+the CUDA kernel, ``kernel``, and the torch path, ``torch``),
+``render_ladder`` (``ops/render.SpillFreeRenderer``: spill-ladder rungs)
+and ``pivot_record_bytes`` (``models/layers``: bytes written to the edit's
+pivot records, by token count). ``reset`` zeroes groups;
 ``counters`` copies them all.
 
 ``host_read(x, site, read)`` is how the render and edit paths read a device
@@ -182,6 +184,8 @@ def counters() -> Dict[str, dict]:
 
 # host reads of device values, by site
 host_syncs = group("host_syncs")
+# ops/projection.preprocess's calls by the path they took
+preprocess_path = group("preprocess_path", {"kernel": 0, "torch": 0})
 
 
 def host_read(x, site: str, read: Callable = int):

@@ -705,7 +705,8 @@ def test_build_paths_stay_in_repo():
     for name in cuda_build.SOURCES:
         assert os.path.isfile(cuda_build.source_path(name))
     assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward",
-                                  "pairs_logdot", "list_stream", "binning")
+                                  "pairs_logdot", "list_stream", "binning",
+                                  "preprocess")
     assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "pair_alpha.cuh"))
 
 
