@@ -410,6 +410,7 @@ def forward_vs_plain(inp, what: str, log_space: bool = False) -> dict:
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     row_key, comb_key = FORWARD_FORMS[log_space][:2]
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
@@ -418,16 +419,16 @@ def forward_vs_plain(inp, what: str, log_space: bool = False) -> dict:
     blk_off, row_tile, _ = PC.block_rows(inp["starts"], inp["counts"],
                                          inp["chunk"], inp["data"].shape[1])
     used = row_tile < inp["starts"].shape[0]
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     scratch, mask = PC.rows_forward(*args, blk_off, row_tile, **kw)
     out, bt = PC.rows_combine(scratch, mask, *args, blk_off, boundary=True,
                               **kw)
     torch.cuda.synchronize()
-    for k in PC.launch_counts:
+    for k in CB.launch_counts:
         want = before[k] + (k in (row_key, comb_key))
-        if PC.launch_counts[k] != want:
+        if CB.launch_counts[k] != want:
             raise AssertionError(f"{what}: launch counter {k} advanced by "
-                                 f"{PC.launch_counts[k] - before[k]}")
+                                 f"{CB.launch_counts[k] - before[k]}")
     scratch2, mask2 = PC.rows_forward(*args, blk_off, row_tile, **kw)
     same = {
         "row kernel again": torch.equal(scratch2[used], scratch[used])
@@ -670,7 +671,7 @@ def backward_vs_plain(inp, what: str, seed: int = 0):
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     a = backward_args(inp, seed)
     used, kw = a["used"], a["kw"]
@@ -680,13 +681,13 @@ def backward_vs_plain(inp, what: str, seed: int = 0):
         return float((x - y).abs().max()) if x.numel() else 0.0
 
     def counted(fn, **advance):
-        before = dict(PC.launch_counts)
+        before = dict(CB.launch_counts)
         out = fn()
         torch.cuda.synchronize()
-        for k in PC.launch_counts:
-            if PC.launch_counts[k] != before[k] + advance.get(k, 0):
+        for k in CB.launch_counts:
+            if CB.launch_counts[k] != before[k] + advance.get(k, 0):
                 raise AssertionError(f"{what}: launch counter {k} advanced by "
-                                     f"{PC.launch_counts[k] - before[k]}")
+                                     f"{CB.launch_counts[k] - before[k]}")
         return out
 
     def pass1(**extra):
@@ -878,7 +879,7 @@ def fold_cell(a, num_gaussians: int, what: str) -> dict:
     import torch
 
     from dge_tpu_torch.ops import pairs_backward as PB
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     pair_ids, layout = a["pair_ids"], a["layout"]
     pair_grads = PB.pairs_pass2(
@@ -891,11 +892,11 @@ def fold_cell(a, num_gaussians: int, what: str) -> dict:
         return PB.fold_to_gaussians(pair_grads, pair_ids, num_gaussians, used,
                                     layout=layout)
 
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     got = fold()
     torch.cuda.synchronize()
-    for k in PC.launch_counts:
-        if PC.launch_counts[k] != before[k] + (k == "pairs_fold"):
+    for k in CB.launch_counts:
+        if CB.launch_counts[k] != before[k] + (k == "pairs_fold"):
             raise AssertionError(f"{what} fold: launch counter {k} advanced")
     # the trace of 10 calls names every kernel they launched; it may drop
     # a few records on this card's profiler, never add one
@@ -1250,15 +1251,16 @@ def kernel_vs_plain(inp, what: str) -> float:
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     got = PC.composite_pairs_stream(inp["data"], inp["starts"], inp["counts"],
                                     **kw)
     torch.cuda.synchronize()
     for k in ("pairs_composite", "pairs_composite_combine"):
-        if PC.launch_counts[k] != before[k] + 1:
+        if CB.launch_counts[k] != before[k] + 1:
             raise AssertionError(f"launch counter {k} did not advance")
     want = PC.composite_pairs_reference(inp["data"], inp["starts"],
                                         inp["counts"], **kw)
@@ -1306,19 +1308,19 @@ def list_kernel_vs_plain(inp, what: str) -> dict:
     import torch
 
     from dge_tpu_torch.ops import composite as CMP
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.ops import tiles_composite as TT
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
     args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     got = TT.composite_tiles_kernel(*args, **kw)
     torch.cuda.synchronize()
-    for k in PC.launch_counts:
-        if PC.launch_counts[k] != before[k] + (k in K2_COUNTERS):
+    for k in CB.launch_counts:
+        if CB.launch_counts[k] != before[k] + (k in K2_COUNTERS):
             raise AssertionError(f"{what}: launch counter {k} advanced by "
-                                 f"{PC.launch_counts[k] - before[k]}")
+                                 f"{CB.launch_counts[k] - before[k]}")
     if not torch.equal(TT.composite_tiles_kernel(*args, **kw).nan_to_num(
             nan=7.0), got.nan_to_num(nan=7.0)):
         raise AssertionError(f"{what}: two launches differ")
@@ -1427,16 +1429,17 @@ def logdot_vs_plain(inp, what: str) -> float:
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.tools import proto_logdot as LD
 
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
               chunk=inp["chunk"])
     args = (inp["data"], inp["starts"], inp["counts"])
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     got = LD.composite_pairs_logdot(*args, **kw)
     torch.cuda.synchronize()
     for k in ("pairs_logdot", "pairs_logdot_combine"):
-        if PC.launch_counts[k] != before[k] + 1:
+        if CB.launch_counts[k] != before[k] + 1:
             raise AssertionError(f"{k} launch counter did not advance")
     err = compare(got, LD.composite_pairs_logdot_reference(*args, **kw),
                   f"{what} K5 vs plain")
@@ -1655,13 +1658,14 @@ def refused_forward_launch(inp):
     2048) is refused by the card: the wrapper raises and counts nothing,
     and the next launch is unharmed."""
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     args = (inp["data"], inp["starts"], inp["counts"])
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"])
     good = PC.composite_pairs_stream(*args, chunk=inp["chunk"], **kw)
     old = PC.MAX_CHUNK
     PC.MAX_CHUNK = 4096
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     try:
         PC.composite_pairs_stream(*args, chunk=2048, **kw)
     except RuntimeError as e:
@@ -1670,7 +1674,7 @@ def refused_forward_launch(inp):
         raise AssertionError("a refused forward launch did not raise")
     finally:
         PC.MAX_CHUNK = old
-    if PC.launch_counts != before:
+    if CB.launch_counts != before:
         raise AssertionError("a refused launch was counted")
     if not bool((PC.composite_pairs_stream(*args, chunk=inp["chunk"], **kw)
                  == good).all()):
@@ -1707,6 +1711,7 @@ def refused_combine_launch(inp, log_space: bool):
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
 
     args = (inp["data"], inp["starts"], inp["counts"])
     kw = dict(tiles_x=inp["tiles_x"], tile_px=inp["tile_px"],
@@ -1725,7 +1730,7 @@ def refused_combine_launch(inp, log_space: bool):
                        dtype=torch.int32, device=dev))
     old = PC.MAX_CHUNK
     PC.MAX_CHUNK = chunk
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     try:
         PC.rows_combine(*big, *args, b_off, **dict(kw, chunk=chunk))
     except RuntimeError as e:
@@ -1734,7 +1739,7 @@ def refused_combine_launch(inp, log_space: bool):
         raise AssertionError("a refused combine launch did not raise")
     finally:
         PC.MAX_CHUNK = old
-    if PC.launch_counts != before:
+    if CB.launch_counts != before:
         raise AssertionError("a refused combine launch was counted")
     if not torch.equal(PC.rows_combine(scratch, mask, *args, blk_off, **kw),
                        good):
@@ -1771,6 +1776,7 @@ def refused_list_launch(inp):
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.ops import tiles_composite as TT
 
     args = (inp["feat"], inp["lists"], inp["counts"], inp["order"])
@@ -1778,7 +1784,7 @@ def refused_list_launch(inp):
     good = TT.composite_tiles_kernel(*args, chunk=inp["chunk"], **kw)
     old = PC.MAX_CHUNK
     PC.MAX_CHUNK = 4096
-    before = PC.launch_counts["tiles_composite"]
+    before = CB.launch_counts["tiles_composite"]
     try:
         TT.composite_tiles_kernel(*args, chunk=2048, **kw)
     except RuntimeError as e:
@@ -1787,7 +1793,7 @@ def refused_list_launch(inp):
         raise AssertionError("a refused K2 launch did not raise")
     finally:
         PC.MAX_CHUNK = old
-    if PC.launch_counts["tiles_composite"] != before:
+    if CB.launch_counts["tiles_composite"] != before:
         raise AssertionError("a refused K2 launch was counted")
     if not torch.equal(TT.composite_tiles_kernel(*args, chunk=inp["chunk"],
                                                  **kw), good):
@@ -1918,7 +1924,7 @@ def binning_cell(name, scene, cam, bg, **start):
     import torch
 
     from dge_tpu_torch.ops import binning as B
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.ops import render as R
 
     r = R.SpillFreeRenderer(scene, bg, tile_px=32,
@@ -1945,15 +1951,15 @@ def binning_cell(name, scene, cam, bg, **start):
         if not torch.equal(getattr(got, f), getattr(want, f)):
             raise AssertionError(f"{name}: binning kernels differ from the "
                                  f"torch path in {f}")
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     kernels()
     torch.cuda.synchronize()
-    launches = {k: v - before[k] for k, v in PC.launch_counts.items()
+    launches = {k: v - before[k] for k, v in CB.launch_counts.items()
                 if v != before[k]}
     if launches != dict.fromkeys(BINNING_KERNELS, 1):
         raise AssertionError(f"{name}: binning launches {launches}")
     n = int(prep.mean2d.shape[0])
-    sc = B.launch_scalars(
+    sc = B.pair_sizes(
         n, height=cam.height, width=cam.width, tile_px=32,
         max_tiles_per_gaussian=r.caps["max_tiles_per_gaussian"],
         small_slots=r.caps["small_slots"],
@@ -2033,7 +2039,7 @@ def preprocess_cell(name, scene, cams) -> dict:
     aten ops a call, the kernel's own device time, its bytes bound."""
     import torch
 
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.ops import projection as P
 
     def args(cam):
@@ -2063,10 +2069,10 @@ def preprocess_cell(name, scene, cams) -> dict:
     def plain():
         return P._preprocess_torch(*args(cams[0]))
 
-    before = dict(PC.launch_counts)
+    before = dict(CB.launch_counts)
     kernel()
     torch.cuda.synchronize()
-    launches = {k: v - before[k] for k, v in PC.launch_counts.items()
+    launches = {k: v - before[k] for k, v in CB.launch_counts.items()
                 if v != before[k]}
     if launches != {"preprocess": 1}:
         raise AssertionError(f"{name}: preprocess launches {launches}")
@@ -2574,15 +2580,15 @@ def _scenario(report, name, fn):
     the timed run, and peak memory, under ``report[name]``."""
     import torch
 
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.parallel import dist as D
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    PC.reset_launch_counts()
+    CB.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = dict(PC.launch_counts)
+    launches = dict(CB.launch_counts)
     D.reset_collective_stats()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -3256,7 +3262,7 @@ def capture_paths(launch, dev, render_psnr) -> dict:
 
     from dge_tpu_torch.diffusion import ip2p
     from dge_tpu_torch.diffusion import weights as W
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops import cuda_build as CB
     from dge_tpu_torch.scene import colmap as CM
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
@@ -3272,11 +3278,11 @@ def capture_paths(launch, dev, render_psnr) -> dict:
         DS.write_transforms(cs.cameras, blender, [
             os.path.join(CAPTURE, "images", c.image_name)
             for c in cs.cameras])
-        PC.reset_launch_counts()
+        CB.reset_launch_counts()
         run = launch.main(["--render", "--gs_source", QUALITY_PLY, "--source",
                            blender, "--out", tmp, "data.height=256",
                            "data.width=256"])
-        launches = dict(PC.launch_counts)
+        launches = dict(CB.launch_counts)
         psnr, _ = mean_psnr_against_capture(run.frames, run.image_names)
         want = RENDER_PSNR_DB if render_psnr is None else render_psnr
         out["blender"] = dict(psnr_db=psnr, want_db=want, spill=run.spill,
@@ -3291,13 +3297,13 @@ def capture_paths(launch, dev, render_psnr) -> dict:
 
         # (b) the bench capture at 512^2, then its fit (SH degree 0)
         cap = os.path.join(tmp, "bench_capture")
-        PC.reset_launch_counts()
+        CB.reset_launch_counts()
         t0 = time.time()
         made = make_bench_capture.main([
             "--out", cap, "--views", str(BENCH_VIEWS), "--size",
             str(BENCH_SIZE), "--style", "aniso"])
         gen_s = time.time() - t0
-        launches = dict(PC.launch_counts)
+        launches = dict(CB.launch_counts)
         out["bench_capture"] = dict(
             n_gaussians=made.n_gaussians, spills=made.spills, caps=made.caps,
             render_s=made.seconds, seconds=gen_s, launches=launches)
@@ -3310,11 +3316,11 @@ def capture_paths(launch, dev, render_psnr) -> dict:
             raise AssertionError(f"bench capture: {out['bench_capture']}")
         native0 = CM.points_parser_counts["native"]
         torch.cuda.reset_peak_memory_stats()
-        PC.reset_launch_counts()
+        CB.reset_launch_counts()
         fit = launch.main(["--fit", "--source", cap, "--config",
                            os.path.join(cap, "cfg.yaml"), "--out", tmp,
                            f"trainer.max_steps={BENCH_FIT_STEPS}"])
-        launches = dict(PC.launch_counts)
+        launches = dict(CB.launch_counts)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out["bench_fit"] = dict(
             steps=fit.steps, seconds=fit.seconds,
@@ -3560,11 +3566,11 @@ def main(argv=None) -> int:
                 raise AssertionError("a refused launch did not raise")
         hold(inp512, "random scene tile 32 chunk 512 after the refusal",
              seed=512, forward=False)
-        before = dict(PC.launch_counts)
+        before = dict(cuda_build.launch_counts)
         ko = R.render(rscene, rcam, tile_px=32, max_per_tile=4096)
         po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       backend="torch")
-        if any(PC.launch_counts[k] != before[k] + 1
+        if any(cuda_build.launch_counts[k] != before[k] + 1
                for k in FORWARD_FORMS[False][:2]):
             raise AssertionError("cuda_stream render did not launch K1's "
                                  "two kernels once each")
@@ -3630,13 +3636,13 @@ def main(argv=None) -> int:
             errs[k].append(e)
         refused_list_launch(list_inputs(rscene, rcam, dict(
             max_per_tile=4096, max_tiles_per_gaussian=64), False, 32, 128))
-        before = dict(PC.launch_counts)
+        before = dict(cuda_build.launch_counts)
         lo = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       max_tiles_per_gaussian=64, backend="cuda_tiles")
         po = R.render(rscene, rcam, tile_px=32, max_per_tile=4096,
                       max_tiles_per_gaussian=64, backend="torch_tiles",
                       chunk=128)
-        if any(PC.launch_counts[k] != before[k] + 1 for k in K2_COUNTERS):
+        if any(cuda_build.launch_counts[k] != before[k] + 1 for k in K2_COUNTERS):
             raise AssertionError("cuda_tiles render did not launch K2 (K1's "
                                  "two kernels over its list stream) once")
         for a, b, tol, what in ((lo.color, po.color, TOL["color"], "colour"),
@@ -3654,11 +3660,11 @@ def main(argv=None) -> int:
         log("phase 2: render path (dge_tpu_torch.launch --render, "
             "quality-gate scene over fit_capture at 256^2)")
         with tempfile.TemporaryDirectory() as tmp:
-            PC.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             run = launch.main(["--render", "--gs_source", QUALITY_PLY,
                                "--source", CAPTURE, "--out", tmp,
                                "data.height=256", "data.width=256"])
-            render_launches = dict(PC.launch_counts)
+            render_launches = dict(cuda_build.launch_counts)
             n_png = len(os.listdir(os.path.join(run.trial_dir, "renders")))
         log(f"  launches during the render path: {render_launches}")
         if render_launches["pairs_composite"] < len(run.frames) + 1:
@@ -3715,12 +3721,12 @@ def main(argv=None) -> int:
         log(f"phase 4: training path (dge_tpu_torch.launch --fit on "
             f"fit_capture at 256^2, SH 3, {fit_steps} steps, seed 0)")
         with tempfile.TemporaryDirectory() as tmp:
-            PC.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             frun = launch.main(["--fit", "--source", CAPTURE, "--out", tmp,
                                 "--seed", "0", "data.height=256",
                                 "data.width=256", "system.sh_degree=3",
                                 f"trainer.max_steps={fit_steps}"])
-            fit_launches = dict(PC.launch_counts)
+            fit_launches = dict(cuda_build.launch_counts)
             log(f"  launches during the fit: {fit_launches}; "
                 f"{frun.steps / frun.seconds:.2f} steps/s "
                 f"({frun.seconds:.1f} s), alive {frun.n_alive}, last-100 "
@@ -3817,14 +3823,14 @@ def main(argv=None) -> int:
         runs = {}
         with tempfile.TemporaryDirectory() as tmp:
             for backend in ("cuda_stream", "cuda_tiles"):
-                PC.reset_launch_counts()
+                cuda_build.reset_launch_counts()
                 t0 = time.time()
                 vrun = launch.main(
                     ["--validate", "--gs_source", QUALITY_PLY, "--source",
                      CAPTURE, "--out", tmp, "--backend", backend,
                      "data.height=256", "data.width=256"])
                 res = dict(vrun.results["fit_capture"],
-                           launches=dict(PC.launch_counts),
+                           launches=dict(cuda_build.launch_counts),
                            seconds=time.time() - t0)
                 runs[backend] = res
                 log(f"  --validate on {backend}: {res}")
@@ -3944,9 +3950,9 @@ def main(argv=None) -> int:
 
         # the K1-vs-K5 tool on the bench scene at 512^2, then K5 against its
         # plain version on the tool's stream
-        PC.reset_launch_counts()
+        cuda_build.reset_launch_counts()
         tool = LD.main([])
-        tool_launches = dict(PC.launch_counts)
+        tool_launches = dict(cuda_build.launch_counts)
         if (min(tool_launches[k] for k in FORWARD_FORMS[True][:2]) < 1
                 or tool["k5_ms"] is None):
             raise AssertionError("proto_logdot did not launch K5")
@@ -3987,7 +3993,7 @@ def main(argv=None) -> int:
             "steps)")
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.reset_peak_memory_stats()
-            PC.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             trun = launch.main([
                 "--train", "--smoke", "--gs_source", QUALITY_PLY, "--source",
                 CAPTURE, "--out", tmp, "data.height=256", "data.width=256",
@@ -3997,7 +4003,7 @@ def main(argv=None) -> int:
                 f"system.edit.max_steps={EDIT_STEPS}",
                 "system.edit.densify_from=100",
                 f"system.edit.camera_update_per_step={EDIT_STEPS + 1}"])
-            edit_launches = dict(PC.launch_counts)
+            edit_launches = dict(cuda_build.launch_counts)
             peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
             escene = G.load_ply(trun.ply_path, device=dev)
             # the run's DGESystem holds the SD-1.5 weights: release them
@@ -4080,7 +4086,7 @@ def main(argv=None) -> int:
             sim = save_random_clip(clip_dir, dev)
             clip_save_s = time.time() - t0
             torch.cuda.reset_peak_memory_stats()
-            PC.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             arun = launch.main([
                 "--train", "--smoke", "--config",
                 os.path.join(ROOT, "configs", "dge.yaml"), "--out",
@@ -4090,7 +4096,7 @@ def main(argv=None) -> int:
                 f"system.edit.max_steps={LOCAL_STEPS}",
                 f"system.edit.camera_update_per_step={LOCAL_STEPS + 1}",
                 "system.edit.densify_from=1000000"])
-            local_launches = dict(PC.launch_counts)
+            local_launches = dict(cuda_build.launch_counts)
             local_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  launches during the local edit: {local_launches}")
         local = local_edit_checks(arun, scene0, EDIT_VIEWS, LOCAL_STEPS, 256)
@@ -4127,13 +4133,13 @@ def main(argv=None) -> int:
         # (b) SDS
         with tempfile.TemporaryDirectory() as tmp:
             torch.cuda.reset_peak_memory_stats()
-            PC.reset_launch_counts()
+            cuda_build.reset_launch_counts()
             srun = launch.main([
                 "--train", "--smoke", "--out", tmp, *common,
                 "system.edit.use_sds=true",
                 f"system.edit.camera_batch_size={EDIT_BATCH}",
                 f"system.edit.max_steps={SDS_STEPS}"])
-            sds_launches = dict(PC.launch_counts)
+            sds_launches = dict(cuda_build.launch_counts)
             sds_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"  launches during the SDS run: {sds_launches}")
         sds = sds_checks(srun, scene0, EDIT_BATCH, SDS_STEPS)

@@ -361,7 +361,7 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
     (gaussiansplatting/train.py analog)."""
     import time
 
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops.cuda_build import launch_counts
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
@@ -399,7 +399,7 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
         tensorboard=bool(cfg.get("trainer", {}).get("tensorboard", False)))
     log.info("fitting %d gaussians to %d views on %s for %d steps",
              scene.n_alive, len(cams), device, ocfg.max_steps)
-    before = dict(PC.launch_counts)
+    before = dict(launch_counts)
     psnrs, losses = [], []
     t0 = time.time()
     for step in range(ocfg.max_steps):
@@ -441,7 +441,7 @@ def run_fit(cfg, source, trial_dir, seed, device) -> FitRun:
              scene.n_alive, ply, float(last), seconds)
     return FitRun(ply, ocfg.max_steps, float(last), finite, scene.n_alive,
                   loop.caps,
-                  {k: v - before[k] for k, v in PC.launch_counts.items()},
+                  {k: v - before[k] for k, v in launch_counts.items()},
                   seconds, trial_dir)
 
 
@@ -456,7 +456,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     from dge_tpu_torch.diffusion import tokenizer as T
     from dge_tpu_torch.diffusion import weights as W
     from dge_tpu_torch.models import lpips
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops.cuda_build import launch_counts
     from dge_tpu_torch.parallel import dist as D
     from dge_tpu_torch.scene import dataset as DS
     from dge_tpu_torch.scene import gaussians as G
@@ -575,7 +575,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     metrics = trial_dir and MetricsLogger(
         trial_dir,
         tensorboard=bool(cfg.get("trainer", {}).get("tensorboard", False)))
-    before = dict(PC.launch_counts)
+    before = dict(launch_counts)
     t0 = time.time()
     final = system.run(seed, log_fn=log.info, start_step=start_step,
                        ckpt_dir=trial_dir and os.path.join(trial_dir, "ckpts"),
@@ -584,7 +584,7 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = dict(system.seconds, run=time.time() - t0)
-    launches = {k: v - before[k] for k, v in PC.launch_counts.items()}
+    launches = {k: v - before[k] for k, v in launch_counts.items()}
     log.info("kernel launches: %s", launches)
     if device.type == "cuda":
         log.info("peak memory %.3f GiB on %s",

@@ -21,19 +21,19 @@ hand-written kernels of ``dge_tpu_torch/csrc/binning.cu`` (rects, emit,
 ranges; its source note says what each computes) around one ``torch.cumsum``
 and the same ``torch.sort``, giving the ``PairBins`` of ``_pair_sort`` bit
 for bit. On CPU tensors it runs ``_pair_sort``, the plain version that the
-tests hold to the JAX package. ``launch_scalars`` computes the kernel path's
-sizes.
+tests hold to the JAX package. Both take their sizes (tile grid, key depth
+bits, tier-2 capacity and rows, slots, the stream cap) from ``pair_sizes``,
+the only place they are computed; ``default_max_pairs`` and
+``default_big_capacity`` are the caps' defaults.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from dge_tpu_torch.ops import cuda_build
-from dge_tpu_torch.ops.pairs_composite import launch_counts
 
 # Safety margin on the q <= 2*ln(255*opacity) cull test, as in the JAX
 # version: an absolute floor plus a term proportional to the quadratic's
@@ -188,13 +188,13 @@ def _cull_valid(mean2d, conic, opacity, x0, y0, w, j, tile_px):
 
 
 def _compact_tier(
-    member, b, m, r_cap, x0, y0, w, cnt, dq, tiles_x, num_tiles, depth_bits,
+    member, b, m, r, x0, y0, w, cnt, dq, tiles_x, num_tiles, depth_bits,
     mean2d=None, conic=None, opacity=None, tile_px=None,
 ):
     """Pack the ``member`` Gaussians' ids into ``b`` slots (one 1-D sort,
     member ids first in id order) and emit up to ``m`` tiles each into a
-    [min(b, N), m] key grid; with culling inputs, cull-then-compact over up
-    to ``r_cap`` rect tiles. Returns (keys, ids, slot_spill, overflowed,
+    [min(b, N), m] key grid; with culling inputs, cull-then-compact over
+    the first ``r`` rect tiles. Returns (keys, ids, slot_spill, overflowed,
     rows), ``rows`` [min(b, N)] int32 the Gaussian of each row, members in
     id order, then values >= N for the empty rows."""
     dev = cnt.device
@@ -209,7 +209,6 @@ def _compact_tier(
     j2 = torch.arange(m, dtype=torch.int32, device=dev)
     sentinel = torch.tensor(num_tiles, dtype=torch.int32, device=dev)
     if conic is not None:
-        r = min(num_tiles, r_cap)
         jr = torch.arange(r, dtype=torch.int32, device=dev)
         wbT = torch.clamp(w[sidl], min=1)[None, :]
         txT = x0[sidl][None, :] + jr[:, None] % wbT  # [R, b]
@@ -256,7 +255,7 @@ def _compact_tier(
 
 
 def _bucketed_pair_keys(
-    x0, y0, w, cnt, dq, vis, tiles_x, num_tiles, depth_bits, m1, m2, b2,
+    x0, y0, w, cnt, dq, vis, tiles_x, num_tiles, depth_bits, m1, m2, b2, r,
     mean2d=None, conic=None, opacity=None, tile_px=None,
 ):
     """Two-tier (tile, Gaussian) key emission: Gaussians touching at most
@@ -269,10 +268,8 @@ def _bucketed_pair_keys(
     cull = dict(mean2d=mean2d, conic=conic, opacity=opacity, tile_px=tile_px)
     common = (x0, y0, w, cnt, dq, tiles_x, num_tiles, depth_bits)
     big = vis & (cnt > m1)
-    # 2*m2 candidate headroom so max_tiles_per_gaussian growth keeps buying
-    # inspected rect tiles past 256
     keys_b, ids_b, spill_b, overflowed, tier2_ids = _compact_tier(
-        big, b2, m2, max(256, 2 * m2), *common, **cull)
+        big, b2, m2, r, *common, **cull)
 
     dev = cnt.device
     n = cnt.shape[0]
@@ -297,15 +294,10 @@ def _bucketed_pair_keys(
     return keys, ids, spill_b, spill_cap, tier2_ids
 
 
-def _quantize_depth(depth, vis, num_tiles):
+def _quantize_depth(depth, vis, depth_bits):
     """The depth field of the int32 ``tile << depth_bits | dq`` keys: view
-    depth of the visible Gaussians quantised to the bits the tile id leaves
-    over. Returns (depth_bits, dq [N] int32)."""
-    bits_tile = max(int(num_tiles + 1).bit_length(), 1)
-    depth_bits = 31 - bits_tile
-    if depth_bits < 16:
-        raise ValueError(f"too many tiles ({num_tiles}) for int32 "
-                         "[tile|depth] keys; raise tile_px")
+    depth of the visible Gaussians quantised to ``depth_bits`` bits (the
+    ones the tile id leaves over: ``key_depth_bits``) → dq [N] int32."""
     inf = torch.tensor(float("inf"), device=depth.device)
     dmin = torch.where(vis, depth, inf).min()
     dmax = torch.where(vis, depth, -inf).max()
@@ -314,18 +306,14 @@ def _quantize_depth(depth, vis, num_tiles):
     ) * ((1 << depth_bits) - 1)
     # clamp AFTER the int cast: (2^27 - 1) rounds up to 2^27 in f32, which
     # would overflow the depth field into the tile id
-    return depth_bits, torch.clamp(dq.to(torch.int32), 0,
-                                   (1 << depth_bits) - 1)
+    return torch.clamp(dq.to(torch.int32), 0, (1 << depth_bits) - 1)
 
 
-def _depth_keys(depth, vis, num_tiles, depth_keys):
-    """``_quantize_depth`` for this viewport, or for the image of
-    ``depth_keys=(tiles, seen)``: ``tiles`` tiles (at least this
-    viewport's), ``seen`` the Gaussians on its screen."""
-    if depth_keys is None:
-        return _quantize_depth(depth, vis, num_tiles)
-    tiles, seen = depth_keys
-    return _quantize_depth(depth, seen, max(num_tiles, tiles))
+def _depth_keys(depth, vis, depth_bits, depth_keys):
+    """``_quantize_depth`` over this viewport's visible Gaussians, or over
+    the Gaussians ``seen`` on the screen of ``depth_keys=(tiles, seen)``."""
+    return _quantize_depth(depth, vis if depth_keys is None else
+                           depth_keys[1], depth_bits)
 
 
 def _tile_ranges(keys, num_tiles, depth_bits):
@@ -345,29 +333,30 @@ def _pair_sort(
     conic=None, opacity=None, depth_keys=None,
 ) -> PairBins:
     """Pair-stream binning body (the JAX ``emission="bucketed"`` branch)."""
-    n = mean2d.shape[0]
-    tiles_x = -(-width // tile_px)
-    tiles_y = -(-height // tile_px)
-    num_tiles = tiles_x * tiles_y
+    sz = pair_sizes(
+        mean2d.shape[0], height=height, width=width, tile_px=tile_px,
+        max_tiles_per_gaussian=max_tiles_per_gaussian,
+        small_slots=small_slots, big_capacity=big_capacity,
+        max_pairs=max_pairs, depth_keys=depth_keys)
+    tiles_x, num_tiles, max_pairs = sz.tiles_x, sz.num_tiles, sz.max_pairs
 
     x0, x1, y0, y1, vis = tile_rects(
-        mean2d, radius, visible, tile_px, tiles_x, tiles_y
+        mean2d, radius, visible, tile_px, tiles_x, sz.tiles_y
     )
-    depth_bits, dq = _depth_keys(depth, vis, num_tiles, depth_keys)
+    dq = _depth_keys(depth, vis, sz.depth_bits, depth_keys)
 
     w = x1 - x0
     h = y1 - y0
     cnt = w * h
 
-    b2 = big_capacity or (1 << max(int(n // 32 - 1).bit_length(), 6))
     keys, ids, spill_slot, spill_cap, tier2_ids = _bucketed_pair_keys(
-        x0, y0, w, cnt, dq, vis, tiles_x, num_tiles, depth_bits,
-        m1=small_slots, m2=max_tiles_per_gaussian, b2=b2,
+        x0, y0, w, cnt, dq, vis, tiles_x, num_tiles, sz.depth_bits,
+        m1=small_slots, m2=max_tiles_per_gaussian, b2=sz.b2, r=sz.r,
         mean2d=mean2d, conic=conic, opacity=opacity, tile_px=tile_px,
     )
     keys, perm = torch.sort(keys, stable=True)
     ids = ids[perm]
-    starts, ends = _tile_ranges(keys, num_tiles, depth_bits)
+    starts, ends = _tile_ranges(keys, num_tiles, sz.depth_bits)
     raw = ends - starts
     counts_mpt = torch.clamp(raw, max=max_per_tile)
     counts = torch.minimum(counts_mpt, torch.clamp(max_pairs - starts, min=0))
@@ -380,18 +369,18 @@ def _pair_sort(
         counts=_i32(counts),
         spill=_i32(spill),
         tiles_x=tiles_x,
-        tiles_y=tiles_y,
+        tiles_y=sz.tiles_y,
         spill_parts=_i32(torch.stack(
             [spill_slot, spill_cap, tile_spill, stream_spill])),
         length=ends[-1],
         perm=perm,
         tier2_ids=tier2_ids,
-        emission=(n, small_slots, max_tiles_per_gaussian),
+        emission=sz.emission,
     )
 
 
-class BinningLaunch(NamedTuple):
-    """The sizes of one binning on the kernel path (``launch_scalars``)."""
+class PairSizes(NamedTuple):
+    """The sizes of one pair binning (``pair_sizes``), on either path."""
 
     tiles_x: int
     tiles_y: int
@@ -410,57 +399,46 @@ def default_max_pairs(n: int) -> int:
     return max(1 << 18, 1 << int(2 * n - 1).bit_length())
 
 
-def launch_scalars(n: int, *, height: int, width: int, tile_px: int,
-                   max_tiles_per_gaussian: int, small_slots: int,
-                   big_capacity: int = 0, max_pairs: int = 0,
-                   depth_tiles: int = 0) -> BinningLaunch:
-    """The kernel path's sizes for ``n`` Gaussians, as ``_pair_sort`` sizes
-    its tensors; ``depth_tiles`` is ``depth_keys``' tile count (0: none)."""
+def default_big_capacity(n: int) -> int:
+    """``big_capacity=0``: N/32 rounded up to a power of two, at least
+    64."""
+    return 1 << max(int(n // 32 - 1).bit_length(), 6)
+
+
+def key_depth_bits(num_tiles: int, depth_keys=None) -> int:
+    """The width of the depth field of int32 ``tile << bits | dq`` keys
+    whose tile ids run to ``num_tiles`` (the sentinel), or to
+    ``depth_keys``' tile count where that is larger; raises below 16
+    bits."""
+    tiles = num_tiles if depth_keys is None else max(num_tiles, depth_keys[0])
+    bits = 31 - max(int(tiles + 1).bit_length(), 1)
+    if bits < 16:
+        raise ValueError(f"too many tiles ({tiles}) for int32 "
+                         "[tile|depth] keys; raise tile_px")
+    return bits
+
+
+def pair_sizes(n: int, *, height: int, width: int, tile_px: int,
+               max_tiles_per_gaussian: int, small_slots: int,
+               big_capacity: Optional[int] = 0, max_pairs: int = 0,
+               depth_keys=None) -> PairSizes:
+    """The sizes of a pair binning of ``n`` Gaussians; ``big_capacity`` and
+    ``max_pairs`` 0 (or None) take their defaults, ``depth_keys`` as in
+    ``bin_gaussians_pairs``."""
     tiles_x = -(-width // tile_px)
     tiles_y = -(-height // tile_px)
     num_tiles = tiles_x * tiles_y
-    key_tiles = max(num_tiles, depth_tiles)
-    depth_bits = 31 - max(int(key_tiles + 1).bit_length(), 1)
-    if depth_bits < 16:
-        raise ValueError(f"too many tiles ({key_tiles}) for int32 "
-                         "[tile|depth] keys; raise tile_px")
-    b2 = big_capacity or (1 << max(int(n // 32 - 1).bit_length(), 6))
+    b2 = big_capacity or default_big_capacity(n)
     m1, m2 = small_slots, max_tiles_per_gaussian
     rows = min(b2, n)
-    return BinningLaunch(
+    return PairSizes(
         tiles_x=tiles_x, tiles_y=tiles_y, num_tiles=num_tiles,
-        depth_bits=depth_bits, b2=b2, rows=rows,
-        r=min(num_tiles, max(256, 2 * m2)),
+        depth_bits=key_depth_bits(num_tiles, depth_keys),
+        # 2*m2 candidate headroom so max_tiles_per_gaussian growth keeps
+        # buying inspected rect tiles past 256
+        b2=b2, rows=rows, r=min(num_tiles, max(256, 2 * m2)),
         max_pairs=max_pairs if max_pairs > 0 else default_max_pairs(n),
         emission=(n, m1, m2), slots=n * m1 + rows * m2)
-
-
-_lib = None
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("binning"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.binning_rects.argtypes = [ptr] * 5 + [i32] * 5 + [ptr] * 4
-        lib.binning_emit.argtypes = [ptr] * 7 + [i32] * 10 + [ptr] * 4
-        lib.binning_ranges.argtypes = ([ptr] + [i32] * 5 + [ptr] + [i32] * 4
-                                       + [ptr] * 7)
-        for fn in (lib.binning_rects, lib.binning_emit, lib.binning_ranges):
-            fn.restype = i32
-        _lib = lib
-    return _lib
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launch_counts[name] += 1
 
 
 def _pair_sort_kernels(
@@ -473,65 +451,49 @@ def _pair_sort_kernels(
     constant a kernel argument (no host upload). Raises on arguments the
     kernels do not take."""
     n = mean2d.shape[0]
-    tiles, seen = depth_keys if depth_keys is not None else (0, None)
-    sc = launch_scalars(
+    sc = pair_sizes(
         n, height=height, width=width, tile_px=tile_px,
         max_tiles_per_gaussian=max_tiles_per_gaussian,
-        small_slots=small_slots, big_capacity=big_capacity or 0,
-        max_pairs=max_pairs, depth_tiles=tiles)
+        small_slots=small_slots, big_capacity=big_capacity,
+        max_pairs=max_pairs, depth_keys=depth_keys)
     if (conic is None) != (opacity is None):
         raise ValueError("bin_gaussians_pairs: the cull needs both conic "
                          "and opacity")
     f32, i32 = torch.float32, torch.int32
-    for what, t, dtype, shape in (
-            ("mean2d", mean2d, f32, (n, 2)), ("depth", depth, f32, (n,)),
-            ("radius", radius, f32, (n,)),
-            ("visible", visible, torch.bool, (n,)),
-            ("conic", conic, f32, (n, 3)), ("opacity", opacity, f32, (n,)),
-            ("depth_keys' seen", seen, torch.bool, (n,))):
-        if t is None:
-            continue
-        if t.dtype != dtype or tuple(t.shape) != shape or \
-                not t.is_contiguous() or t.device != mean2d.device:
-            raise ValueError(
-                f"bin_gaussians_pairs: {what} must be a contiguous {dtype} "
-                f"tensor of shape {shape} on {mean2d.device}, got {t.dtype} "
-                f"{tuple(t.shape)} on {t.device}")
+    seen = depth_keys[1] if depth_keys is not None else None
+    cuda_build.check_tensors("bin_gaussians_pairs", (
+        ("mean2d", mean2d, f32, (n, 2)), ("depth", depth, f32, (n,)),
+        ("radius", radius, f32, (n,)), ("visible", visible, torch.bool, (n,)),
+        ("conic", conic, f32, (n, 3)), ("opacity", opacity, f32, (n,)),
+        ("depth_keys' seen", seen, torch.bool, (n,))))
     if sc.slots >= 2 ** 31:
         raise ValueError(f"{sc.slots} emission slots: too many for int32")
     _, m1, m2 = sc.emission
     dev = mean2d.device
-    lib = _load()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # depth min / max keys, NaN flag, spill_parts, spill
     ws = torch.zeros(8, dtype=i32, device=dev)
     rect = torch.empty(n, 4, dtype=i32, device=dev)
     member = torch.empty(n, dtype=i32, device=dev)
-    with torch.cuda.device(dev):
-        _launched("binning_rects", lib.binning_rects(
-            mean2d.data_ptr(), radius.data_ptr(), visible.data_ptr(),
-            depth.data_ptr(), _ptr(seen), n, tile_px, sc.tiles_x, sc.tiles_y,
-            m1, rect.data_ptr(), member.data_ptr(), ws.data_ptr(), stream))
-        incl = torch.cumsum(member, 0, dtype=i32)
-        keys = torch.empty(sc.slots, dtype=i32, device=dev)
-        tier2_ids = torch.empty(sc.rows, dtype=i32, device=dev)
-        _launched("binning_emit", lib.binning_emit(
-            rect.data_ptr(), member.data_ptr(), incl.data_ptr(),
-            depth.data_ptr(), mean2d.data_ptr(), _ptr(conic), _ptr(opacity), n,
-            sc.tiles_x, sc.num_tiles, sc.depth_bits, m1, m2, sc.b2, sc.rows,
-            sc.r, tile_px, keys.data_ptr(), tier2_ids.data_ptr(),
-            ws.data_ptr(), stream))
-        keys, perm = torch.sort(keys, stable=True)
-        npairs = min(sc.max_pairs, sc.slots)
-        starts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
-        counts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
-        length = torch.empty((), dtype=i32, device=dev)
-        pair_ids = torch.empty(npairs, dtype=i32, device=dev)
-        _launched("binning_ranges", lib.binning_ranges(
-            keys.data_ptr(), sc.slots, sc.num_tiles, sc.depth_bits,
-            max_per_tile, sc.max_pairs, perm.data_ptr(), npairs, n, m1, m2,
-            tier2_ids.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            length.data_ptr(), pair_ids.data_ptr(), ws.data_ptr(), stream))
+    cuda_build.launch("binning_rects", "binning_rects", dev, mean2d, radius,
+                      visible, depth, seen, n, tile_px, sc.tiles_x,
+                      sc.tiles_y, m1, rect, member, ws)
+    incl = torch.cumsum(member, 0, dtype=i32)
+    keys = torch.empty(sc.slots, dtype=i32, device=dev)
+    tier2_ids = torch.empty(sc.rows, dtype=i32, device=dev)
+    cuda_build.launch("binning_emit", "binning_emit", dev, rect, member, incl,
+                      depth, mean2d, conic, opacity, n, sc.tiles_x,
+                      sc.num_tiles, sc.depth_bits, m1, m2, sc.b2, sc.rows,
+                      sc.r, tile_px, keys, tier2_ids, ws)
+    keys, perm = torch.sort(keys, stable=True)
+    npairs = min(sc.max_pairs, sc.slots)
+    starts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
+    counts = torch.empty(sc.num_tiles, dtype=i32, device=dev)
+    length = torch.empty((), dtype=i32, device=dev)
+    pair_ids = torch.empty(npairs, dtype=i32, device=dev)
+    cuda_build.launch("binning_ranges", "binning_ranges", dev, keys,
+                      sc.slots, sc.num_tiles, sc.depth_bits, max_per_tile,
+                      sc.max_pairs, perm, npairs, n, m1, m2, tier2_ids,
+                      starts, counts, length, pair_ids, ws)
     return PairBins(
         pair_ids=pair_ids, starts=starts, counts=counts, spill=ws[7],
         tiles_x=sc.tiles_x, tiles_y=sc.tiles_y, spill_parts=ws[3:7],
@@ -568,14 +530,12 @@ def bin_gaussians_pairs(
     visibility), so its depths quantise, and its ties order, as there.
     CUDA tensors run ``_pair_sort_kernels``, CPU tensors ``_pair_sort``;
     the two give the same result."""
-    if max_pairs <= 0:
-        max_pairs = default_max_pairs(mean2d.shape[0])
     sort = _pair_sort_kernels if mean2d.device.type == "cuda" else _pair_sort
     return sort(
         mean2d, depth, radius, visible, height=height, width=width,
         tile_px=tile_px, max_per_tile=max_per_tile,
         max_tiles_per_gaussian=max_tiles_per_gaussian, max_pairs=max_pairs,
-        small_slots=small_slots, big_capacity=big_capacity or None,
+        small_slots=small_slots, big_capacity=big_capacity,
         conic=conic, opacity=opacity, depth_keys=depth_keys,
     )
 
@@ -616,7 +576,8 @@ def bin_gaussians(
     x0, x1, y0, y1, vis = tile_rects(
         mean2d, radius, visible, tile_px, tiles_x, tiles_y
     )
-    depth_bits, dq = _depth_keys(depth, vis, num_tiles, depth_keys)
+    depth_bits = key_depth_bits(num_tiles, depth_keys)
+    dq = _depth_keys(depth, vis, depth_bits, depth_keys)
 
     w = x1 - x0
     cnt = w * (y1 - y0)

@@ -51,7 +51,6 @@ not copy that (ROADMAP.md §3).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -59,8 +58,7 @@ import torch
 from dge_tpu_torch.ops import binning, cuda_build
 from dge_tpu_torch.ops import pairs_composite as PC
 from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
-                                               T_EPS, block_rows,
-                                               launch_counts)
+                                               T_EPS, block_rows)
 
 # The row kernel keeps, in dynamic shared memory, the staged row ([chunk, 12]
 # floats) and, in pass 2, one slot of [chunk, 10] partial sums per warp (8
@@ -69,30 +67,6 @@ from dge_tpu_torch.ops.pairs_composite import (ALPHA_EPS, ALPHA_MAX, FEAT,
 # cudaFuncSetAttribute (once per device and size) and returns its error; a
 # chunk above MAX_CHUNK is refused here.
 MAX_CHUNK = 512
-_lib = None
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("pairs_backward"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pairs_row_totals.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, i32, i32, i32, i32,
-            ptr, ptr]
-        lib.pairs_row_totals.restype = i32
-        lib.pairs_rows_suffix.argtypes = [
-            ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
-        lib.pairs_rows_suffix.restype = i32
-        lib.pairs_pass2.argtypes = [
-            ptr, i32, ptr, ptr, ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
-            i32, i32, ptr, ptr]
-        lib.pairs_pass2.restype = i32
-        lib.pairs_fold.argtypes = [ptr, i32, ptr, i32, i32, ptr, i32, i32,
-                                   i32, i32, ptr, ptr, ptr, ptr]
-        lib.pairs_fold.restype = i32
-        _lib = lib
-    return _lib
 
 
 def _block_state(data, idx, in_range, px, py, trans):
@@ -291,27 +265,6 @@ def pass2_reference(data, starts, counts, blk_off, row_tile, cot, fwd_out,
     return grads
 
 
-def _check(name: str, tensors, chunk: int, tile_px: int):
-    """Shared argument checks; returns True when every tensor is on the CPU
-    (the plain version runs) and False when all share one CUDA device."""
-    for what, t, dtype in tensors:
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
-                             f"tensor, got {t.dtype}")
-    devices = {t.device for _, t, _ in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"{name}: all tensors must share one CUDA device, "
-                         f"got {devices}")
-    if not 1 <= tile_px <= 32:
-        raise ValueError(f"tile_px {tile_px}: four pixels a thread, 256 "
-                         "threads a block need tile_px**2 <= 1024")
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
-    return False
-
-
 def pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
                      boundary_t, *, tiles_x: int, tile_px: int, chunk: int):
     """The pass-1 row kernel's wrapper → totals [R, P] of ``w·g`` per (tile,
@@ -322,10 +275,11 @@ def pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
     n_rows = row_tile.shape[0]
     p = tile_px * tile_px
     f32, i32 = torch.float32, torch.int32
-    on_cpu = _check("pairs_row_totals", (
-        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
-        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32),
-        ("cot", cot, f32), ("boundary_t", boundary_t, f32)), chunk, tile_px)
+    on_cpu = cuda_build.check_tensors("pairs_row_totals", (
+        ("data", data, f32, None), ("starts", starts, i32, None),
+        ("counts", counts, i32, None), ("blk_off", blk_off, i32, None),
+        ("row_tile", row_tile, i32, None), ("cot", cot, f32, None),
+        ("boundary_t", boundary_t, f32, None)))
     if data.dim() != 2 or data.shape[0] != FEAT:
         raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
     if cot.shape != (num_tiles, 5, p) or blk_off.shape != (num_tiles,):
@@ -336,18 +290,12 @@ def pairs_row_totals(data, starts, counts, blk_off, row_tile, cot,
         return row_totals_reference(data, starts, counts, blk_off, row_tile,
                                     cot, boundary_t, tiles_x=tiles_x,
                                     tile_px=tile_px, chunk=chunk)
-    lib = _load()
+    PC.check_limits(tile_px, chunk, MAX_CHUNK)
     totals = torch.empty(n_rows, p, dtype=f32, device=data.device)
-    with torch.cuda.device(data.device):
-        err = lib.pairs_row_totals(
-            data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
-            n_rows, cot.data_ptr(), boundary_t.data_ptr(), num_tiles, tiles_x,
-            tile_px, chunk, totals.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_row_totals launch failed: cudaError {err}")
-    launch_counts["pairs_pass1"] += 1
+    cuda_build.launch("pairs_row_totals", "pairs_pass1", data.device, data,
+                      data.shape[1], starts, counts, blk_off, row_tile, n_rows,
+                      cot, boundary_t, num_tiles, tiles_x, tile_px, chunk,
+                      totals)
     return totals
 
 
@@ -359,23 +307,18 @@ def pairs_suffix(totals, starts, counts, blk_off, *, tile_px: int,
     it takes the plain version."""
     num_tiles = starts.shape[0]
     f32, i32 = torch.float32, torch.int32
-    on_cpu = _check("pairs_suffix", (
-        ("totals", totals, f32), ("starts", starts, i32),
-        ("counts", counts, i32), ("blk_off", blk_off, i32)), chunk, tile_px)
+    on_cpu = cuda_build.check_tensors("pairs_suffix", (
+        ("totals", totals, f32, None), ("starts", starts, i32, None),
+        ("counts", counts, i32, None), ("blk_off", blk_off, i32, None)))
     if totals.dim() != 2 or totals.shape[1] != tile_px * tile_px:
         raise ValueError("totals must be [R, P]")
     if on_cpu:
         return suffix_reference(totals, starts, counts, blk_off, chunk=chunk)
-    lib = _load()
+    PC.check_limits(tile_px, chunk, MAX_CHUNK)
     suffix = torch.empty_like(totals)
-    with torch.cuda.device(totals.device):
-        err = lib.pairs_rows_suffix(
-            totals.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-            blk_off.data_ptr(), num_tiles, tile_px, chunk, suffix.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_rows_suffix launch failed: cudaError {err}")
-    launch_counts["pairs_suffix"] += 1
+    cuda_build.launch("pairs_rows_suffix", "pairs_suffix", totals.device,
+                      totals, starts, counts, blk_off, num_tiles, tile_px,
+                      chunk, suffix)
     return suffix
 
 
@@ -391,10 +334,10 @@ def pairs_pass1(data, starts, counts, blk_off, n_rows: int, cot, *,
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
     if boundary_t is None and data.device.type == "cpu":
         f32, i32 = torch.float32, torch.int32
-        _check("pairs_pass1", (
-            ("data", data, f32), ("starts", starts, i32),
-            ("counts", counts, i32), ("blk_off", blk_off, i32),
-            ("cot", cot, f32)), chunk, tile_px)
+        cuda_build.check_tensors("pairs_pass1", (
+            ("data", data, f32, None), ("starts", starts, i32, None),
+            ("counts", counts, i32, None), ("blk_off", blk_off, i32, None),
+            ("cot", cot, f32, None)))
         if cot.shape != (starts.shape[0], 5, tile_px * tile_px):
             raise ValueError("cot must be [T, 5, P] and blk_off [T]")
         return pass1_reference(data, starts, counts, blk_off, n_rows, cot,
@@ -420,12 +363,12 @@ def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
     n_rows = row_tile.shape[0]
     p = tile_px * tile_px
     f32, i32 = torch.float32, torch.int32
-    on_cpu = _check("pairs_pass2", (
-        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
-        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32),
-        ("cot", cot, f32), ("fwd_out", fwd_out, f32),
-        ("boundary_t", boundary_t, f32), ("suffix", suffix, f32)),
-        chunk, tile_px)
+    on_cpu = cuda_build.check_tensors("pairs_pass2", (
+        ("data", data, f32, None), ("starts", starts, i32, None),
+        ("counts", counts, i32, None), ("blk_off", blk_off, i32, None),
+        ("row_tile", row_tile, i32, None), ("cot", cot, f32, None),
+        ("fwd_out", fwd_out, f32, None), ("boundary_t", boundary_t, f32, None),
+        ("suffix", suffix, f32, None)))
     if cot.shape != (num_tiles, 5, p) or fwd_out.shape != (num_tiles, 5, p):
         raise ValueError("cot and fwd_out must be [T, 5, P]")
     if boundary_t.shape != (n_rows, p) or suffix.shape != (n_rows, p):
@@ -434,19 +377,13 @@ def pairs_pass2(data, starts, counts, blk_off, row_tile, cot, fwd_out,
     if on_cpu:
         return pass2_reference(data, starts, counts, blk_off, row_tile, cot,
                                fwd_out, boundary_t, suffix, **kw)
-    lib = _load()
+    PC.check_limits(tile_px, chunk, MAX_CHUNK)
     # zeros: positions outside every tile's range are never written
     grads = torch.zeros(FEAT, data.shape[1], dtype=f32, device=data.device)
-    with torch.cuda.device(data.device):
-        err = lib.pairs_pass2(
-            data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
-            n_rows, cot.data_ptr(), fwd_out.data_ptr(), boundary_t.data_ptr(),
-            suffix.data_ptr(), num_tiles, tiles_x, tile_px, chunk,
-            grads.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_pass2 launch failed: cudaError {err}")
-    launch_counts["pairs_pass2"] += 1
+    cuda_build.launch("pairs_pass2", "pairs_pass2", data.device, data,
+                      data.shape[1], starts, counts, blk_off, row_tile, n_rows,
+                      cot, fwd_out, boundary_t, suffix, num_tiles, tiles_x,
+                      tile_px, chunk, grads)
     return grads
 
 
@@ -503,22 +440,12 @@ def ids_layout(pair_ids, num_gaussians: int):
                               (num_gaussians, m1, 1))
 
 
-def _check_layout(layout, num_gaussians: int, pc: int, dev):
-    """The layout's tensors and emission as the fold kernels read them."""
-    if layout is None:
-        raise ValueError("fold_to_gaussians: a CUDA call needs the binning's "
-                         "layout (PairBins.fold_layout)")
+def _check_layout(layout, num_gaussians: int, pc: int):
+    """The layout's emission as the fold kernels read it."""
     n, m1, m2 = layout.emission
-    perm, rows = layout.perm, layout.tier2_ids
-    if perm.dtype != torch.int64 or rows.dtype != torch.int32 or not (
-            perm.is_contiguous() and rows.is_contiguous()):
-        raise ValueError("layout: perm must be a contiguous int64 tensor and "
-                         "tier2_ids a contiguous int32 one")
-    if perm.device != dev or rows.device != dev:
-        raise ValueError(f"layout: tensors must be on {dev}")
-    e = perm.shape[0]
-    if (n != num_gaussians or rows.dim() != 1 or m1 < 1 or m2 < 1
-            or e != n * m1 + rows.shape[0] * m2
+    e = layout.perm.shape[0]
+    if (n != num_gaussians or layout.tier2_ids.dim() != 1 or m1 < 1
+            or m2 < 1 or e != n * m1 + layout.tier2_ids.shape[0] * m2
             or not 0 <= layout.shift < 2 ** 31 - max(e, FEAT * n)
             or pc >= 2 ** 31):
         raise ValueError(f"layout: emission {layout.emission}, {e} slots, "
@@ -544,41 +471,35 @@ def fold_to_gaussians(pair_grads, pair_ids, num_gaussians: int, used=None,
     without. The kernels need it: the slots that the binning culled or
     left unused sort into that tail, and past ``used`` they are no
     Gaussian's pairs."""
-    if pair_grads.dtype != torch.float32 or not pair_grads.is_contiguous():
-        raise ValueError("fold_to_gaussians: pair_grads must be a contiguous "
-                         f"torch.float32 tensor, got {pair_grads.dtype}")
     if pair_grads.dim() != 2 or pair_ids.shape != (pair_grads.shape[1],):
         raise ValueError("pair_grads must be [F, Pc] and pair_ids [Pc]")
-    dev = pair_grads.device
-    if dev.type == "cpu" and pair_ids.device.type == "cpu":
+    if pair_ids.device.type == "cpu" and cuda_build.check_tensors(
+            "fold_to_gaussians",
+            (("pair_grads", pair_grads, torch.float32, None),)):
         out = torch.zeros(pair_grads.shape[0], num_gaussians,
                           dtype=torch.float32)
         return out.index_add_(1, pair_ids.long(), pair_grads)
-    if pair_ids.device != dev or dev.type != "cuda":
+    if layout is None or used is None:
+        raise ValueError("fold_to_gaussians: a CUDA call needs the binning's "
+                         "layout (PairBins.fold_layout) and used")
+    dev = pair_grads.device
+    pc = pair_grads.shape[1]
+    if cuda_build.check_tensors("fold_to_gaussians", (
+            ("pair_grads", pair_grads, torch.float32, (FEAT, pc)),
+            ("layout.perm", layout.perm, torch.int64, None),
+            ("layout.tier2_ids", layout.tier2_ids, torch.int32, None),
+            ("used", used, torch.int32, ()))) or pair_ids.device != dev:
         raise ValueError("fold_to_gaussians: both tensors must share one "
                          f"CUDA device, got {dev} and {pair_ids.device}")
-    pc = pair_grads.shape[1]
-    if pair_grads.shape[0] != FEAT:
-        raise ValueError(f"pair_grads must be [{FEAT}, Pc]")
-    _check_layout(layout, num_gaussians, pc, dev)
-    if used is None or used.shape != () or used.device != dev \
-            or used.dtype != torch.int32:
-        raise ValueError(f"used must be a 0-dim int32 tensor on {dev}")
+    _check_layout(layout, num_gaussians, pc)
     _, m1, m2 = layout.emission
     pos = torch.empty(layout.perm.shape[0], dtype=torch.int32, device=dev)
     # the layout kernel writes its zeros
     out = torch.empty(FEAT, num_gaussians, dtype=torch.float32, device=dev)
-    lib = _load()
-    with torch.cuda.device(dev):
-        err = lib.pairs_fold(
-            pair_grads.data_ptr(), pc, layout.perm.data_ptr(),
-            layout.perm.shape[0], layout.shift, layout.tier2_ids.data_ptr(),
-            layout.tier2_ids.shape[0], num_gaussians, m1, m2,
-            used.data_ptr(), pos.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"pairs_fold launch failed: cudaError {err}")
-    launch_counts["pairs_fold"] += 1
+    cuda_build.launch("pairs_fold", "pairs_fold", dev, pair_grads, pc,
+                      layout.perm, layout.perm.shape[0], layout.shift,
+                      layout.tier2_ids, layout.tier2_ids.shape[0],
+                      num_gaussians, m1, m2, used, pos, out)
     return out
 
 

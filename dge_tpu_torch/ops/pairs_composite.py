@@ -1,5 +1,5 @@
-"""Pair-stream compositing: the CUDA kernels' wrappers, their build and
-load, their plain PyTorch versions, and the stream assembly.
+"""Pair-stream compositing: the CUDA kernels' wrappers, their plain
+PyTorch versions, and the stream assembly.
 
 JAX counterpart: ``dge_tpu/ops/pallas_composite.py`` (``_pairs_kernel``,
 ``composite_pairs_pallas``, ``assemble_stream_data``). The kernels are
@@ -22,7 +22,9 @@ the TPU kernel, why the walk splits exactly, and their bounds.
   entered with T = 1, and a keep mask, one bit per (row, 32 pixels, pair))
   and ``rows_combine`` (combine kernel → ``[T, 5, P]`` and optionally
   ``boundary_T``) are the two kernels' wrappers, with plain
-  versions ``rows_forward_reference`` and ``rows_combine_reference``;
+  versions ``rows_forward_reference`` and ``rows_combine_reference``
+  (``check_rows`` holds what the row kernels take; the launches go through
+  ``cuda_build.launch``);
   ``log_space=True`` selects the log-space arm K5 of tools/proto_logdot.py
   (scratch ``[R, 8, P]``). ``combine_cases`` counts how often each of the
   combine's three cases fires.
@@ -42,54 +44,27 @@ block re-runs it; the port does not copy that (ROADMAP.md §3).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
 
 from dge_tpu_torch.ops import cuda_build
-from dge_tpu_torch.utils import tracing
 
 ALPHA_EPS = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
 FEAT = 10  # mx, my, conic a, b, c, opacity, r, g, b, depth
 
-_SRC = cuda_build.source_path("pairs_composite")
-BUILD_DIR = cuda_build.BUILD_DIR
 # the row kernel stages a row in 48 bytes a pair of shared memory: 48 KB,
 # the default a block may have, at chunk 1024
 MAX_CHUNK = 1024
 ROW_FIELDS = 7  # scratch per (row, pixel): cp_last, cp_first, j0, L (4)
 
-# kernel launches since the last reset (one per launch, counted where the
-# kernel is launched and nowhere else): pairs_composite and
-# pairs_composite_combine are K1's row and combine kernels, pairs_logdot and
-# pairs_logdot_combine those of its log-space arm K5 (tools/proto_logdot.py);
-# pairs_pass1, pairs_suffix, pairs_pass2 and pairs_fold are the backward
-# kernels of ops/pairs_backward.py; list_stream is the layout kernel of the
-# per-tile-list path (ops/tiles_composite.py), and tiles_composite counts
-# that path's wrapper each time it has launched K1's two kernels over a list
-# stream; binning_rects, binning_emit and binning_ranges are the pair
-# binning's kernels (ops/binning.py), each launched once a call on the card;
-# preprocess is the preprocess kernel (ops/projection.py), once a call that
-# takes it; a group of the tracing registry (utils/tracing.py)
-launch_counts = tracing.group("launch_counts", dict.fromkeys(
-    ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
-     "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
-     "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
-     "binning_rects", "binning_emit", "binning_ranges", "preprocess"), 0))
-# per form (log_space): library, C entries, launch counter keys
-_FORMS = {False: ("pairs_composite", "pairs_rows_forward",
-                  "pairs_rows_combine", "pairs_composite",
-                  "pairs_composite_combine"),
-          True: ("pairs_logdot", "logdot_rows_forward", "logdot_rows_combine",
+# per form (log_space): C entries, launch counters
+_FORMS = {False: ("pairs_rows_forward", "pairs_rows_combine",
+                  "pairs_composite", "pairs_composite_combine"),
+          True: ("logdot_rows_forward", "logdot_rows_combine",
                  "pairs_logdot", "pairs_logdot_combine")}
-_libs = {}
-
-
-def reset_launch_counts() -> None:
-    tracing.reset("launch_counts")
 
 
 def assemble_stream_data(pair_ids, mean2d, conic, rgb, depth, opac
@@ -447,52 +422,34 @@ def combine_cases(scratch, boundary_t, row_tile, num_tiles: int, *,
                                          ("none", none), ("walk", walk))}
 
 
-def _load(log_space: bool):
-    if log_space not in _libs:
-        name, fwd, combine = _FORMS[log_space][:3]
-        lib = ctypes.CDLL(cuda_build.build_library(name))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        getattr(lib, fwd).argtypes = [ptr, i32, ptr, ptr, ptr, ptr, i32, i32,
-                                      i32, i32, i32, ptr, ptr, ptr]
-        getattr(lib, combine).argtypes = [ptr, ptr, ptr, i32, ptr, ptr, ptr,
-                                          i32, i32, i32, i32, ptr, ptr, ptr]
-        getattr(lib, fwd).restype = getattr(lib, combine).restype = i32
-        _libs[log_space] = lib
-    return _libs[log_space]
-
-
-def check_args(name: str, tensors, data, num_tiles: int, tile_px: int,
+def check_rows(owner: str, tensors, data, num_tiles: int, tile_px: int,
                chunk: int) -> bool:
-    """Shared argument checks; returns True when every tensor is on the CPU
-    (the plain version runs) and False when all share one CUDA device."""
-    for what, t, dtype in tensors:
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name}: {what} must be a contiguous {dtype} "
-                             f"tensor, got {t.dtype}")
+    """The row kernels' checks: ``tensors`` (``cuda_build.check_tensors``),
+    ``data`` [FEAT, Pc], the row offsets [T] and, on a card, the tile and
+    chunk limits and int32 stream offsets. Returns True when every tensor
+    is on the CPU (the plain version runs)."""
+    on_cpu = cuda_build.check_tensors(owner, tensors)
     if data.dim() != 2 or data.shape[0] != FEAT:
         raise ValueError(f"data must be [{FEAT}, Pc], got {tuple(data.shape)}")
-    for what, t, _ in tensors:
+    for what, t, _, _ in tensors:
         if what in ("starts", "counts", "blk_off") and \
                 t.shape != (num_tiles,):
             raise ValueError("starts, counts and blk_off must be [T] each")
-    devices = {t.device for _, t, _ in tensors}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or data.device.type != "cuda":
-        raise ValueError(f"{name}: all tensors must share one CUDA device, "
-                         f"got {devices}")
+    if not on_cpu:
+        check_limits(tile_px, chunk, MAX_CHUNK)
+        if data.shape[1] >= 2 ** 31:
+            raise ValueError("stream too long for int32 offsets")
+    return on_cpu
+
+
+def check_limits(tile_px: int, chunk: int, max_chunk: int) -> None:
+    """A row kernel's block: four pixels a thread, 256 threads, and a
+    chunk of at most ``max_chunk`` pairs staged in shared memory."""
     if not 1 <= tile_px <= 32:
         raise ValueError(f"tile_px {tile_px}: four pixels a thread, 256 "
                          "threads a block need tile_px**2 <= 1024")
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} outside [1, {MAX_CHUNK}]")
-    if data.shape[1] >= 2 ** 31:
-        raise ValueError("stream too long for int32 offsets")
-    return False
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    if not 1 <= chunk <= max_chunk:
+        raise ValueError(f"chunk {chunk} outside [1, {max_chunk}]")
 
 
 def rows_forward(data, starts, counts, blk_off, row_tile, *, tiles_x: int,
@@ -504,31 +461,24 @@ def rows_forward(data, starts, counts, blk_off, row_tile, *, tiles_x: int,
     ``rows_forward_reference``."""
     f32, i32 = torch.float32, torch.int32
     num_tiles = starts.shape[0]
-    on_cpu = check_args("rows_forward", (
-        ("data", data, f32), ("starts", starts, i32), ("counts", counts, i32),
-        ("blk_off", blk_off, i32), ("row_tile", row_tile, i32)), data,
-        num_tiles, tile_px, chunk)
+    on_cpu = check_rows("rows_forward", (
+        ("data", data, f32, None), ("starts", starts, i32, None),
+        ("counts", counts, i32, None), ("blk_off", blk_off, i32, None),
+        ("row_tile", row_tile, i32, None)), data, num_tiles, tile_px, chunk)
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk,
               log_space=log_space)
     if on_cpu:
         return rows_forward_reference(data, starts, counts, blk_off,
                                       row_tile, **kw)
-    lib = _load(log_space)
-    _, fwd, _, key, _ = _FORMS[log_space]
+    entry, _, counter, _ = _FORMS[log_space]
     n_rows = row_tile.shape[0]
     scratch = torch.empty(n_rows, ROW_FIELDS + int(log_space),
                           tile_px * tile_px, dtype=f32, device=data.device)
     mask = torch.empty(mask_shape(n_rows, tile_px, chunk), dtype=i32,
                        device=data.device)
-    with torch.cuda.device(data.device):
-        err = getattr(lib, fwd)(
-            data.data_ptr(), data.shape[1], starts.data_ptr(),
-            counts.data_ptr(), blk_off.data_ptr(), row_tile.data_ptr(),
-            n_rows, num_tiles, tiles_x, tile_px, chunk, scratch.data_ptr(),
-            mask.data_ptr(), _stream(data))
-    if err != 0:
-        raise RuntimeError(f"{fwd} launch failed: cudaError {err}")
-    launch_counts[key] += 1
+    cuda_build.launch(entry, counter, data.device, data, data.shape[1],
+                      starts, counts, blk_off, row_tile, n_rows, num_tiles,
+                      tiles_x, tile_px, chunk, scratch, mask)
     return scratch, mask
 
 
@@ -543,10 +493,11 @@ def rows_combine(scratch, mask, data, starts, counts, blk_off, *,
     ``rows_combine_reference``."""
     f32, i32 = torch.float32, torch.int32
     num_tiles = starts.shape[0]
-    on_cpu = check_args("rows_combine", (
-        ("scratch", scratch, f32), ("mask", mask, i32), ("data", data, f32),
-        ("starts", starts, i32), ("counts", counts, i32),
-        ("blk_off", blk_off, i32)), data, num_tiles, tile_px, chunk)
+    on_cpu = check_rows("rows_combine", (
+        ("scratch", scratch, f32, None), ("mask", mask, i32, None),
+        ("data", data, f32, None), ("starts", starts, i32, None),
+        ("counts", counts, i32, None), ("blk_off", blk_off, i32, None)),
+        data, num_tiles, tile_px, chunk)
     p = tile_px * tile_px
     if scratch.dim() != 3 or scratch.shape[1:] != (
             ROW_FIELDS + int(log_space), p):
@@ -559,22 +510,13 @@ def rows_combine(scratch, mask, data, starts, counts, blk_off, *,
     if on_cpu:
         return rows_combine_reference(scratch, mask, data, starts, counts,
                                       blk_off, **kw)
-    lib = _load(log_space)
-    _, _, combine, _, key = _FORMS[log_space]
+    _, entry, _, counter = _FORMS[log_space]
     out = torch.empty(num_tiles, 5, p, dtype=f32, device=data.device)
     boundary_t = (torch.empty(scratch.shape[0], p, dtype=f32,
                               device=data.device) if boundary else None)
-    with torch.cuda.device(data.device):
-        err = getattr(lib, combine)(
-            scratch.data_ptr(), mask.data_ptr(), data.data_ptr(),
-            data.shape[1],
-            starts.data_ptr(), counts.data_ptr(), blk_off.data_ptr(),
-            num_tiles, tiles_x, tile_px, chunk, out.data_ptr(),
-            None if boundary_t is None else boundary_t.data_ptr(),
-            _stream(data))
-    if err != 0:
-        raise RuntimeError(f"{combine} launch failed: cudaError {err}")
-    launch_counts[key] += 1
+    cuda_build.launch(entry, counter, data.device, scratch, mask, data,
+                      data.shape[1], starts, counts, blk_off, num_tiles,
+                      tiles_x, tile_px, chunk, out, boundary_t)
     return out if boundary_t is None else (out, boundary_t)
 
 
@@ -612,12 +554,13 @@ def composite_pairs_stream(data, starts, counts, *, tiles_x: int,
     back. On CPU tensors, where no kernel runs, it takes the plain version.
     ``row_tile`` is ``block_rows``' when the caller has it."""
     num_tiles = starts.shape[0]
-    checked = [("data", data, torch.float32), ("starts", starts, torch.int32),
-               ("counts", counts, torch.int32)]
+    checked = [("data", data, torch.float32, None),
+               ("starts", starts, torch.int32, None),
+               ("counts", counts, torch.int32, None)]
     if boundary_rows is not None:
-        checked.append(("blk_off", boundary_rows[0], torch.int32))
-    if check_args("composite_pairs_stream", checked, data, num_tiles, tile_px,
-              chunk):
+        checked.append(("blk_off", boundary_rows[0], torch.int32, None))
+    if check_rows("composite_pairs_stream", checked, data, num_tiles, tile_px,
+                  chunk):
         return composite_pairs_reference(data, starts, counts, tiles_x=tiles_x,
                                          tile_px=tile_px, chunk=chunk,
                                          boundary_rows=boundary_rows)

@@ -16,8 +16,7 @@ one of two paths, by what it can see in its inputs:
   in the same f32 operation order as the JAX version, so the two agree to
   rounding: the CPU twin, and the path under autograd (the fit).
 
-``tracing.preprocess_path`` counts the calls of each path,
-``launch_counts["preprocess"]`` the kernel's launches.
+``cuda_build.launch_counts["preprocess"]`` counts the kernel's launches.
 
 Conventions:
 - ``ndc2pix(v, S) = ((v + 1) S - 1) / 2`` (auxiliary.h:40-43)
@@ -28,15 +27,12 @@ Conventions:
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from dge_tpu_torch.ops import cuda_build
 from dge_tpu_torch.ops import sh as sh_ops
-from dge_tpu_torch.ops.pairs_composite import launch_counts
-from dge_tpu_torch.utils import tracing
 
 NEAR_Z = 0.2
 # the camera's tensors the kernel reads, in the order it takes them
@@ -157,9 +153,7 @@ def preprocess(
     if xyz.device.type == "cuda" and not needs_graph(
             xyz, scale, quat, opacity, sh, override_color,
             *(getattr(cam, name) for name, _ in _CAMERA_FIELDS)):
-        tracing.preprocess_path["kernel"] += 1
         return _preprocess_kernel(*args)
-    tracing.preprocess_path["torch"] += 1
     return _preprocess_torch(*args)
 
 
@@ -168,21 +162,6 @@ def needs_graph(*inputs) -> bool:
     is on and one of them (a tensor) requires a gradient."""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in inputs)
-
-
-_lib = None
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("preprocess"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.preprocess_forward.argtypes = ([ptr] * 10 + [i32] * 6
-                                           + [ctypes.c_float] + [ptr] * 7)
-        lib.preprocess_forward.restype = i32
-        _lib = lib
-    return _lib
 
 
 def _preprocess_kernel(xyz, scale, quat, opacity, sh, alive, cam,
@@ -215,19 +194,9 @@ def _preprocess_kernel(xyz, scale, quat, opacity, sh, alive, cam,
             raise ValueError(f"preprocess: sh must be [{n}, >= {k}, 3], got "
                              f"{tuple(sh.shape)}")
         checks.append(("sh", sh, f32, (n, sh.shape[1], 3)))
-    for what, t, dtype, shape in checks:
-        if not isinstance(t, torch.Tensor) or t.dtype != dtype or \
-                tuple(t.shape) != shape or not t.is_contiguous() or \
-                t.device != dev:
-            got = (f"{t.dtype} {tuple(t.shape)} on {t.device}"
-                   if isinstance(t, torch.Tensor) else type(t).__name__)
-            raise ValueError(
-                f"preprocess: {what} must be a contiguous {dtype} tensor of "
-                f"shape {shape} on {dev}, got {got}")
-    if dev.type != "cuda":
+    if cuda_build.check_tensors("preprocess", checks):
         raise ValueError(f"preprocess: the kernel runs on a CUDA device, "
                          f"not {dev}")
-    lib = _load()
     mean2d = torch.empty(n, 2, dtype=f32, device=dev)
     depth = torch.empty(n, dtype=f32, device=dev)
     conic = torch.empty(n, 3, dtype=f32, device=dev)
@@ -235,22 +204,16 @@ def _preprocess_kernel(xyz, scale, quat, opacity, sh, alive, cam,
     visible = torch.empty(n, dtype=torch.bool, device=dev)
     if override_color is None:
         rgb = torch.empty(n, 3, dtype=f32, device=dev)
-        sh_ptr, rgb_ptr, stride = sh.data_ptr(), rgb.data_ptr(), sh.shape[1]
+        sh_in, rgb_out, stride = sh, rgb, sh.shape[1]
     else:
         rgb = override_color.float()
-        sh_ptr = rgb_ptr = None
+        sh_in = rgb_out = None
         stride = 0
-    with torch.cuda.device(dev):
-        err = lib.preprocess_forward(
-            xyz.data_ptr(), scale.data_ptr(), quat.data_ptr(), sh_ptr,
-            alive.data_ptr(), *(t.data_ptr() for t in camera), n,
-            int(cam.width), int(cam.height), stride, int(max_sh_degree),
-            int(active_sh_degree), float(scale_modifier), mean2d.data_ptr(),
-            depth.data_ptr(), conic.data_ptr(), radius.data_ptr(), rgb_ptr,
-            visible.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"preprocess launch failed: cudaError {err}")
-    launch_counts["preprocess"] += 1
+    cuda_build.launch(
+        "preprocess_forward", "preprocess", dev, xyz, scale, quat, sh_in,
+        alive, *camera, n, int(cam.width), int(cam.height), stride,
+        int(max_sh_degree), int(active_sh_degree), float(scale_modifier),
+        mean2d, depth, conic, radius, rgb_out, visible)
     return Preprocessed(mean2d=mean2d, depth=depth, conic=conic,
                         radius=radius, rgb=rgb, opacity=opacity.reshape(n),
                         visible=visible)

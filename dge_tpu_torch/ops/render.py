@@ -413,8 +413,8 @@ class SpillFreeRenderer:
             small_slots=4,
             # start at the bin_gaussians_pairs auto defaults so the ladder
             # doubles from where the backend would have started
-            max_pairs=max(1 << 18, 1 << int(2 * n - 1).bit_length()),
-            big_capacity=1 << max(int(n // 32 - 1).bit_length(), 6),
+            max_pairs=binning.default_max_pairs(n),
+            big_capacity=binning.default_big_capacity(n),
         )
         for k in list(caps):
             if k in render_kw:

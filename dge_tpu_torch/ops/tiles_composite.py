@@ -42,7 +42,6 @@ whole list, so the fullest tile does not set the time. A list row is
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -50,9 +49,7 @@ import torch
 from dge_tpu_torch.ops import composite as C
 from dge_tpu_torch.ops import cuda_build
 from dge_tpu_torch.ops import pairs_composite as PC
-from dge_tpu_torch.ops.pairs_composite import FEAT, launch_counts
-
-_lib = None
+from dge_tpu_torch.ops.pairs_composite import FEAT
 
 
 def feature_table(mean2d, conic, rgb, depth, opac) -> torch.Tensor:
@@ -99,18 +96,6 @@ def list_stream_reference(feat, lists, counts, order, cum, n_rows: int,
     return torch.where(valid, data, torch.zeros_like(data)), row_tile
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(cuda_build.build_library("list_stream"))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.list_stream.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32,
-                                    i32, ptr, ptr, ptr]
-        lib.list_stream.restype = i32
-        _lib = lib
-    return _lib
-
-
 def list_stream(feat, lists, counts, order, cum, n_rows: int, chunk: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layout kernel's wrapper → (data [FEAT, R·chunk], row_tile [R]
@@ -120,19 +105,12 @@ def list_stream(feat, lists, counts, order, cum, n_rows: int, chunk: int
     if feat.device.type == "cpu":
         return list_stream_reference(feat, lists, counts, order, cum, n_rows,
                                      chunk)
-    lib = _load()
     data = torch.empty(FEAT, n_rows * chunk, dtype=torch.float32,
                        device=feat.device)
     row_tile = torch.empty(n_rows, dtype=torch.int32, device=feat.device)
-    with torch.cuda.device(feat.device):
-        err = lib.list_stream(
-            feat.data_ptr(), lists.data_ptr(), lists.shape[1],
-            counts.data_ptr(), None if order is None else order.data_ptr(),
-            cum.data_ptr(), counts.shape[0], chunk, n_rows, data.data_ptr(),
-            row_tile.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"list_stream launch failed: cudaError {err}")
-    launch_counts["list_stream"] += 1
+    cuda_build.launch("list_stream", "list_stream", feat.device, feat, lists,
+                      lists.shape[1], counts, order, cum, counts.shape[0],
+                      chunk, n_rows, data, row_tile)
     return data, row_tile
 
 
@@ -143,24 +121,17 @@ def composite_tiles_kernel(feat, lists, counts, order=None, *, tiles_x: int,
     over the aligned list stream, or raises on anything they do not take; it
     never falls back. On CPU tensors, where no kernel runs, the plain
     versions of the three take their place."""
-    tensors = [("feat", feat, torch.float32), ("lists", lists, torch.int32),
-               ("counts", counts, torch.int32)]
-    if order is not None:
-        tensors.append(("order", order, torch.int32))
-    for name, t, dtype in tensors:
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"composite_tiles_kernel: {name} must be a "
-                             f"contiguous {dtype} tensor, got {t.dtype}")
+    cuda_build.check_tensors("composite_tiles_kernel", (
+        ("feat", feat, torch.float32, None),
+        ("lists", lists, torch.int32, None),
+        ("counts", counts, torch.int32, None),
+        ("order", order, torch.int32, None)))
     if feat.dim() != 2 or feat.shape[1] != FEAT:
         raise ValueError(f"feat must be [N, {FEAT}], got {tuple(feat.shape)}")
     if lists.dim() != 2 or counts.shape != (lists.shape[0],):
         raise ValueError("lists must be [T, K] and counts [T]")
     if order is not None and order.shape != (feat.shape[0],):
         raise ValueError("order must be [N]")
-    devices = {t.device for _, t, _ in tensors}
-    if len(devices) != 1:
-        raise ValueError("composite_tiles_kernel: all tensors must share one "
-                         f"device, got {devices}")
     counts = counts.clamp(max=lists.shape[1])
     starts, blk_off, cum, n_rows = list_rows(counts, chunk)
     data, row_tile = list_stream(feat, lists, counts, order, cum, n_rows,
@@ -170,7 +141,7 @@ def composite_tiles_kernel(feat, lists, counts, order=None, *, tiles_x: int,
                                     **kw)
     out = PC.rows_combine(scratch, mask, data, starts, counts, blk_off, **kw)
     if feat.device.type == "cuda":
-        launch_counts["tiles_composite"] += 1
+        cuda_build.count("tiles_composite")
     return out
 
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from dge_tpu_torch import resolve_device
+from dge_tpu_torch.ops import binning as B
 from dge_tpu_torch.ops import losses as L
 from dge_tpu_torch.ops import render as R
 from dge_tpu_torch.scene.gaussians import GaussianScene
@@ -319,12 +320,12 @@ class FitLoop:
         if want_tile and self.max_per_tile < 1 << 15:
             self.max_per_tile *= 2
             grew = True
-        auto_pairs = max(1 << 18, 1 << int(2 * capacity - 1).bit_length())
+        auto_pairs = B.default_max_pairs(capacity)
         new_pairs = max(self.max_pairs or auto_pairs, auto_pairs) * 2
         if want_stream and new_pairs <= 1 << 22:
             self.max_pairs = new_pairs
             grew = True
-        auto_big = 1 << max(int(capacity // 32 - 1).bit_length(), 6)
+        auto_big = B.default_big_capacity(capacity)
         new_big = max(self.big_capacity or auto_big, auto_big) * 2
         if want_cap and new_big <= capacity:
             self.big_capacity = new_big

@@ -99,7 +99,10 @@ def forward_cell(inp: dict, *, log_space: bool = False,
     import torch
 
     from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.utils import tracing
 
+    # through the registry: every tree that --root may name has the group
+    launch_counts = tracing.group("launch_counts")
     args = (inp["data"], inp["starts"], inp["counts"])
     kw = dict(tiles_x=inp["tiles_x"], tile_px=TILE_PX, chunk=inp["chunk"],
               log_space=log_space)
@@ -114,12 +117,12 @@ def forward_cell(inp: dict, *, log_space: bool = False,
                                boundary=boundary, **kw)
 
     scratch, mask = PC.rows_forward(*args, blk_off, row_tile, **kw)
-    before = dict(PC.launch_counts)
+    before = dict(launch_counts)
     out, bt = PC.rows_combine(scratch, mask, *args, blk_off, boundary=True,
                               **kw)
     torch.cuda.synchronize()
-    launched = {k: PC.launch_counts[k] - before[k] for k in PC.launch_counts
-                if PC.launch_counts[k] != before[k]}
+    launched = {k: launch_counts[k] - before[k] for k in launch_counts
+                if launch_counts[k] != before[k]}
     cases = PC.combine_cases(scratch, bt, row_tile, num_tiles,
                              log_space=log_space)
     s = inp["starts"].long()

@@ -358,7 +358,7 @@ def main(argv=None) -> CaptureRun:
     import torch
 
     from dge_tpu_torch import resolve_device
-    from dge_tpu_torch.ops import pairs_composite as PC
+    from dge_tpu_torch.ops.cuda_build import launch_counts
     from dge_tpu_torch.ops import render as R
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
@@ -384,7 +384,7 @@ def main(argv=None) -> CaptureRun:
         scene, torch.zeros(3, device=device), tile_px=32, max_per_tile=4096,
         max_tiles_per_gaussian=32, small_slots=4, max_pairs=1 << 20,
         big_capacity=8192, log=lambda m: print(m, flush=True))
-    before = dict(PC.launch_counts)
+    before = dict(launch_counts)
     t0 = time.time()
     spills = []
     for i, cam in enumerate(cams):
@@ -400,7 +400,7 @@ def main(argv=None) -> CaptureRun:
     if device.type == "cuda":
         torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {k: v - before[k] for k, v in PC.launch_counts.items()}
+    launches = {k: v - before[k] for k, v in launch_counts.items()}
     write_colmap(cams, h, w, sparse)
     write_point_init(gt, args.init_points, args.seed, sparse)
 

@@ -62,10 +62,11 @@ def composite_pairs_logdot(data, starts, counts, *, tiles_x: int,
     ``pairs_composite.composite_pairs_stream``: on CUDA tensors it launches
     K5's row kernel and its combine kernel or raises, and never falls back;
     on CPU tensors it takes the plain version."""
-    on_cpu = PC.check_args("composite_pairs_logdot", (
-        ("data", data, torch.float32), ("starts", starts, torch.int32),
-        ("counts", counts, torch.int32)), data, starts.shape[0], tile_px,
-        chunk)
+    on_cpu = PC.check_rows("composite_pairs_logdot", (
+        ("data", data, torch.float32, None),
+        ("starts", starts, torch.int32, None),
+        ("counts", counts, torch.int32, None)), data, starts.shape[0],
+        tile_px, chunk)
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
     if on_cpu:
         return composite_pairs_logdot_reference(data, starts, counts, **kw)

@@ -25,16 +25,10 @@ card. ``take()`` returns the records and the counters as plain Python data
 and clears the records.
 
 **Counters** are always on. They live in one registry of named groups
-(``group``), each a plain dict of numbers that its owner increments in
-place: ``launch_counts`` (``ops/pairs_composite``: kernel launches),
-``collective_stats`` (``parallel/dist``: collectives and their host
-seconds), ``host_syncs`` (``host_read``: host reads of device values, by
-site), ``preprocess_path`` (``ops/projection.preprocess``: calls that took
-the CUDA kernel, ``kernel``, and the torch path, ``torch``),
-``render_ladder`` (``ops/render.SpillFreeRenderer``: spill-ladder rungs)
-and ``pivot_record_bytes`` (``models/layers``: bytes written to the edit's
-pivot records, by token count). ``reset`` zeroes groups;
-``counters`` copies them all.
+(``group``), each a plain dict of numbers that its owner, the module that
+makes the group, increments in place; this module owns ``host_syncs``
+(``host_read``: host reads of device values, by site). ``reset`` zeroes
+groups; ``counters`` copies them all.
 
 ``host_read(x, site, read)`` is how the render and edit paths read a device
 value on the host: it calls ``read(x)`` (``int`` by default; ``.cpu()
@@ -184,8 +178,6 @@ def counters() -> Dict[str, dict]:
 
 # host reads of device values, by site
 host_syncs = group("host_syncs")
-# ops/projection.preprocess's calls by the path they took
-preprocess_path = group("preprocess_path", {"kernel": 0, "torch": 0})
 
 
 def host_read(x, site: str, read: Callable = int):

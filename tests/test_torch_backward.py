@@ -23,6 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from dge_tpu.ops import pallas_backward as JPB
 from dge_tpu.ops import pallas_composite as JPC
 from dge_tpu.ops import render as JR
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import pairs_backward as TPB
 from dge_tpu_torch.ops import pairs_composite as TPC
 from dge_tpu_torch.ops import render as TR
@@ -277,7 +278,7 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
     count no launch; the wrappers still check what they are given."""
     ts = to_port(make_random_scene(rng, n=24))
     cam, _ = make_test_camera(height=32, width=32)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     assert set(before) == {"pairs_composite", "pairs_composite_combine",
                            "pairs_pass1", "pairs_suffix", "pairs_pass2",
                            "pairs_fold", "list_stream", "tiles_composite",
@@ -289,7 +290,7 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
                     tile_px=16, backend="cuda_train")
     out.color.sum().backward()
     assert float(xyz.grad.abs().max()) > 0
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     assert TR.default_train_backend("cuda") == "cuda_train"
     assert TR.default_train_backend("cpu") == "torch"
     case = stream_case(np.random.default_rng(1), 0)
@@ -396,10 +397,10 @@ def test_pass1_routes_agree(tile_px, chunk):
     bt_walk, suf_walk = TPB.pairs_pass1(*base, **kw)
     _, bt = TPC.composite_pairs_stream(
         data, t["starts"], t["counts"], boundary_rows=(blk_off, n_rows), **kw)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     bt_rows, suf_rows = TPB.pairs_pass1(*base, boundary_t=bt,
                                         row_tile=row_tile, **kw)
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     assert bt_rows is bt and torch.equal(bt, bt_walk)
     scale = float(suf_walk.abs().max())
     assert scale > 1e-2

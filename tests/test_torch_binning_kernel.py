@@ -1,8 +1,8 @@
 """The pair binning's CUDA kernels (``dge_tpu_torch/csrc/binning.cu``)
 against the plain PyTorch binning ``_pair_sort`` run on the same card, bit
 for bit in every ``PairBins`` field (marked ``gpu``; skips without a card);
-on the CPU, the dispatch to ``_pair_sort`` and the kernel path's sizes
-(``launch_scalars``) against the tensors ``_pair_sort`` makes. This file
+on the CPU, the dispatch to ``_pair_sort`` and the sizes both paths take
+(``pair_sizes``) against the tensors ``_pair_sort`` makes. This file
 imports neither JAX nor the JAX package, so the card's machine runs it
 without them:
 
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from dge_tpu_torch.ops import binning as TB
-from dge_tpu_torch.ops import pairs_composite as TPC
+from dge_tpu_torch.ops import cuda_build as CB
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_PLY = os.path.join(ROOT, "outputs", "bench_scene", "point_cloud.ply")
@@ -101,9 +101,9 @@ def test_cpu_tensors_take_the_torch_path(cull):
     kw = dict(height=96, width=128, tile_px=16, max_per_tile=48,
               max_tiles_per_gaussian=8, max_pairs=900, big_capacity=16,
               small_slots=2, **(cull_kw if cull else {}))
-    before = {k: TPC.launch_counts[k] for k in COUNTERS}
+    before = {k: CB.launch_counts[k] for k in COUNTERS}
     got = TB.bin_gaussians_pairs(*args, **kw)
-    assert {k: TPC.launch_counts[k] for k in COUNTERS} == before
+    assert {k: CB.launch_counts[k] for k in COUNTERS} == before
     assert_same_bins(got, torch_path(args, **kw))
     assert int(got.spill) > 0
 
@@ -141,10 +141,11 @@ LADDER = {
 
 @pytest.mark.parametrize("case", sorted(LADDER))
 def test_launch_scalars_match_pair_sort(case):
-    """launch_scalars against what _pair_sort gives on the CPU: its
-    emission, its tier-2 rows, the keys it sorts, the stream it keeps, the
-    width of its keys' depth field (its _depth_keys), and r: the needle's
-    slot spill is its rect tiles past r."""
+    """pair_sizes against what _pair_sort gives on the CPU: its emission,
+    its tier-2 rows, the keys it sorts, the stream it keeps, and r: the
+    needle's slot spill is its rect tiles past r; the keys' depth field is
+    the widest that the tile ids, the sentinel included, leave in an
+    int32."""
     kw = dict(LADDER[case])
     depth_tiles = kw.pop("depth_tiles", 0)
     h, w, n = 1080, 1920, 301
@@ -153,12 +154,12 @@ def test_launch_scalars_match_pair_sort(case):
     if depth_tiles:
         seen = TB.tile_rects(args[0], args[2], args[3], 32, 60, 34)[4]
         depth_keys = (depth_tiles, seen)
-    sc = TB.launch_scalars(
+    sc = TB.pair_sizes(
         n, height=h, width=w, tile_px=32,
         max_tiles_per_gaussian=kw["max_tiles_per_gaussian"],
         small_slots=kw["small_slots"],
         big_capacity=kw.get("big_capacity", 0),
-        max_pairs=kw.get("max_pairs", 0), depth_tiles=depth_tiles)
+        max_pairs=kw.get("max_pairs", 0), depth_keys=depth_keys)
     pb = torch_path(args, height=h, width=w, depth_keys=depth_keys, **cull,
                     **kw)
     assert sc.emission == pb.emission
@@ -166,9 +167,9 @@ def test_launch_scalars_match_pair_sort(case):
     assert sc.slots == pb.perm.shape[0]
     assert pb.pair_ids.shape[0] == min(sc.max_pairs, sc.slots)
     assert (sc.tiles_x, sc.tiles_y) == (pb.tiles_x, pb.tiles_y) == (60, 34)
-    vis = TB.tile_rects(args[0], args[2], args[3], 32, 60, 34)[4]
-    assert sc.depth_bits == TB._depth_keys(args[1], vis, sc.num_tiles,
-                                           depth_keys)[0]
+    key_tiles = max(sc.num_tiles, depth_tiles)
+    assert (key_tiles + 1) << sc.depth_bits <= 2 ** 31
+    assert (key_tiles + 1) << (sc.depth_bits + 1) >= 2 ** 31
     assert int(pb.tier2_ids[0]) == 0  # the needle, tier 2's only member
     assert int((pb.tier2_ids < n).sum()) == 1
     assert sc.r == sc.num_tiles - int(pb.spill_parts[0])
@@ -199,9 +200,9 @@ def bench_prep(dev, height, width):
 
 def kernels_vs_torch(args, cull_kw, **kw):
     """Both paths on the card; each binning kernel counted once."""
-    before = {k: TPC.launch_counts[k] for k in COUNTERS}
+    before = {k: CB.launch_counts[k] for k in COUNTERS}
     got = TB.bin_gaussians_pairs(*args, **cull_kw, **kw)
-    assert {k: TPC.launch_counts[k] - before[k] for k in COUNTERS} == \
+    assert {k: CB.launch_counts[k] - before[k] for k in COUNTERS} == \
         dict.fromkeys(COUNTERS, 1)
     want = torch_path(args, **cull_kw, **kw)
     torch.cuda.synchronize()

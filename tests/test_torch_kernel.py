@@ -16,13 +16,17 @@ may differ in one visit in a thousand, where an alpha rounds across
 (the pixel sums run in another order: four pixels a thread, a warp
 butterfly, then the warps' partial sums in warp order)."""
 
+import contextlib
 import os
+import re
+import types
 
 import numpy as np
 import pytest
 import torch
 
 from dge_tpu_torch.ops import binning as TB
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import pairs_composite as TPC
 
 
@@ -122,9 +126,9 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
                                       for x in (ids, m, c, r, d, o)))
     st, ct = torch.from_numpy(starts), torch.from_numpy(counts)
     kw = dict(tiles_x=tiles_x, tile_px=16, chunk=128)
-    before = TPC.launch_counts["pairs_composite"]
+    before = CB.launch_counts["pairs_composite"]
     got = TPC.composite_pairs_stream(data, st, ct, **kw)
-    assert TPC.launch_counts["pairs_composite"] == before
+    assert CB.launch_counts["pairs_composite"] == before
     assert torch.equal(got, TPC.composite_pairs_reference(data, st, ct, **kw))
     with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
         TPC.composite_pairs_stream(data, st.long(), ct, **kw)
@@ -146,10 +150,10 @@ def test_kernel_matches_plain_on_card(chunk):
     st = torch.from_numpy(starts).to(dev)
     ct = torch.from_numpy(counts).to(dev)
     kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
-    before = TPC.launch_counts["pairs_composite"]
+    before = CB.launch_counts["pairs_composite"]
     got = TPC.composite_pairs_stream(data, st, ct, **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["pairs_composite"] == before + 1
+    assert CB.launch_counts["pairs_composite"] == before + 1
     want = TPC.composite_pairs_reference(data, st, ct, **kw)
     err = (got - want).abs()
     assert float(err[:, 0:3].max()) <= 1e-4
@@ -180,13 +184,13 @@ def test_backward_kernels_match_plain_on_card(chunk):
         rng.normal(size=(8, 5, 1024)).astype(np.float32)).to(dev)
     fwd = TPC.composite_pairs_stream(data, st, ct, **kw)
     blk_off, row_tile, n_rows = TPB.block_rows(st, ct, chunk, data.shape[1])
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     bt, suf = TPB.pairs_pass1(data, st, ct, blk_off, n_rows, cot, **kw)
     grads = TPB.pairs_pass2(data, st, ct, blk_off, row_tile, cot, fwd, bt,
                             suf, **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
-    assert TPC.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
+    assert CB.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
+    assert CB.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
     bt_p, suf_p = TPB.pass1_reference(data, st, ct, blk_off, n_rows, cot, **kw)
     grads_p = TPB.pass2_reference(data, st, ct, blk_off, row_tile, cot, fwd,
                                   bt, suf, **kw)
@@ -233,10 +237,10 @@ def test_fold_kernel_matches_plain_on_card(case):
     ids, starts, counts, g, layout, n, _ = binned_fold_case(
         5, "cuda", **FOLD_CASES[case])
     used = (starts + counts).max()
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     got = TPB.fold_to_gaussians(g, ids, n, used, layout=layout)
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in TPC.launch_counts.items()
+    assert {k: v - before[k] for k, v in CB.launch_counts.items()
             if v != before[k]} == {"pairs_fold": 1}
     assert torch.equal(got, TPB.fold_to_gaussians(g, ids, n, used,
                                                   layout=layout))
@@ -290,15 +294,15 @@ def test_row_kernels_match_plain_on_card(tile_px, chunk):
     k = card_backward_case(11, tile_px, chunk)
     base = (k["data"], k["st"], k["ct"], k["blk_off"])
     used, kw = k["used"], k["kw"]
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     bt, suf = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], boundary_t=k["bt"],
                               row_tile=k["row_tile"], **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
-    assert TPC.launch_counts["pairs_suffix"] == before["pairs_suffix"] + 1
-    assert TPC.launch_counts["pairs_composite"] == before["pairs_composite"]
+    assert CB.launch_counts["pairs_pass1"] == before["pairs_pass1"] + 1
+    assert CB.launch_counts["pairs_suffix"] == before["pairs_suffix"] + 1
+    assert CB.launch_counts["pairs_composite"] == before["pairs_composite"]
     bt_w, suf_w = TPB.pairs_pass1(*base, k["n_rows"], k["cot"], **kw)
-    assert TPC.launch_counts["pairs_composite"] == \
+    assert CB.launch_counts["pairs_composite"] == \
         before["pairs_composite"] + 1
     assert torch.equal(bt_w[used], bt[used])
     assert torch.equal(suf_w[used], suf[used])
@@ -313,7 +317,7 @@ def test_row_kernels_match_plain_on_card(tile_px, chunk):
     grads = TPB.pairs_pass2(*base, k["row_tile"], k["cot"], k["fwd"], bt, suf,
                             **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
+    assert CB.launch_counts["pairs_pass2"] == before["pairs_pass2"] + 1
     grads_p = TPB.pass2_reference(*base, k["row_tile"], k["cot"], k["fwd"],
                                   bt, suf, **kw)
     for f in range(10):
@@ -423,10 +427,10 @@ def test_refused_launch_raises_on_card(monkeypatch):
     with pytest.raises(ValueError, match="chunk 1024 outside"):
         TPB.pairs_pass2(*args, **dict(k["kw"], chunk=1024))
     monkeypatch.setattr(TPB, "MAX_CHUNK", 1024)
-    before = TPC.launch_counts["pairs_pass2"]
+    before = CB.launch_counts["pairs_pass2"]
     with pytest.raises(RuntimeError, match="pairs_pass2 launch failed"):
         TPB.pairs_pass2(*args, **dict(k["kw"], chunk=1024))
-    assert TPC.launch_counts["pairs_pass2"] == before
+    assert CB.launch_counts["pairs_pass2"] == before
     assert torch.equal(TPB.pairs_pass2(*args, **k["kw"]), grads)
 
 
@@ -471,12 +475,12 @@ def test_forward_row_and_combine_kernels_match_plain_on_card(
     used = k["used"]
     keys = ("pairs_logdot", "pairs_logdot_combine") if log_space else (
         "pairs_composite", "pairs_composite_combine")
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     scratch, mask = TPC.rows_forward(*k["args"], k["row_tile"], **kw)
     out, bt = TPC.rows_combine(scratch, mask, *k["args"], boundary=True, **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts[keys[0]] == before[keys[0]] + 1
-    assert TPC.launch_counts[keys[1]] == before[keys[1]] + 1
+    assert CB.launch_counts[keys[0]] == before[keys[0]] + 1
+    assert CB.launch_counts[keys[1]] == before[keys[1]] + 1
     want, want_mask = TPC.rows_forward_reference(*k["args"], k["row_tile"],
                                                  **kw)
     assert float((mask[used] != want_mask[used]).float().mean()) <= 1e-3
@@ -543,10 +547,10 @@ def test_forward_kernels_nan_saturation_and_refusal_on_card(monkeypatch):
         "empty": 256, "all": 512, "none": 256, "walk": 256}
 
     monkeypatch.setattr(TPC, "MAX_CHUNK", 4096)
-    before = TPC.launch_counts["pairs_composite"]
+    before = CB.launch_counts["pairs_composite"]
     with pytest.raises(RuntimeError, match="pairs_rows_forward launch failed"):
         TPC.composite_pairs_stream(data, st, ct, **dict(kw, chunk=2048))
-    assert TPC.launch_counts["pairs_composite"] == before
+    assert CB.launch_counts["pairs_composite"] == before
     assert torch.equal(TPC.composite_pairs_stream(data, st, ct, **kw), out)
 
 
@@ -581,7 +585,7 @@ def test_list_kernel_matches_plain_on_card(chunk, with_order):
         order = torch.from_numpy(perm).to(dev)
         lt = torch.from_numpy(np.argsort(perm).astype(np.int32)[lists]).to(dev)
     kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     got = TTC.composite_tiles_kernel(TTC.feature_table(*feats), lt, ct, order,
                                      **kw)
     torch.cuda.synchronize()
@@ -589,7 +593,7 @@ def test_list_kernel_matches_plain_on_card(chunk, with_order):
     # aligned list stream
     for k in ("list_stream", "tiles_composite", "pairs_composite",
               "pairs_composite_combine"):
-        assert TPC.launch_counts[k] == before[k] + 1, k
+        assert CB.launch_counts[k] == before[k] + 1, k
     want = TCMP.composite_lists(lt, ct, *feats, order=order, **kw)
     err = (got - want).abs()
     assert float(err[:, 0:3].max()) <= 1e-4
@@ -622,10 +626,10 @@ def test_logdot_kernel_matches_plain_on_card(chunk):
     st = torch.from_numpy(starts).to(dev)
     ct = torch.from_numpy(counts).to(dev)
     kw = dict(tiles_x=tiles_x, tile_px=32, chunk=chunk)
-    before = TPC.launch_counts["pairs_logdot"]
+    before = CB.launch_counts["pairs_logdot"]
     got = TLD.composite_pairs_logdot(data, st, ct, **kw)
     torch.cuda.synchronize()
-    assert TPC.launch_counts["pairs_logdot"] == before + 1
+    assert CB.launch_counts["pairs_logdot"] == before + 1
     for want in (TLD.composite_pairs_logdot_reference(data, st, ct, **kw),
                  TPC.composite_pairs_stream(data, st, ct, **kw)):
         err = (got - want).abs()
@@ -641,7 +645,6 @@ def test_cuda_tiles_raises_when_the_library_cannot_load(monkeypatch):
     it never falls back to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    from dge_tpu_torch.ops import cuda_build
     from dge_tpu_torch.ops import tiles_composite as TTC
 
     rng = np.random.default_rng(6)
@@ -654,15 +657,15 @@ def test_cuda_tiles_raises_when_the_library_cannot_load(monkeypatch):
     def broken(name):
         raise RuntimeError(f"nvcc failed: {name}")
 
-    monkeypatch.setattr(TTC, "_lib", None)
-    monkeypatch.setattr(cuda_build, "build_library", broken)
-    before = TPC.launch_counts["tiles_composite"]
+    monkeypatch.setattr(CB, "_libs", {})
+    monkeypatch.setattr(CB, "build_library", broken)
+    before = CB.launch_counts["tiles_composite"]
     with pytest.raises(RuntimeError, match="nvcc failed: list_stream"):
         TTC.composite_tiles_kernel(
             table, torch.from_numpy(lists).to(dev),
             torch.from_numpy(counts).to(dev), tiles_x=tiles_x, tile_px=16,
             chunk=128)
-    assert TPC.launch_counts["tiles_composite"] == before
+    assert CB.launch_counts["tiles_composite"] == before
 
 
 def test_backward_wrappers_take_plain_versions_for_cpu_tensors():
@@ -680,11 +683,11 @@ def test_backward_wrappers_take_plain_versions_for_cpu_tensors():
     cot = torch.from_numpy(rng.normal(size=(4, 5, 256)).astype(np.float32))
     fwd = TPC.composite_pairs_stream(data, st, ct, **kw)
     blk_off, row_tile, n_rows = TPB.block_rows(st, ct, 128, data.shape[1])
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     bt, suf = TPB.pairs_pass1(data, st, ct, blk_off, n_rows, cot, **kw)
     grads = TPB.pairs_pass2(data, st, ct, blk_off, row_tile, cot, fwd, bt,
                             suf, **kw)
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     want = TPB.pass1_reference(data, st, ct, blk_off, n_rows, cot, **kw)
     assert torch.equal(bt, want[0]) and torch.equal(suf, want[1])
     assert grads.shape == (10, data.shape[1])
@@ -696,18 +699,93 @@ def test_backward_wrappers_take_plain_versions_for_cpu_tensors():
                         suf, **kw)
 
 
-def test_build_paths_stay_in_repo():
-    from dge_tpu_torch.ops import cuda_build
+def test_launch_passes_pointers_checks_kinds_and_counts(monkeypatch):
+    """``cuda_build.launch`` with Python stand-ins for two library entries
+    (no card: the device guard and the stream are stubbed too): tensors go
+    as their data pointers and None as NULL, the stream last, a NumPy
+    integer as an int; an argument of another kind (a bool, a float, a
+    tensor or None for an int) raises TypeError before the call; a non-zero return
+    raises RuntimeError naming the entry and counts nothing; a zero return
+    adds one to the named counter and to no other."""
+    calls, ret = [], [0]
 
+    def entry(*args):
+        calls.append(args)
+        return ret[0]
+
+    for name in ("list_stream", "preprocess"):
+        monkeypatch.setitem(CB._libs, name, types.SimpleNamespace(**{
+            "list_stream": entry, "preprocess_forward": entry}))
+    guarded = []
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda i: guarded.append(i) or contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda i: 70 + i, raising=False)
+    monkeypatch.setitem(CB.launch_counts, "list_stream",
+                        CB.launch_counts["list_stream"])
+    feat, data = torch.zeros(10, 8), torch.zeros(10, 4)
+    lists, counts, cum, row_tile = (torch.zeros(k, dtype=torch.int32)
+                                    for k in (6, 2, 2, 1))
+    args = [feat, lists, 3, counts, None, cum, 2, 4, 1, data, row_tile]
+    card = torch.device("cuda", 7)
+    before = dict(CB.launch_counts)
+    CB.launch("list_stream", "list_stream", card, *args)
+    assert calls == [(feat.data_ptr(), lists.data_ptr(), 3, counts.data_ptr(),
+                      None, cum.data_ptr(), 2, 4, 1, data.data_ptr(),
+                      row_tile.data_ptr(), 77)] and guarded == [7]
+    assert CB.launch_counts == dict(
+        before, list_stream=before["list_stream"] + 1)
+    CB.launch("list_stream", "list_stream", card, *args[:2], np.int32(3),
+              *args[3:])
+    assert calls[1] == calls[0] and type(calls[1][2]) is int
+    for i, bad in ((0, feat.data_ptr()), (2, 3.0), (2, True), (2, 2 ** 31),
+                   (2, torch.tensor(3)), (4, np.zeros(2)), (6, None)):
+        with pytest.raises(TypeError, match=f"list_stream: argument {i} "):
+            CB.launch("list_stream", "list_stream", card,
+                      *args[:i], bad, *args[i + 1:])
+    with pytest.raises(TypeError, match="takes 11 arguments"):
+        CB.launch("list_stream", "list_stream", card, *args[:-1])
+    prep = [None] * 10 + [1] * 6 + [1] + [None] * 6
+    with pytest.raises(TypeError, match="argument 16 must be a float"):
+        CB.launch("preprocess_forward", "preprocess", card, *prep)
+    assert len(calls) == 2
+    ret[0] = 700
+    with pytest.raises(RuntimeError,
+                       match="list_stream launch failed: cudaError 700"):
+        CB.launch("list_stream", "list_stream", card, *args)
+    assert len(calls) == 3
+    assert CB.launch_counts == dict(
+        before, list_stream=before["list_stream"] + 2)
+
+
+def test_entries_match_the_c_signatures():
+    """``cuda_build.ENTRIES`` declares every ``extern "C"`` entry of
+    ``csrc/*.cu`` with the kinds of its parameters (p a pointer, i an int,
+    f a float) and its library, the stream last in every one."""
+    found = {}
+    for name in CB.SOURCES:
+        with open(CB.source_path(name)) as f:
+            src = f.read()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', src):
+            params = [" ".join(p.split()) for p in m.group(2).split(",")]
+            assert params[-1] == "void* stream", m.group(1)
+            found[m.group(1)] = (name, "".join(
+                "p" if "*" in p else {"int": "i", "float": "f"}[p.split()[0]]
+                for p in params[:-1]))
+    assert found == CB.ENTRIES
+
+
+def test_build_paths_stay_in_repo():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    assert TPC.BUILD_DIR == os.path.join(root, "build")
-    assert os.path.isfile(TPC._SRC) and TPC._SRC.startswith(root)
-    for name in cuda_build.SOURCES:
-        assert os.path.isfile(cuda_build.source_path(name))
-    assert cuda_build.SOURCES == ("pairs_composite", "pairs_backward",
-                                  "pairs_logdot", "list_stream", "binning",
-                                  "preprocess")
-    assert os.path.isfile(os.path.join(cuda_build.CSRC_DIR, "pair_alpha.cuh"))
+    assert CB.BUILD_DIR == os.path.join(root, "build")
+    src = CB.source_path("pairs_composite")
+    assert os.path.isfile(src) and src.startswith(root)
+    for name in CB.SOURCES:
+        assert os.path.isfile(CB.source_path(name))
+    assert CB.SOURCES == ("pairs_composite", "pairs_backward",
+                          "pairs_logdot", "list_stream", "binning",
+                          "preprocess")
+    assert os.path.isfile(os.path.join(CB.CSRC_DIR, "pair_alpha.cuh"))
 
 
 def test_cpu_render_takes_plain_version():
@@ -734,12 +812,12 @@ def test_cpu_render_takes_plain_version():
     cam = CameraArrays.from_camera(look_at_camera(
         np.array([0.0, 0.3, -4.0]), np.zeros(3), fovx=math.radians(60),
         height=32, width=32), device="cpu")
-    before = TPC.launch_counts["pairs_composite"]
+    before = CB.launch_counts["pairs_composite"]
     out = TR.render(scene, cam, tile_px=16)
-    assert TPC.launch_counts["pairs_composite"] == before
+    assert CB.launch_counts["pairs_composite"] == before
     plain = TR.render(scene, cam, tile_px=16, backend="torch")
     named = TR.render(scene, cam, tile_px=16, backend="cuda_stream")
-    assert TPC.launch_counts["pairs_composite"] == before
+    assert CB.launch_counts["pairs_composite"] == before
     assert torch.equal(out.color, plain.color)
     assert torch.equal(named.color, plain.color)
     assert float(out.alpha.max()) > 0.5

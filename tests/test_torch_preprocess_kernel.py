@@ -3,8 +3,8 @@ torch path (``projection._preprocess_torch``) run on the same card:
 ``mean2d``, ``depth``, ``conic``, ``radius`` and ``visible`` bit for bit,
 ``rgb`` within 1e-6, and the binning and the frame downstream of each
 (marked ``gpu``; skips without a card). On the CPU: the dispatch (CPU
-tensors and autograd take the torch path), the ``preprocess_path`` and
-``launch_counts["preprocess"]`` counters, and the wrapper's argument checks,
+tensors and autograd take the torch path), the
+``launch_counts["preprocess"]`` counter, and the wrapper's argument checks,
 which raise before any launch. This file imports neither JAX nor the JAX
 package, so the card's machine runs it without them:
 
@@ -20,11 +20,10 @@ import pytest
 import torch
 
 from dge_tpu_torch.ops import binning as TB
-from dge_tpu_torch.ops import pairs_composite as TPC
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import projection as TP
 from dge_tpu_torch.scene.camera_arrays import CameraArrays
 from dge_tpu_torch.scene.cameras import look_at_camera
-from dge_tpu_torch.utils import tracing
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCH_PLY = os.path.join(ROOT, "outputs", "bench_scene", "point_cloud.ply")
@@ -100,14 +99,12 @@ def random_inputs(seed, n, device, *, max_deg=3, active=None):
 
 
 def test_cpu_tensors_take_the_torch_path():
-    """On CPU tensors preprocess is the torch path: counted under
-    ``preprocess_path["torch"]``, no kernel launch counted."""
+    """On CPU tensors preprocess is the torch path: no kernel launch
+    counted, the torch path's result."""
     args = random_inputs(0, 200, "cpu")
-    before = dict(tracing.preprocess_path), TPC.launch_counts["preprocess"]
+    before = CB.launch_counts["preprocess"]
     got = TP.preprocess(*args)
-    assert tracing.preprocess_path == dict(
-        kernel=before[0]["kernel"], torch=before[0]["torch"] + 1)
-    assert TPC.launch_counts["preprocess"] == before[1]
+    assert CB.launch_counts["preprocess"] == before
     want = TP._preprocess_torch(*args)
     for f in TP.Preprocessed._fields:
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -134,10 +131,9 @@ def test_autograd_takes_the_torch_path_and_gradients_reach_every_input():
     does."""
     args = list(random_inputs(1, 120, "cpu"))
     leaves = [a.clone().requires_grad_(True) for a in args[:5]]
-    before = dict(tracing.preprocess_path)
+    before = CB.launch_counts["preprocess"]
     out = TP.preprocess(*leaves, *args[5:])
-    assert tracing.preprocess_path["torch"] == before["torch"] + 1
-    assert tracing.preprocess_path["kernel"] == before["kernel"]
+    assert CB.launch_counts["preprocess"] == before
     vis = out.visible.float()[:, None]
     loss = ((out.mean2d * vis).sum() + (out.depth * out.visible).sum()
             + (out.conic * vis).sum() + out.rgb.sum() + out.opacity.sum())
@@ -184,13 +180,13 @@ def test_kernel_wrapper_checks_before_any_launch(case, monkeypatch):
     def no_launch():
         raise AssertionError("the library was loaded")
 
-    monkeypatch.setattr(TP, "_load", no_launch)
-    before = TPC.launch_counts["preprocess"]
+    monkeypatch.setattr(CB, "load", no_launch)
+    before = CB.launch_counts["preprocess"]
     with pytest.raises(ValueError, match=match):
         TP._preprocess_kernel(a["xyz"], a["scale"], a["quat"], opacity,
                               a["sh"], a["alive"], a["cam"], active,
                               a["max_deg"])
-    assert TPC.launch_counts["preprocess"] == before
+    assert CB.launch_counts["preprocess"] == before
 
 
 # ---- on the card -------------------------------------------------------
@@ -199,12 +195,10 @@ def test_kernel_wrapper_checks_before_any_launch(case, monkeypatch):
 def both_paths(args, **kw):
     """The kernel path through ``preprocess`` (one call, one launch), then
     the torch path on the same inputs."""
-    before = dict(tracing.preprocess_path), TPC.launch_counts["preprocess"]
+    before = CB.launch_counts["preprocess"]
     with torch.no_grad():
         got = TP.preprocess(*args, **kw)
-    assert tracing.preprocess_path["kernel"] == before[0]["kernel"] + 1
-    assert tracing.preprocess_path["torch"] == before[0]["torch"]
-    assert TPC.launch_counts["preprocess"] == before[1] + 1
+    assert CB.launch_counts["preprocess"] == before + 1
     want = TP._preprocess_torch(*args, **kw)
     torch.cuda.synchronize()
     return got, want
@@ -329,16 +323,14 @@ def test_autograd_on_the_card_takes_the_torch_path(card):
     no launch; the same inputs under no_grad: the kernel."""
     args = list(random_inputs(4, 500, card))
     args[0] = args[0].clone().requires_grad_(True)
-    before = dict(tracing.preprocess_path), TPC.launch_counts["preprocess"]
+    before = CB.launch_counts["preprocess"]
     out = TP.preprocess(*args)
     assert out.mean2d.requires_grad
-    assert tracing.preprocess_path["torch"] == before[0]["torch"] + 1
-    assert TPC.launch_counts["preprocess"] == before[1]
+    assert CB.launch_counts["preprocess"] == before
     with torch.no_grad():
         TP.preprocess(*args)
-    assert tracing.preprocess_path["kernel"] == before[0]["kernel"] + 1
-    assert TPC.launch_counts["preprocess"] == before[1] + 1
+    assert CB.launch_counts["preprocess"] == before + 1
     with pytest.raises(ValueError, match="scale must be a contiguous"):
         with torch.no_grad():
             TP.preprocess(args[0], args[1].double(), *args[2:])
-    assert TPC.launch_counts["preprocess"] == before[1] + 1
+    assert CB.launch_counts["preprocess"] == before + 1

@@ -26,6 +26,7 @@ import torch
 
 from dge_tpu.ops import pallas_composite as JPC
 from dge_tpu_torch.ops import composite as TCMP
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import pairs_composite as TPC
 from dge_tpu_torch.tools import proto_logdot as TLD
 from tests.test_torch_kernel import random_stream
@@ -244,7 +245,7 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
     versions and count no launch; they still check what they are given."""
     k = port_case(5, 16, 128)
     args = (k["data"], k["st"], k["ct"], k["blk_off"])
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     assert set(before) == {"pairs_composite", "pairs_composite_combine",
                            "pairs_pass1", "pairs_suffix", "pairs_pass2",
                            "pairs_fold", "list_stream", "tiles_composite",
@@ -269,7 +270,7 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
         with pytest.raises(ValueError, match=r"mask must be \[R, G, W\]"):
             TPC.rows_combine(scratch, mask[:, :4].contiguous(), *args,
                              log_space=log_space, **k["kw"])
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
         TPC.rows_forward(k["data"], k["st"].long(), k["ct"], k["blk_off"],
                          k["row_tile"], **k["kw"])

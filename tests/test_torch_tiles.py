@@ -27,6 +27,7 @@ from dge_tpu.ops import render as JR
 from dge_tpu.scene import gaussians as JG
 from dge_tpu_torch.ops import binning as TB
 from dge_tpu_torch.ops import composite as TCMP
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import pairs_composite as TPC
 from dge_tpu_torch.ops import render as TR
 from dge_tpu_torch.ops import tiles_composite as TTC
@@ -314,7 +315,7 @@ def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
     table = TTC.feature_table(*feats)
     assert table.shape == (prep["depth"].shape[0], TPC.FEAT)
     kw = dict(tiles_x=geom["tiles_x"], tile_px=16, chunk=128)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     got = TTC.composite_tiles_kernel(table, t_(lists), t_(counts), **kw)
     assert torch.equal(got, list_rows_plain(table, t_(lists), t_(counts),
                                             **kw))
@@ -327,7 +328,7 @@ def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
     via = TTC.composite_tiles_kernel(table, t_(inv[lists]), t_(counts),
                                      t_(perm), **kw)
     assert torch.equal(via, got)
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     with pytest.raises(ValueError, match="must be a contiguous torch.int32"):
         TTC.composite_tiles_kernel(table, t_(lists).long(), t_(counts), **kw)
     with pytest.raises(ValueError, match=r"must be \[N, 10\]"):
@@ -342,7 +343,7 @@ def test_list_wrapper_takes_plain_version_for_cpu_tensors(rng):
     plain = TR.render(ts, tcam, tile_px=16, backend="torch_tiles", chunk=128)
     assert float((named.color - plain.color).abs().max()) <= 1e-6
     assert float(named.alpha.max()) > 0.5
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
 
 
 def test_list_rows_layout():
@@ -361,10 +362,10 @@ def test_list_rows_layout():
     table = torch.arange(20 * TPC.FEAT, dtype=torch.float32).reshape(20, -1)
     lists = torch.tensor([[7, 3, 9, 1, 1, 1], [0] * 6, [2, 4, 6, 8, 5, 11]],
                          dtype=torch.int32)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     data, row_tile = TTC.list_stream(table, lists, counts, None, cum, n_rows,
                                      4)
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     assert row_tile.tolist() == [0, 2, 2] and row_tile.dtype == torch.int32
     assert data.shape == (TPC.FEAT, 12) and data.is_contiguous()
     want = {0: 7, 1: 3, 2: 9, 4: 2, 5: 4, 6: 6, 7: 8, 8: 5}
@@ -546,9 +547,9 @@ def test_logdot_reference_matches_pallas_pairs_kernel(rng, chunk):
         bg=jnp.zeros(3), max_per_tile=512, chunk=chunk, **geom)
     data = TPC.assemble_stream_data(*(t_(x) for x in (ids, m, c, r, d, o)))
     kw = dict(tiles_x=tiles_x, tile_px=tile_px, chunk=chunk)
-    before = dict(TPC.launch_counts)
+    before = dict(CB.launch_counts)
     out = TLD.composite_pairs_logdot(data, t_(starts), t_(counts), **kw)
-    assert TPC.launch_counts == before
+    assert CB.launch_counts == before
     assert torch.equal(out, TLD.composite_pairs_logdot_reference(
         data, t_(starts), t_(counts), **kw))
     prod = TPC.composite_pairs_reference(data, t_(starts), t_(counts), **kw)

@@ -17,7 +17,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from dge_tpu_torch import launch
-from dge_tpu_torch.ops import pairs_composite as TPC
+from dge_tpu_torch.ops import cuda_build as CB
 from dge_tpu_torch.ops import render as TR
 from dge_tpu_torch.parallel import dist as TD
 from dge_tpu_torch.scene import cameras as TC
@@ -125,9 +125,11 @@ def _ns(ev, what):
 
 
 def test_spans_share_the_profiler_clock():
-    """A span opened inside a ``record_function`` of the same name starts
-    and ends within 2 ms of it in a CPU profiler trace; a
-    ``perf_counter_ns`` stamp would lie on another clock."""
+    """A span opened inside a ``record_function`` of the same name lies
+    inside its event in a CPU profiler trace (1 ms of slack for the
+    profiler's clock conversion; how long the scheduler holds the thread
+    between the two does not matter); a ``perf_counter_ns`` stamp would
+    lie on another clock, seconds away."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with tracing.recording():
             with record_function("probe.clock"):
@@ -138,8 +140,9 @@ def test_spans_share_the_profiler_clock():
              if e.name() == "probe.clock"]
     start = _ns(ev, "start")
     end = start + _ns(ev, "duration")
-    assert abs(mine["start_ns"] - start) < 2e6
-    assert abs(mine["end_ns"] - end) < 2e6
+    slack = 1e6
+    assert start - slack <= mine["start_ns"] <= end + slack
+    assert start - slack <= mine["end_ns"] <= end + slack
     assert mine["end_ns"] - mine["start_ns"] >= 1e7
     assert abs(time.perf_counter_ns() - start) > 1e9
 
@@ -179,26 +182,26 @@ def test_launch_counts_and_collective_stats_are_registry_groups():
     groups = tracing.counters()
     assert {"launch_counts", "collective_stats", "host_syncs",
             "render_ladder"} <= set(groups)
-    assert tracing.group("launch_counts") is TPC.launch_counts
+    assert tracing.group("launch_counts") is CB.launch_counts
     assert tracing.group("collective_stats") is TD.collective_stats
-    assert groups["launch_counts"] == TPC.launch_counts
-    saved = (dict(TPC.launch_counts), dict(TD.collective_stats))
+    assert groups["launch_counts"] == CB.launch_counts
+    saved = (dict(CB.launch_counts), dict(TD.collective_stats))
     try:
-        TPC.launch_counts["pairs_composite"] += 2
+        CB.launch_counts["pairs_composite"] += 2
         TD.collective_stats["calls"] += 1
         TD.collective_stats["seconds"] += 0.5
         tracing.reset("launch_counts", "collective_stats")
-        assert set(TPC.launch_counts.values()) == {0}
+        assert set(CB.launch_counts.values()) == {0}
         assert TD.collective_stats == {"calls": 0, "seconds": 0.0}
         assert isinstance(TD.collective_stats["seconds"], float)
-        TPC.launch_counts["pairs_fold"] += 1
+        CB.launch_counts["pairs_fold"] += 1
         TD.collective_stats["calls"] += 1
-        TPC.reset_launch_counts()
+        CB.reset_launch_counts()
         TD.reset_collective_stats()
-        assert set(TPC.launch_counts.values()) == {0}
+        assert set(CB.launch_counts.values()) == {0}
         assert TD.collective_stats["calls"] == 0
     finally:
-        TPC.launch_counts.update(saved[0])
+        CB.launch_counts.update(saved[0])
         TD.collective_stats.update(saved[1])
 
 
