@@ -40,8 +40,13 @@ process per source, started together) and runs:
    scene over the committed 16-view capture at 256^2, in-process, with the
    launch counters set to 0 just before and read just after; spill must be
    0 after the cap ladder, the three pair binning kernels launched as often
-   as each other and at least once a view, and the mean PSNR of the float
-   renders against the capture at least 41.5 dB;
+   as each other and at least once a view, every frame a replay of the
+   captured frame (the ``render_graph`` counters, printed in the
+   ``kernels`` line), and the mean PSNR of the float renders against the
+   capture at least 41.5 dB; then the CUDA graph's card tests
+   (``tests/test_torch_render_graph.py -m gpu``: replayed frames equal to
+   eager ones at 512^2 and 1080p, through a ladder rung, an update in
+   place, a reallocation, and the launch counts);
 3. full width, forward: the trained bench scene spill-free at 512^2 and at
    1920x1080, timed with CUDA events (whole render, its stages, K1, each
    of its two kernels alone, plain versions) and a profiler trace (the
@@ -3426,6 +3431,7 @@ def main(argv=None) -> int:
     from dge_tpu_torch.scene import gaussians as G
     from dge_tpu_torch.scene.camera_arrays import CameraArrays
     from dge_tpu_torch.systems.edit import step_generator
+    from dge_tpu_torch.utils import tracing
 
     # parity: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3654,19 +3660,38 @@ def main(argv=None) -> int:
                 raise AssertionError(f"cuda_tiles render {what} {e} > {tol}")
 
     # ---- phase 2: the render path --------------------------------------
-    render_launches = mean_psnr = psnrs = None
+    render_launches = mean_psnr = psnrs = render_graph = None
     main_k1 = {}
     if 2 in phases:
         log("phase 2: render path (dge_tpu_torch.launch --render, "
             "quality-gate scene over fit_capture at 256^2)")
         with tempfile.TemporaryDirectory() as tmp:
             cuda_build.reset_launch_counts()
+            tracing.reset("render_graph")
             run = launch.main(["--render", "--gs_source", QUALITY_PLY,
                                "--source", CAPTURE, "--out", tmp,
                                "data.height=256", "data.width=256"])
             render_launches = dict(cuda_build.launch_counts)
+            render_graph = dict(tracing.counters()["render_graph"])
             n_png = len(os.listdir(os.path.join(run.trial_dir, "renders")))
         log(f"  launches during the render path: {render_launches}")
+        # every frame of the render CLI is a replay of one captured frame
+        log(f"  CUDA graph of the render path: {render_graph}")
+        if render_graph["replays"] < len(run.frames) or \
+                render_graph["eager"] or not render_graph["captures"]:
+            raise AssertionError("render path did not replay its frames "
+                                 f"from a CUDA graph: {render_graph}")
+        # the replayed frames against the eager path's, bit for bit, at 512²
+        # and 1080p (tests/test_torch_render_graph.py, its card tests)
+        res = subprocess.run(
+            [sys.executable, "-m", "pytest", "--noconftest", "-m", "gpu",
+             "-q", "-p", "no:cacheprovider",
+             os.path.join(ROOT, "tests", "test_torch_render_graph.py")],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        log("  CUDA graph card tests: " + res.stdout.strip().splitlines()[-1])
+        if res.returncode != 0:
+            raise AssertionError("CUDA graph card tests failed:\n"
+                                 + res.stdout[-6000:] + res.stderr[-2000:])
         if render_launches["pairs_composite"] < len(run.frames) + 1:
             raise AssertionError("render path did not go through the kernel")
         # every pair binning of the path (the ladder's probes, the frames)
@@ -4632,7 +4657,7 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "render_graph": render_graph}))
     log(smi)
     log("kernels: " + json.dumps(list(KERNEL_NAMES)))
     log(json.dumps({"ok": True, "device": {

@@ -142,9 +142,11 @@ def reset_launch_counts() -> None:
     tracing.reset("launch_counts")
 
 
-def count(counter: str) -> None:
-    """One more in ``launch_counts[counter]``: the only place it grows."""
-    launch_counts[counter] += 1
+def count(counter: str, times: int = 1) -> None:
+    """``times`` more in ``launch_counts[counter]``: the only place it
+    changes. A CUDA graph's replay adds what its capture took back out
+    (``ops/render.py``), since a capture launches nothing on the device."""
+    launch_counts[counter] += times
 
 
 def load(library: str) -> ctypes.CDLL:

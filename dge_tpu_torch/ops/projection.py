@@ -36,8 +36,8 @@ from dge_tpu_torch.ops import sh as sh_ops
 
 NEAR_Z = 0.2
 # the camera's tensors the kernel reads, in the order it takes them
-_CAMERA_FIELDS = (("w2c", (4, 4)), ("full_proj", (4, 4)), ("campos", (3,)),
-                  ("tan_half_fovx", ()), ("tan_half_fovy", ()))
+CAMERA_FIELDS = (("w2c", (4, 4)), ("full_proj", (4, 4)), ("campos", (3,)),
+                 ("tan_half_fovx", ()), ("tan_half_fovy", ()))
 
 
 class Preprocessed(NamedTuple):
@@ -152,7 +152,7 @@ def preprocess(
             max_sh_degree, scale_modifier, override_color)
     if xyz.device.type == "cuda" and not needs_graph(
             xyz, scale, quat, opacity, sh, override_color,
-            *(getattr(cam, name) for name, _ in _CAMERA_FIELDS)):
+            *(getattr(cam, name) for name, _ in CAMERA_FIELDS)):
         return _preprocess_kernel(*args)
     return _preprocess_torch(*args)
 
@@ -179,7 +179,7 @@ def _preprocess_kernel(xyz, scale, quat, opacity, sh, alive, cam,
     checks = [("xyz", xyz, f32, (n, 3)), ("scale", scale, f32, (n, 3)),
               ("quat", quat, f32, (n, 4)), ("alive", alive, torch.bool, (n,))]
     camera = []
-    for name, shape in _CAMERA_FIELDS:
+    for name, shape in CAMERA_FIELDS:
         # the camera's tensors may be views of other arrays: made contiguous
         # here (no copy where they are)
         t = getattr(cam, name)

@@ -37,12 +37,14 @@ the two families can differ at pixels that saturate across a chunk edge
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
 
-from dge_tpu_torch.ops import (binning, composite, pairs_backward,
-                               pairs_composite, projection, tiles_composite)
+from dge_tpu_torch.ops import (binning, composite, cuda_build,
+                               pairs_backward, pairs_composite, projection,
+                               tiles_composite)
 from dge_tpu_torch.utils import tracing
 
 BACKENDS = ("cuda_stream", "cuda_train", "torch", "cuda_tiles", "torch_tiles")
@@ -52,6 +54,14 @@ LIST_BACKENDS = ("cuda_tiles", "torch_tiles")
 # at their ceilings; a group of the tracing registry
 ladder_counts = tracing.group("render_ladder",
                               {"cull": 0, "grew": 0, "stuck": 0})
+# SpillFreeRenderer.__call__'s frames in a CUDA graph (``_FrameGraph``):
+# "captures" frames captured, "replays" frames replayed, "eager" frames
+# that ran without a graph; a group of the tracing registry
+graph_counts = tracing.group("render_graph",
+                             {"captures": 0, "replays": 0, "eager": 0})
+# the scene's tensors that render()'s getters read
+SCENE_READS = ("xyz", "scaling", "rotation", "opacity", "features_dc",
+               "features_rest", "alive")
 
 
 class RenderOut(NamedTuple):
@@ -383,6 +393,14 @@ class SpillFreeRenderer:
     (``"cuda_tiles"`` on a CUDA device, ``"torch_tiles"`` on either); any
     other pairing raises.
 
+    ``__call__`` replays its frame from a CUDA graph where ``_replays``
+    holds (a ``"cuda_stream"`` scene on the card, no autograd graph to
+    record, spans not recording): the frame is captured once per
+    ``frame_key`` (caps, keywords, viewport, the scene's storage) and
+    replayed per pose, the same kernels with the same arguments, so the
+    same bits. It counts in ``graph_counts``. ``probe`` and ``render`` run
+    eagerly.
+
     Usage::
 
         r = SpillFreeRenderer(scene, bg)
@@ -425,6 +443,7 @@ class SpillFreeRenderer:
                     caps[k] = v
         self._caps = caps
         self._kw = dict(render_kw, backend=backend)
+        self._graph = None  # the _FrameGraph that __call__ replays
 
     @property
     def caps(self):
@@ -492,11 +511,131 @@ class SpillFreeRenderer:
         if this view is denser than the probe view. Returns (color, spill);
         spill > 0 only if the ladder was exhausted."""
         with tracing.span("render.spill_free"):
-            color, sp, parts = self._fwd(cam)
+            color, sp, parts = self._frame(cam)
             for _ in range(regrow):
                 if sp == 0:
                     break
+                # reads ``parts`` before the next frame drops their graph
                 if self._grow(sp, parts) == "stuck":
                     break
-                color, sp, parts = self._fwd(cam)
+                color, sp, parts = self._frame(cam)
             return color, sp
+
+    def _replays(self, cam) -> bool:
+        """Whether ``__call__`` replays a captured frame for ``cam``: the
+        scene on a CUDA device and the ``"cuda_stream"`` backend; the
+        preprocess on its kernel path (no autograd graph to record); the
+        camera's tensors as that kernel takes them and ``bg`` (None or a
+        tensor) on the scene's device; spans not recording, since they are
+        Python, which a replay does not run."""
+        scene, bg = self._scene, self._bg
+        dev = scene.device
+        if dev.type != "cuda" or self._kw["backend"] != "cuda_stream" or \
+                tracing.is_recording():
+            return False
+        camera = [getattr(cam, name) for name, _ in projection.CAMERA_FIELDS]
+        tensors = [v for v in self._kw.values() if isinstance(v, torch.Tensor)]
+        if projection.needs_graph(*(getattr(scene, n) for n in SCENE_READS),
+                                  bg, *camera, *tensors):
+            return False
+        return (bg is None or isinstance(bg, torch.Tensor) and
+                bg.device == dev) and all(
+            isinstance(t, torch.Tensor) and t.device == dev and
+            t.dtype == torch.float32 and tuple(t.shape) == shape
+            for t, (_, shape) in zip(camera, projection.CAMERA_FIELDS))
+
+    def _frame(self, cam):
+        """``__call__``'s render → (color, its spill read on the host,
+        spill_parts): a replay of the frame captured under the current
+        ``frame_key`` where ``_replays`` holds (captured first where the key
+        changed), else ``_fwd``. A replayed colour is returned as a copy,
+        since callers keep frames across calls."""
+        if not self._replays(cam):
+            graph_counts["eager"] += 1
+            return self._fwd(cam)
+        key = frame_key(self._scene, self._bg, cam.height, cam.width,
+                        self._caps, self._kw)
+        if self._graph is None or self._graph.key != key:
+            # dropped first, so that the capture's empty_cache frees its pool
+            self._graph = None
+            self._graph = _FrameGraph(key, self.render, cam)
+            graph_counts["captures"] += 1
+        color, spill, parts = self._graph.replay(cam)
+        graph_counts["replays"] += 1
+        return (color.clone(), tracing.host_read(spill, "render.spill"),
+                parts)
+
+
+def _address(x):
+    """A tensor by its address, anything else as it is."""
+    return x.data_ptr() if isinstance(x, torch.Tensor) else x
+
+
+def frame_key(scene, bg, height: int, width: int, caps: dict,
+              kw: dict) -> tuple:
+    """What a frame of ``render(scene, cam, bg, **kw, **caps)`` captured in
+    a CUDA graph depends on, besides the camera's values: the caps, every
+    keyword (``tight_cull``, ``tile_px``, ``chunk``, ``scale_modifier``,
+    the backend), the viewport, the SH degrees and the capacity (which fix
+    every scene tensor's shape) by value; each scene tensor the getters
+    read (``SCENE_READS``) and ``bg`` by address. An update in place
+    (Adam's ``add_``) keeps the key, and the replay sees it; a ladder rung,
+    or a scene tensor reallocated (densify), changes it."""
+    return (tuple(sorted(caps.items())),
+            tuple(sorted((k, _address(v)) for k, v in kw.items())),
+            int(height), int(width), scene.active_sh_degree,
+            scene.max_sh_degree, scene.capacity,
+            tuple(_address(getattr(scene, n)) for n in SCENE_READS),
+            _address(bg))
+
+
+class _FrameGraph:
+    """One frame of ``render`` captured in a CUDA graph, with a private
+    memory pool of its own, for ``SpillFreeRenderer.__call__`` to replay
+    per pose.
+
+    The graph reads the camera from its own tensors, into which each
+    replay copies the pose's, device to device, and writes the frame into
+    tensors of its pool, which every replay overwrites. The capture follows
+    PyTorch's rule: one eager frame on a side stream first, so that the
+    sort's and the cumsum's workspaces and the libraries' first-call set-up
+    happen outside it. The kernels' C entries launch on the current stream
+    (``cuda_build.launch``), which is the capture's during the capture.
+    Their launches are taken back out of ``cuda_build.launch_counts``, since
+    a capture launches nothing on the device, and counted again at every
+    replay, so that the counts read as on the eager path."""
+
+    def __init__(self, key: tuple, render_frame, cam):
+        self.key = key
+        self.device = cam.w2c.device.index
+        names = [name for name, _ in projection.CAMERA_FIELDS]
+        self.camera = [getattr(cam, n).detach().clone(
+            memory_format=torch.contiguous_format) for n in names]
+        static = dataclasses.replace(cam, **dict(zip(names, self.camera)))
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                render_frame(static)
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(cuda_build.launch_counts)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                out = render_frame(static)
+        self.out = (out.color, out.spill, out.spill_parts)
+        self.launches = {k: n - before[k]
+                         for k, n in cuda_build.launch_counts.items()
+                         if n != before[k]}
+        for k, n in self.launches.items():
+            cuda_build.count(k, -n)
+
+    def replay(self, cam):
+        """The frame for ``cam`` → (color, spill, spill_parts): the graph's
+        own tensors, overwritten by the next replay."""
+        with torch.cuda.device(self.device):
+            torch._foreach_copy_(self.camera, [
+                getattr(cam, name) for name, _ in projection.CAMERA_FIELDS])
+            self.graph.replay()
+        for k, n in self.launches.items():
+            cuda_build.count(k, n)
+        return self.out

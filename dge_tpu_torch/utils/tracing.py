@@ -6,7 +6,8 @@ JAX counterpart: none (the JAX package has no spans or counters).
 program's work. Tracing is off by default: ``span`` then returns one shared
 object that does nothing, after a single module-level check, and keeps no
 record, creates no CUDA event and touches no tensor. Inside
-``recording()`` each span keeps a record in memory:
+``recording()`` (``is_recording()`` says whether the program is there) each
+span keeps a record in memory:
 
 - its name and ``attrs``;
 - its start and end on ``time.time_ns()``, the clock on which
@@ -128,6 +129,11 @@ def recording() -> Iterator[None]:
         yield
     finally:
         _on = was
+
+
+def is_recording() -> bool:
+    """Whether spans are being recorded (inside ``recording()``)."""
+    return _on
 
 
 def take() -> dict:
