@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,...,13]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,...,14]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -190,11 +190,21 @@ process per source, started together) and runs:
    1e-6 (its largest gap printed), the kernel launched once a call; both
    paths' CUDA-event times, device times, device launches and aten ops a
    call (the scene's activation getters included), the kernel's own device
-   time (profiler) and its bytes bound.
+   time (profiler) and its bytes bound;
+14. the segmenter: SAM 2.1 Hiera-L (``models/sam2``) in bf16 on random
+   weights (seed 22) over the 20 views of an orbit of the bench scene at
+   512^2 through ``DGESystem.segment_views`` (batches of 5, one scene-space
+   box), against the plain f32 reference (``benchmark/reference/sam2.py``)
+   on the same weights and frames for views 0 and 10: the four logit maps'
+   mean gap within 5% of the reference's mean |logit|, under 2% of the mask
+   pixels flipped; a traced round's ``segment_counts`` and spans (device ms;
+   eager), the graph replays of the timed rounds (no capture after the
+   warm-up), device launches (profiler), a round's CUDA-event time, peak
+   memory.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all thirteen
+gate's own recipe); the result lines are printed only when all fourteen
 ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
@@ -258,7 +268,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = set(range(1, 14))
+ALL_PHASES = set(range(1, 15))
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -2037,6 +2047,95 @@ def orbit_cameras(height, width, device, n: int = 8) -> list:
     return cams
 
 
+SEG_BOX = [-0.8, -1.0, -0.8, 0.8, 0.3, 0.8]
+# the benchmark's Hiera-L configuration, which the reference reads
+SEG_CONFIG = os.path.join(ROOT, "benchmark", "configs",
+                          "sam2.1-hiera-l-bf16.json")
+
+
+def segment_cell(scene, dev) -> dict:
+    """Phase 14: SAM 2.1 Hiera-L in bf16 over 20 orbit views at 512^2 through
+    ``DGESystem.segment_views``, against the f32 reference on views 0 and
+    10; a round's counters, spans, launches, time and peak memory."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark.reference import sam2 as REF
+    from dge_tpu_torch.models.sam2 import Sam2Config
+    from dge_tpu_torch.systems import edit as E
+    from dge_tpu_torch.systems import segmentation as SG
+    from dge_tpu_torch.utils import tracing
+
+    cams = orbit_cameras(512, 512, dev, n=20)
+    torch.cuda.reset_peak_memory_stats()
+    seg = SG.build_segmentor("sam2", cfg=Sam2Config.hiera_large(),
+                             device=dev, dtype=torch.bfloat16, seed=22)
+    system = E.DGESystem(
+        E.EditConfig(max_view_num=20, camera_batch_size=5,
+                     seg_prompt="object", seg_box=SEG_BOX),
+        scene, cams, segmentor=seg)
+    system.render_all_views()
+    system.segment_views()
+    before = tracing.counters()
+    tracing.take()
+    with tracing.recording():
+        out = system.segment_views()
+    taken = tracing.take()
+    counts = {g: {k: v - before.get(g, {}).get(k, 0)
+                  for k, v in taken["counters"][g].items()}
+              for g in ("segment_counts", "host_syncs")}
+    spans = {}
+    for sp in taken["spans"]:
+        n, ms = spans.get(sp["name"], (0, 0.0))
+        spans[sp["name"]] = (n + 1, ms + (sp["device_ms"] or 0.0))
+    seg_counts = counts["segment_counts"]
+    if [seg_counts[k] for k in ("views", "batches", "fallbacks", "replays")
+        ] != [20, 4, 0, 0]:
+        raise RuntimeError(f"a traced round (eager) counted {counts}")
+    events, _ = profiled_kernels(system.segment_views, 1)
+    round_ms = cuda_ms(system.segment_views, reps=3, warmup=1)
+    graphs = tracing.counters()["segment_counts"]
+    if graphs["captures"] - before["segment_counts"]["captures"] != 0:
+        raise RuntimeError("a batch of 5 was captured again: "
+                           f"{graphs['captures']}")
+    # the reference on the same (bf16-valued) weights and frames
+    with open(SEG_CONFIG) as f:
+        ref = REF.Sam2(json.load(f)).to(dev)
+    ref.load_state_dict({k: v.float()
+                         for k, v in seg.model.state_dict().items()})
+    ref.eval().requires_grad_(False)
+    gaps, flips = [], []
+    with torch.no_grad():
+        for v in (0, 10):
+            c = system.cameras[v]
+            pose = {"w2c": c.w2c.cpu().numpy(),
+                    "full_proj": c.full_proj.cpu().numpy(),
+                    "height": c.height, "width": c.width}
+            r = REF.predict(ref, torch.from_numpy(
+                system.origin_frames[v]).to(dev),
+                REF.box_in_view(SEG_BOX, pose))
+            gaps.append(float((out.logits[v] - r["logits"]).abs().mean()
+                              / r["logits"].abs().mean()))
+            mine = F.interpolate(r["logits"][out.choice[v]][None, None],
+                                 size=(c.height, c.width), mode="bilinear",
+                                 align_corners=False)[0, 0] > 0
+            flips.append(float((mine != (out.masks[v] > 0.5)).float()
+                               .mean()))
+    res = dict(round_ms=round_ms, views_per_s=20e3 / round_ms,
+               counts=counts, spans=spans,
+               replays=graphs["replays"] - before["segment_counts"]["replays"],
+               device_launches=sum(e.count for e in events),
+               device_ms=sum(dev_us(e) for e in events) / 1e3,
+               logit_gap=gaps, flip_share=flips,
+               choices=out.choice.tolist(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if max(gaps) > 0.05 or max(flips) > 0.02:
+        raise RuntimeError(f"the segmenter is off the reference: {res}")
+    del system, seg, ref
+    torch.cuda.empty_cache()
+    return res
+
+
 def preprocess_cell(name, scene, cams) -> dict:
     """The preprocess kernel against the torch path on each of ``cams``
     (the exact fields bit for bit, rgb within PREPROCESS_RGB_TOL), then both
@@ -3406,7 +3505,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -3482,7 +3581,7 @@ def main(argv=None) -> int:
             errs[k].append(e)
 
     bench = bg = None
-    if phases & {3, 5, 6, 12, 13}:
+    if phases & {3, 5, 6, 12, 13, 14}:
         bench = G.load_ply(BENCH_PLY, device=dev)
         bg = torch.zeros(3, device=dev)
 
@@ -4420,9 +4519,16 @@ def main(argv=None) -> int:
                 h, w, dev)))
         log(json.dumps({"preprocess": preprocess}))
 
+    # ---- phase 14: the segmenter ----------------------------------------
+    segment = {}
+    if 14 in phases:
+        log("phase 14: SAM 2.1 Hiera-L over 20 views, against the reference")
+        segment = segment_cell(bench, dev)
+        log(json.dumps({"segment": segment}))
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "thirteen")
+            "fourteen")
         return 0
 
     v0 = fit["view0"]
@@ -4651,7 +4757,8 @@ def main(argv=None) -> int:
               "psnr_views_db": psnrs, "fit": fit, "train_512": train,
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
               "multi_gpu": multi, "capture": capture, "bf16_edit": bf16,
-              "binning": binning, "preprocess": preprocess, "card": smi,
+              "binning": binning, "preprocess": preprocess,
+              "segment": segment, "card": smi,
               "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

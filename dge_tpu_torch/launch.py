@@ -24,7 +24,10 @@ launch.py:151-198; ``--validate`` and ``--export``, launch.py:201-229;
         system.prompt="..." [system.editor=sdxl768] [system.model_size=tiny] \\
         [system.vgg_checkpoint=vgg16.pth] [system.clip_checkpoint=DIR] \\
         [system.seg_prompt=object system.segmentor=precomputed \\
-         system.mask_dir=DIR] [system.edit.use_sds=true] \\
+         system.mask_dir=DIR] [system.seg_prompt=object \\
+         system.segmentor=sam2 system.seg_box=[x0,y0,z0,x1,y1,z1] \\
+         system.sam2_checkpoint=sam2.1_hiera_large.pt] \\
+         [system.edit.use_sds=true] \\
         [system.guidance.camera_batch_size=5] [system.edit.max_steps=1000] \\
         [data.max_view_num=20] data.height=512 data.width=512
 
@@ -52,7 +55,12 @@ rounds and the L1 + LPIPS refit (``system.guidance.batch_mode``:
 ``loop``, or ``vmap``, the batched reuse ``configs/dge.yaml`` names), or
 with ``system.edit.use_sds=true`` score distillation every step; with
 ``system.seg_prompt`` a local edit whose mask the segmentor gives and the
-spill-free lift installs; with ``system.clip_checkpoint`` (a local
+spill-free lift installs (``system.segmentor=sam2``: SAM 2.1 Hiera-L over
+the working views in batches of ``system.edit.camera_batch_size``, each
+prompted with the scene-space box ``system.seg_box`` projected into it, on
+the weights of ``system.sam2_checkpoint`` or, without one, weights drawn
+from ``--seed``; ``system.model_size=tiny`` builds its small test
+network); with ``system.clip_checkpoint`` (a local
 transformers ``CLIPModel`` directory or its ingest cache)
 ``clip_metrics.json``; writing
 ``val/``, ``ckpts/``, the edit cache under ``<out>/edit_cache/`` and
@@ -464,7 +472,6 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     from dge_tpu_torch.systems.edit import DGESystem, EditConfig
     from dge_tpu_torch.systems.guidance import DGEGuidance, GuidanceConfig
     from dge_tpu_torch.systems.prompts import PromptConfig, PromptProcessor
-    from dge_tpu_torch.systems.segmentation import build_segmentor
     from dge_tpu_torch.utils.config import parse_structured
     from dge_tpu_torch.utils.logger import MetricsLogger
 
@@ -541,15 +548,18 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
     # launcher never reads it; system.edit.seg_prompt still wins
     e_cfg = parse_structured(EditConfig, {
         "seg_prompt": sys_cfg.get("seg_prompt", ""),
+        "seg_box": sys_cfg.get("seg_box"),
         **sys_cfg.get("edit", {})})
-    seg = build_segmentor(sys_cfg.get("segmentor", "fallback"),
-                          sys_cfg.get("mask_dir", ""))
-    # the cross-trial edit cache keyed by (gs_source, prompt, #views and
-    # an editor other than SD-1.5): a re-run with the same key skips the
-    # edit rounds unless system.edit.cache_overwrite is set (DGE.py:96-99)
+    seg = _segmentor(sys_cfg, tiny, device, seed)
+    # the cross-trial edit cache keyed by (gs_source, prompt, #views, an
+    # editor other than SD-1.5 and the sam2 segmentor's box): a re-run with
+    # the same key skips the edit rounds unless system.edit.cache_overwrite
+    # is set (DGE.py:96-99)
+    sam2_key = (f"|sam2|{list(e_cfg.seg_box or ())}"
+                if sys_cfg.get("segmentor") == "sam2" else "")
     cache_key = hashlib.md5(
         (f"{os.path.abspath(gs_source)}|{prompt}|{len(cams)}"
-         + ("" if editor == "sd15" else f"|{editor}")).encode()
+         + ("" if editor == "sd15" else f"|{editor}") + sam2_key).encode()
     ).hexdigest()[:16]
     cache_dir = os.path.join(out_root, "edit_cache", cache_key)
     log.info("edit cache: %s", cache_dir)
@@ -606,6 +616,28 @@ def run_train(cfg, gs_source, source, trial_dir, seed, device, smoke=False,
         system.losses_finite, system.total_spill,
         system.render_spill, system.loop.caps, seconds, launches, trial_dir,
         clip, system, checksum)
+
+
+def _segmentor(sys_cfg: dict, tiny: bool, device, seed: int):
+    """The local edit's segmentor, ``system.segmentor`` (``fallback`` by
+    default). ``sam2`` builds SAM 2.1 Hiera-L (its tiny preset with
+    ``tiny``) on ``device`` from ``system.sam2_checkpoint``, or from weights
+    drawn from ``seed`` without one."""
+    from dge_tpu_torch.models.sam2 import Sam2Config
+    from dge_tpu_torch.systems.segmentation import build_segmentor
+
+    kind = sys_cfg.get("segmentor", "fallback")
+    if kind != "sam2":
+        return build_segmentor(kind, sys_cfg.get("mask_dir", ""))
+    ckpt = sys_cfg.get("sam2_checkpoint")
+    if ckpt and not os.path.exists(ckpt):
+        raise FileNotFoundError(f"system.sam2_checkpoint: no file {ckpt}")
+    if not ckpt:
+        log.warning("no SAM 2.1 checkpoint (system.sam2_checkpoint): "
+                    "RANDOM segmenter weights, the masks are noise")
+    return build_segmentor(
+        "sam2", cfg=Sam2Config.tiny() if tiny else Sam2Config.hiera_large(),
+        device=device, checkpoint=ckpt, seed=seed)
 
 
 def _pooled(x, device):

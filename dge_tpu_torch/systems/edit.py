@@ -52,6 +52,7 @@ from dge_tpu_torch.scene.gaussians import GaussianScene
 from dge_tpu_torch.systems import fit as F
 from dge_tpu_torch.systems import guidance as GD
 from dge_tpu_torch.systems import optim as O
+from dge_tpu_torch.systems import segmentation as SG
 from dge_tpu_torch.utils import checkpoint as CK
 from dge_tpu_torch.utils import saving, tracing
 
@@ -74,6 +75,9 @@ class EditConfig:
     camera_batch_size: int = 5
     max_view_num: int = 20
     seg_prompt: str = ""
+    # the sam2 segmentor's prompt: a scene-space box (x0, y0, z0, x1, y1,
+    # z1), projected into each view in place of a text detector's box
+    seg_box: Optional[Sequence[float]] = None
     mask_thres: float = 0.8
     use_masked_image: bool = False
     # SDS mode (DGE.py:685-694): per-step score distillation through the
@@ -263,10 +267,33 @@ class DGESystem:
         return self.origin_frames
 
     # ---- local editing mask (update_mask, DGE.py:101-165) ----
+    def segment_views(self) -> SG.SegmentOut:
+        """The batch segmentor (``sam2``) over the origin frames of
+        ``view_list``, copied to the device one by one into one tensor,
+        ``camera_batch_size`` views an encoder call, each prompted with
+        ``cfg.seg_box`` projected into it; masks [V, H, W] on the device, by
+        view."""
+        if self.cfg.seg_box is None:
+            raise ValueError("the sam2 segmentor needs a scene-space box "
+                             "(system.seg_box: x0, y0, z0, x1, y1, z1)")
+        views = self.view_list
+        cam = self.cameras[views[0]]
+        frames = torch.empty((len(views), cam.height, cam.width, 3),
+                             device=self.device)
+        for i, v in enumerate(views):
+            frames[i].copy_(torch.from_numpy(
+                self.origin_frames[v] if v in self.origin_frames
+                else self._render_np(v)))
+        boxes = SG.project_box(self.cfg.seg_box,
+                               stack_cameras([self.cameras[v] for v in views]))
+        return self.segmentor.segment(frames, boxes,
+                                      self.cfg.camera_batch_size)
+
     def update_mask(self) -> None:
-        """Segment each original view, lift the masks to per-Gaussian
-        weights (``render_weights``), threshold, install the grad mask; the
-        mask is cached as ``gs_mask.npy``.
+        """Segment each original view (a batch segmentor: all of them in
+        ``segment_views``), lift the masks to per-Gaussian weights
+        (``render_weights``), threshold, install the grad mask; the mask is
+        cached as ``gs_mask.npy``.
 
         The lift's list caps start at ``max_per_tile`` and 32 tiles a
         Gaussian and grow (``grow_caps``, the classes ``spill_parts``
@@ -290,11 +317,16 @@ class DGESystem:
         weights = torch.zeros(cap, device=self.device)
         counts = torch.zeros(cap, device=self.device)
         self.lift_spill = 0
-        for vid in self.view_list:
-            img = self.origin_frames.get(vid)
-            if img is None:
-                img = self._render_np(vid)
-            mask = self.segmentor(img, self.cfg.seg_prompt)  # [H, W] {0, 1}
+        batched = (self.segment_views().masks
+                   if hasattr(self.segmentor, "segment") else None)
+        for i, vid in enumerate(self.view_list):
+            if batched is not None:
+                mask = batched[i]
+            else:
+                img = self.origin_frames.get(vid)
+                if img is None:
+                    img = self._render_np(vid)
+                mask = self.segmentor(img, self.cfg.seg_prompt)  # [H, W]
             while True:
                 lift = R.render_weights(self.scene, self.cameras[vid], mask,
                                         tile_px=self.cfg.tile_px,
