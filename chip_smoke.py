@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (dge_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--json PATH] [--phases 1,2,...,14]
+    python3 chip_smoke.py [--json PATH] [--phases 1,2,...,15]
 
 Builds the hand-written CUDA kernels from the checkout's sources (one nvcc
 process per source, started together) and runs:
@@ -200,11 +200,22 @@ process per source, started together) and runs:
    pixels flipped; a traced round's ``segment_counts`` and spans (device ms;
    eager), the graph replays of the timed rounds (no capture after the
    warm-up), device launches (profiler), a round's CUDA-event time, peak
-   memory.
+   memory;
+15. the reuse's match (``models/layers.epi_blockwise_argmax``): its kernel
+   (``csrc/reuse_match.cu``) against the torch path (``_epi_argmax_torch``
+   on the card) at the reuse pass's shapes (20 frames, 2 keys; 4,096 x 320,
+   2,304 x 640, 576 x 1,280), unit tokens in bf16 and in f32, the banded
+   lines of orbit views: no index differs where the torch path's top-2 gap
+   exceeds 2e-4 and no pair lies within 1e-5 of the band's edge (the
+   mismatches printed), one launch a call; both paths' CUDA-event times,
+   the kernel's device time (profiler), its bound (FLOPs at 989 TFLOP/s);
+   then one round of each edit cell as ``benchmark.harness`` sets it up
+   (``edit.dge20``, ``edit.sdxl768``) and the kernel's launches in it: 16
+   (SD-1.5) or 70 (SDXL) reuse blocks times the round's reuse passes.
 
 ``--phases`` runs a subset (for a quick check of a new kernel) and
 ``--fit-steps`` changes the length of phase 4's fit (6000 is the quality
-gate's own recipe); the result lines are printed only when all fourteen
+gate's own recipe); the result lines are printed only when all fifteen
 ran.
 It prints one JSON line with every kernel, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``. Any failure raises: the
@@ -268,7 +279,7 @@ STOP_NUDGE = 1e-3
 STREAM_START_1080P = dict(tight_cull=True, max_per_tile=2048,
                           max_tiles_per_gaussian=64, small_slots=16,
                           max_pairs=3 << 18, big_capacity=16384)
-ALL_PHASES = set(range(1, 15))
+ALL_PHASES = set(range(1, 16))
 # phase 7, the edit path: 10 views in camera batches of 5, one edit round,
 # a refit that passes one densify (step 100)
 EDIT_VIEWS = 10
@@ -320,11 +331,23 @@ BF16_BATCH = 5
 # f32 at the tiny widths (tests/test_torch_bf16.py), and SD-1.5 is deeper
 BF16_NET_TOL = 5e-2
 SDPA_BF16_TOL = 2e-2  # x max|chunked bf16 attention|: a few bf16 ulps
+# phase 15, the reuse's match kernel: the reuse pass's (frames, keys,
+# tokens, channels) in the two edit cells (SD-1.5's first level, SDXL's
+# two), the bf16 tensor-core peak of the bound, the top-2 gap of the torch
+# path's f32 similarity above which the indices must agree (two f32 sums of
+# D exact products of unit tokens differ by at most 2·D·2^-24, 1.5e-4 at
+# 1,280), the band's distance within which a pair's flag may round either
+# way, and each edit cell's reuse blocks a pass
+MATCH_SHAPES = ((20, 2, 4096, 320), (20, 2, 2304, 640), (20, 2, 576, 1280))
+BF16_FLOPS = 989e12
+MATCH_TIE = 2e-4
+MATCH_BAND_ULPS = 1e-5
+MATCH_CELLS = (("edit.dge20", 16), ("edit.sdxl768", 70))
 KERNEL_NAMES = ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
                 "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
                 "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
                 "binning_rects", "binning_emit", "binning_ranges",
-                "preprocess")
+                "preprocess", "reuse_match")
 # the forward's two kernels per form (csrc/pair_rows_forward.cuh): counter
 # keys and the profiler's kernel names
 FORWARD_FORMS = {False: ("pairs_composite", "pairs_composite_combine",
@@ -2295,6 +2318,133 @@ def blockwise_vs_dense(cams, dev) -> dict:
     return res
 
 
+def match_inputs(f, k, s, d, dtype, dev, seed):
+    """The match's inputs at ``s`` tokens of width ``d``: unit tokens drawn
+    from ``seed`` in ``dtype``, and the banded lines of ``f`` orbit views
+    (pivot 2) against two of them at a square latent of ``s`` tokens."""
+    import torch
+
+    from dge_tpu_torch.models import layers as L
+    from dge_tpu_torch.parallel.mesh import stack_cameras
+    from dge_tpu_torch.systems import guidance as GD
+
+    side = math.isqrt(s)
+    cams = orbit_cameras(side * 8, side * 8, dev, n=f)
+    state = GD.make_cross_view_state(
+        stack_cameras(cams), stack_cameras([cams[1], cams[f // 2 + 1]]), 2,
+        side, side, k, 1.0, "banded", downscales=(1,))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    img = L._unit(torch.randn(f, s, d, generator=gen, device=dev))
+    piv = L._unit(torch.randn(f, k, s, d, generator=gen, device=dev))
+    return [img.to(dtype), piv.to(dtype), state.epi_lines[s],
+            state.epi_pts[s]]
+
+
+def match_mismatches(got, want, img, piv, lines, pts) -> dict:
+    """Rows where the kernel's index differs from the torch path's: all of
+    them, and those whose top-2 gap (the torch path's f32 similarity,
+    masked, raw where every pivot token violates) exceeds ``MATCH_TIE`` and
+    no pair of which lies within ``MATCH_BAND_ULPS`` of the threshold (its
+    flag may round either way: the torch path's distance is a cuBLAS
+    product, the kernel's an FMA chain). Per frame: no [F, K, S, S] array."""
+    import torch
+
+    clear, near = [], []
+    for i in range(img.shape[0]):
+        sim = torch.einsum("sd,ktd->kst", img[i].float(), piv[i].float())
+        dist = torch.einsum("ksc,tc->kst", lines[i], pts).abs()
+        viol = dist > 1.0
+        vals = torch.where(viol & ~viol.all(-1, keepdim=True), 0.0, sim)
+        top2 = vals.topk(2, dim=-1).values
+        clear.append(top2[..., 0] - top2[..., 1] > MATCH_TIE)
+        exact = torch.einsum("ksc,tc->kst", lines[i].double(),
+                             pts.double()).abs()
+        near.append(((exact - 1.0).abs() < MATCH_BAND_ULPS).any(-1))
+    clear, near = torch.stack(clear), torch.stack(near)
+    differ = got != want
+    return dict(rows=int(differ.numel()), clear=int(clear.sum()),
+                near_band=int(near.sum()),
+                mismatched_all=int(differ.sum()),
+                mismatched_clear=int((differ & clear & ~near).sum()))
+
+
+def reuse_match_cell(dev) -> dict:
+    """Phase 15: the reuse's match kernel (``csrc/reuse_match.cu``) against
+    the torch path on the card at the reuse pass's shapes, bf16 tokens (the
+    edit cells') and f32 tokens (the launcher's f32 networks, through the
+    three-term split): the mismatches under the tie rule, one launch a
+    call, CUDA-event and profiler times of both paths, the bound; then one
+    round of each edit cell as ``benchmark.harness`` sets it up and the
+    kernel's launches in it (the reuse blocks times the reuse passes)."""
+    import torch
+
+    from benchmark import harness
+    from dge_tpu_torch.models import layers as L
+    from dge_tpu_torch.ops import cuda_build as CB
+
+    shapes = []
+    for f, k, s, d in MATCH_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = match_inputs(f, k, s, d, dtype, dev, seed=s + d)
+            before = CB.launch_counts["reuse_match"]
+            with torch.no_grad():
+                got = L.epi_blockwise_argmax(*args, 1.0)
+                want = L._epi_argmax_torch(*args, 1.0)
+            torch.cuda.synchronize()
+            if CB.launch_counts["reuse_match"] != before + 1:
+                raise AssertionError("reuse_match: not one launch a call")
+            res = dict(shape=[f, k, s, d], dtype=str(dtype).split(".")[1],
+                       **match_mismatches(got, want, *args))
+
+            @torch.no_grad()
+            def kernel():
+                return L.epi_blockwise_argmax(*args, 1.0)
+
+            @torch.no_grad()
+            def plain():
+                return L._epi_argmax_torch(*args, 1.0)
+
+            flops = 2.0 * f * k * s * s * d
+            res.update(
+                ms=cuda_ms(kernel, reps=20),
+                kernel_device_ms=kernel_device_ms(
+                    kernel, {"k": "reuse_match_kernel"}, 10)["k"],
+                plain_ms=cuda_ms(plain, reps=5, warmup=1),
+                bound_ms=flops / BF16_FLOPS * 1e3, gflop=flops / 1e9)
+            res["bf16_peak_share"] = (res["bound_ms"] / res["kernel_device_ms"]
+                                      if res["kernel_device_ms"] else None)
+            log(f"  match {res}")
+            if res["mismatched_clear"]:
+                raise AssertionError(f"reuse_match {res['shape']} "
+                                     f"{res['dtype']}: indices differ from "
+                                     "the torch path past the tie rule")
+            shapes.append(res)
+            del args, got, want
+    rounds = []
+    for name, blocks in MATCH_CELLS:
+        cell = harness.load_cell(name, 23, 1.0, False, "cuda")
+        drv = harness.load_driver(cell)
+        drv.setup()
+        torch.cuda.synchronize()
+        before = CB.launch_counts["reuse_match"]
+        t0 = time.time()
+        drv.round(1)
+        torch.cuda.synchronize()
+        launches = CB.launch_counts["reuse_match"] - before
+        res = dict(cell=name, reuse_blocks=blocks, launches=launches,
+                   reuse_passes=launches / blocks,
+                   round_s=time.time() - t0)
+        log(f"  one round of {name}: {res}")
+        drv.release()
+        del drv
+        torch.cuda.empty_cache()
+        if launches == 0 or launches % blocks:
+            raise AssertionError(f"{name}: {launches} reuse_match launches "
+                                 f"in a round, not a multiple of {blocks}")
+        rounds.append(res)
+    return dict(shapes=shapes, rounds=rounds)
+
+
 def edit_stage_times(cams, dev) -> dict:
     """CUDA-event medians at the edit path's full shapes (SD-1.5 widths,
     random weights, 64^2 latents of the 512^2 guidance input, 10 views in 2
@@ -3505,7 +3655,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write the measurements to this JSON file")
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--fit-steps", type=int, default=FIT_STEPS,
                     help="steps of phase 4's fit (default %(default)s; the "
@@ -4526,9 +4677,17 @@ def main(argv=None) -> int:
         segment = segment_cell(bench, dev)
         log(json.dumps({"segment": segment}))
 
+    # ---- phase 15: the reuse's match -------------------------------------
+    reuse_match = {}
+    if 15 in phases:
+        log("phase 15: the reuse's match kernel against the torch path, and "
+            "its launches in one round of each edit cell")
+        reuse_match = reuse_match_cell(dev)
+        log(json.dumps({"reuse_match": reuse_match}))
+
     if phases != ALL_PHASES:
         log(f"phases {sorted(phases)} passed; the result lines need all "
-            "fourteen")
+            "fifteen")
         return 0
 
     v0 = fit["view0"]
@@ -4735,6 +4894,31 @@ def main(argv=None) -> int:
                                      "plain_ms", "bound_ms")}
                   for c in preprocess],
     })
+    # the reuse's match kernel: launches on the edit paths above and in one
+    # round of each edit cell, times at phase 15's first shape (SD-1.5's
+    # first level, bf16 tokens)
+    m0 = reuse_match["shapes"][0]
+    kernels.append({
+        "name": "reuse_match",
+        "route": "cuda",
+        "source": "dge_tpu_torch/csrc/reuse_match.cu",
+        # the jnp einsum and argmax, which XLA fused (no Pallas kernel)
+        "replaces": "dge_tpu/models/layers.py:246",
+        "launches": render_launches["reuse_match"],
+        "launches_edit": edit["launches"]["reuse_match"],
+        "launches_local_edit": edit_system["local"]["launches"]["reuse_match"],
+        "launches_sds": edit_system["sds"]["launches"]["reuse_match"],
+        "launches_rounds": {r["cell"]: r["launches"]
+                            for r in reuse_match["rounds"]},
+        # indices: those that differ where the tie rule holds them
+        "max_abs_err": float(max(c["mismatched_clear"]
+                                 for c in reuse_match["shapes"])),
+        **{k: m0[k] for k in ("ms", "kernel_device_ms", "plain_ms",
+                              "bound_ms")},
+        "bound_by": "operations",
+        "library_ms": None,  # no single PyTorch call computes this function
+        "cells": reuse_match["shapes"],
+    })
     # phase 9: each kernel's launches per scenario, one count a rank
     per_rank = {"nccl_world1_train": [multi["nccl_world1"]["launches"]]}
     for world in ("world2", "world4"):
@@ -4758,7 +4942,7 @@ def main(argv=None) -> int:
               "evaluation": ev, "edit": edit, "edit_system": edit_system,
               "multi_gpu": multi, "capture": capture, "bf16_edit": bf16,
               "binning": binning, "preprocess": preprocess,
-              "segment": segment, "card": smi,
+              "segment": segment, "reuse_match": reuse_match, "card": smi,
               "seconds": time.time() - t_start}
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dge_tpu_torch.ops import cuda_build
 from dge_tpu_torch.utils import tracing
 
 # beyond this many logits entries per head-batch the plain path switches to
@@ -343,15 +344,30 @@ class GEGLUFeedForward(nn.Module):
 
 def epi_blockwise_argmax(img, piv_img, lines, pts, threshold: float,
                          block: int = 512):
-    """Epipolar-masked cosine argmax over pivot tokens, evaluated over key
-    blocks without any ``[S, S]`` array (layers.py:246-313).
+    """Epipolar-masked cosine argmax over pivot tokens, without any
+    ``[S, S]`` array (layers.py:246-313).
 
     img [F, S, D] and piv_img [F, K, S, D] normalised tokens, lines
     [F, K, S, 3], pts [S, 3]. Violating pairs count as similarity 0 (not
     -inf); query rows whose every pivot token violates take the unmasked
-    argmax. Ties keep the first index inside a block and the earlier
-    block across blocks. The similarity accumulates in f32 whatever the
-    tokens' dtype (layers.py:286). Returns long [F, K, S]."""
+    argmax. An exact tie goes to the first index. The similarity
+    accumulates in f32 whatever the tokens' dtype (layers.py:286). Returns
+    long [F, K, S].
+
+    On a CUDA device one launch of ``csrc/reuse_match.cu``
+    (``_epi_argmax_kernel``; ``launch_counts["reuse_match"]``), which raises
+    on what it does not take; on the CPU the blockwise torch loop over key
+    blocks of ``block`` (``_epi_argmax_torch``)."""
+    if img.device.type == "cuda":
+        return _epi_argmax_kernel(img, piv_img, lines, pts, threshold)
+    return _epi_argmax_torch(img, piv_img, lines, pts, threshold, block)
+
+
+def _epi_argmax_torch(img, piv_img, lines, pts, threshold: float,
+                      block: int = 512):
+    """``epi_blockwise_argmax`` as torch ops over key blocks of ``block``:
+    ties keep the first index inside a block and the earlier block across
+    blocks."""
     f, k, s, _ = piv_img.shape
     block = min(block, s)
     dev = img.device
@@ -377,6 +393,56 @@ def epi_blockwise_argmax(img, piv_img, lines, pts, threshold: float,
             best_idx.copy_(torch.where(better, ix, best_idx))
         all_bad &= viol.all(dim=-1)
     return torch.where(all_bad, br_idx, bm_idx)
+
+
+def bf16_terms(img, piv_img):
+    """f32 tokens as bf16 operands of three times the width whose product
+    is hi·hi' + hi·lo' + lo·hi' (hi = the bf16 rounding, lo = the bf16
+    rounding of the rest): each product keeps ~16 bits where bf16 alone
+    keeps 8; the missing lo·lo' term and the rests are 2^-16 of it."""
+
+    def split(x):
+        hi = x.to(torch.bfloat16)
+        return hi, (x - hi.float()).to(torch.bfloat16)
+
+    img_hi, img_lo = split(img)
+    piv_hi, piv_lo = split(piv_img)
+    return (torch.cat([img_hi, img_hi, img_lo], dim=-1),
+            torch.cat([piv_hi, piv_lo, piv_hi], dim=-1))
+
+
+def _epi_argmax_kernel(img, piv_img, lines, pts, threshold: float):
+    """``epi_blockwise_argmax`` on the card: one launch of
+    ``csrc/reuse_match.cu`` on the current stream, no host read. bf16
+    tokens go to the tensor cores as they are; f32 tokens as
+    ``bf16_terms``. Raises, before any launch, on tokens that require a
+    gradient in grad mode, a width that is not a multiple of 16, another
+    dtype, a non-contiguous or misshapen tensor, or another device."""
+    f, k, s, d = piv_img.shape
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (img, piv_img, lines, pts)):
+        raise ValueError("epi_blockwise_argmax: the kernel takes no "
+                         "gradient; call it under torch.no_grad()")
+    if d % 16:
+        raise ValueError(f"epi_blockwise_argmax: token width {d} is not a "
+                         "multiple of 16 (the kernel's bf16 product depth)")
+    dt = img.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"epi_blockwise_argmax: tokens must be bfloat16 or "
+                         f"float32, got {dt}")
+    f32 = torch.float32
+    if cuda_build.check_tensors("reuse_match", [
+            ("img", img, dt, (f, s, d)), ("piv_img", piv_img, dt, (f, k, s, d)),
+            ("lines", lines, f32, (f, k, s, 3)), ("pts", pts, f32, (s, 3))]):
+        raise ValueError(f"epi_blockwise_argmax: the kernel runs on a CUDA "
+                         f"device, not {img.device}")
+    if dt == f32:
+        img, piv_img = bf16_terms(img, piv_img)
+    out = torch.empty((f, k, s), dtype=torch.long, device=img.device)
+    cuda_build.launch("reuse_match", "reuse_match", img.device, img, piv_img,
+                      lines, pts, f, k, s, img.shape[-1], float(threshold),
+                      out)
+    return out
 
 
 def _unit(x):

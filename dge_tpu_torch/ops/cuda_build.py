@@ -45,7 +45,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 SOURCES = ("pairs_composite", "pairs_backward", "pairs_logdot",
-           "list_stream", "binning", "preprocess")
+           "list_stream", "binning", "preprocess", "reuse_match")
 
 
 def source_path(name: str) -> str:
@@ -115,6 +115,7 @@ ENTRIES = {name: (library, kinds.replace(" ", ""))
     ("binning_emit", "binning", "ppppppp iiiiiiiiii ppp"),
     ("binning_ranges", "binning", "p iiiii p iiii pppppp"),
     ("preprocess_forward", "preprocess", "pppppppppp iiiiii f pppppp"),
+    ("reuse_match", "reuse_match", "pppp iiii f p"),
 )}
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 _KINDS = {"p": "a tensor or None", "i": "an integer (not a bool) in int32's "
@@ -130,12 +131,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # that path's wrapper each time it has launched K1's two kernels over a list
 # stream; binning_rects, binning_emit and binning_ranges are the pair
 # binning's kernels (ops/binning.py); preprocess is the preprocess kernel
-# (ops/projection.py)
+# (ops/projection.py); reuse_match is the pivot reuse's epipolar argmax
+# (models/layers.py)
 launch_counts = tracing.group("launch_counts", dict.fromkeys(
     ("pairs_composite", "pairs_composite_combine", "pairs_pass1",
      "pairs_suffix", "pairs_pass2", "pairs_fold", "list_stream",
      "tiles_composite", "pairs_logdot", "pairs_logdot_combine",
-     "binning_rects", "binning_emit", "binning_ranges", "preprocess"), 0))
+     "binning_rects", "binning_emit", "binning_ranges", "preprocess",
+     "reuse_match"), 0))
 
 
 def reset_launch_counts() -> None:

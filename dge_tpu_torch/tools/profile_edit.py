@@ -19,8 +19,9 @@ Bound = the larger of the stage's FLOPs at the card's peak for the
 networks' dtype (989 TFLOP/s dense bf16, 67 TFLOP/s f32: TF32 stays off, as
 everywhere in the port) and its bytes at 3.35 TB/s (the stage's inputs and
 outputs and the weights of the networks it runs, each read or written
-once). It is a lower bound: the reuse gather's cosine similarity runs in
-f32 inside bf16 networks, and every FLOP is counted at the faster rate.
+once). For bf16 networks it is a lower bound. For f32 networks the reuse
+match runs on the bf16 tensor cores (three bf16 products a product,
+``layers.bf16_terms``) while its FLOPs count at the f32 rate.
 
     python -m dge_tpu_torch.tools.profile_edit [--dtype bfloat16|float32]
         [--iters 3] [--out outputs/profile_edit_cuda.md]

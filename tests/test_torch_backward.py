@@ -284,7 +284,8 @@ def test_cuda_train_on_cpu_launches_nothing(rng):
                            "pairs_fold", "list_stream", "tiles_composite",
                            "pairs_logdot",
                            "pairs_logdot_combine", "binning_rects",
-                           "binning_emit", "binning_ranges", "preprocess"}
+                           "binning_emit", "binning_ranges", "preprocess",
+                           "reuse_match"}
     xyz = ts.xyz.clone().requires_grad_(True)
     out = TR.render(ts.replace(xyz=xyz), CameraArrays.from_camera(cam, "cpu"),
                     tile_px=16, backend="cuda_train")

@@ -784,7 +784,7 @@ def test_build_paths_stay_in_repo():
         assert os.path.isfile(CB.source_path(name))
     assert CB.SOURCES == ("pairs_composite", "pairs_backward",
                           "pairs_logdot", "list_stream", "binning",
-                          "preprocess")
+                          "preprocess", "reuse_match")
     assert os.path.isfile(os.path.join(CB.CSRC_DIR, "pair_alpha.cuh"))
 
 

@@ -251,7 +251,8 @@ def test_row_wrappers_take_plain_versions_for_cpu_tensors():
                            "pairs_fold", "list_stream", "tiles_composite",
                            "pairs_logdot",
                            "pairs_logdot_combine", "binning_rects",
-                           "binning_emit", "binning_ranges", "preprocess"}
+                           "binning_emit", "binning_ranges", "preprocess",
+                           "reuse_match"}
     for log_space in (False, True):
         scratch, mask = TPC.rows_forward(*args, k["row_tile"],
                                          log_space=log_space, **k["kw"])
